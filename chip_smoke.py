@@ -1,0 +1,375 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
+
+Run from the root of a checkout on a machine with a CUDA GPU and the CUDA
+toolkit.  It
+
+1. reports the card (name and power limit) and turns TF32 off;
+2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. holds K1 (the fused LSTM cell) to its plain PyTorch version at every
+   layer shape of the four paper configs and the kernel-test sweep, f32 and
+   bf16, with and without the PWL activations, and times it at the shapes
+   of the main path beside its bound, the plain version and ``torch.lstm_cell``;
+4. drives the main path: ``AnomalyService("lstm-ae-f64-d6", schedule="fused")``
+   at the ``serve_64`` shape (B=8192, T=64, F=64) — calibrate, then three
+   scoring requests — and checks that K1 ran 3 x 6 x 64 times, that the
+   scores agree with the ``sequential`` and ``wavefront`` schedules on the
+   card and with the CPU path, and times each schedule; then the same at a
+   smaller batch for ``lstm-ae-f32-d2``;
+5. streams a few timesteps and checks them against batch scoring.
+
+Any failed check raises and the script exits non-zero; without a GPU, or
+without the rest of the repository beside it, it exits non-zero at once.
+The line before the last is ``{"kernels": [...]}`` and the last line is
+``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
+measurement to PATH.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM data-sheet peaks at a 700 W limit (dense, no sparsity)
+PEAK_F32_FLOPS = 67e12      # FP32 outside the tensor cores
+PEAK_BYTES = 3.35e12        # HBM3
+
+F32_TOL = 1e-5              # tests/test_kernels.py bar for f32
+BF16_TOL = 2e-2             # and for bf16
+SCHEDULE_RTOL = 1e-4        # 64 compounding steps of differently ordered f32 sums
+SCHEDULE_ATOL = 1e-6
+SWEEP = ((16, 16), (32, 64), (64, 128), (128, 256))
+RAGGED_B = 37
+
+K1_SOURCE = "src/repro_torch/kernels/csrc/lstm_cell.cu"
+K1_REPLACES = "src/repro/kernels/lstm_cell.py:79"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip()
+
+
+def k1_bound(b: int, in_dim: int, hidden: int, s: int = 4) -> tuple[float, float]:
+    """(FLOP, bytes) of one K1 launch: each input read once, each output written once."""
+    flops = 8.0 * b * hidden * (in_dim + hidden)
+    nbytes = b * (in_dim + hidden) * s + b * hidden * (8 + s) + 16 * hidden * (in_dim + hidden) + 16 * hidden
+    return flops, float(nbytes)
+
+
+def device_ms(torch, fn, iters: int = 50, reps: int = 5) -> float:
+    """Median device time of one ``fn()`` call, from CUDA events around
+    ``iters`` calls queued behind a sleep kernel, so the host's launch cost
+    does not open gaps on the device."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    samples = []
+    for _ in range(reps):
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    return statistics.median(samples)
+
+
+def host_ms(torch, fn, iters: int = 200) -> float:
+    """Wall time of one ``fn()`` call in a Python loop, launch cost included."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def cell_inputs(torch, b, in_dim, hidden, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    x = randn(b, in_dim).to(dtype)
+    h = randn(b, hidden).to(dtype)
+    c = randn(b, hidden)
+    wx = randn(4, in_dim, hidden, scale=in_dim ** -0.5)
+    wh = randn(4, hidden, hidden, scale=hidden ** -0.5)
+    bias = randn(4, hidden, scale=0.1)
+    return x, h, c, wx, wh, bias
+
+
+def paper_layer_shapes(get_config) -> list[tuple[int, int]]:
+    shapes = []
+    for arch in ("lstm-ae-f32-d2", "lstm-ae-f32-d6", "lstm-ae-f64-d2", "lstm-ae-f64-d6"):
+        ae = get_config(arch).lstm_ae
+        shapes += list(zip(ae.layer_input_sizes(), ae.layer_sizes()))
+    return list(dict.fromkeys(shapes))
+
+
+def check_k1(torch, results) -> None:
+    from repro_torch.config import get_config
+    from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_plain
+
+    shapes = list(dict.fromkeys(paper_layer_shapes(get_config) + list(SWEEP)))
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for in_dim, hidden in shapes:
+        for b in (1, RAGGED_B, 8192):
+            for dtype in (torch.float32, torch.bfloat16):
+                for pwl in (False, True):
+                    args = cell_inputs(torch, b, in_dim, hidden, dtype, seed=n)
+                    hk, ck = lstm_cell_cuda(*args, pwl=pwl)
+                    torch.cuda.synchronize()
+                    hp, cp = lstm_cell_plain(*args, pwl=pwl)
+                    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                    if hk.dtype != dtype or ck.dtype != torch.float32:
+                        raise AssertionError(f"K1 output dtypes {hk.dtype}, {ck.dtype}")
+                    for got, want in ((hk, hp), (ck, cp)):
+                        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+                        err[dtype] = max(err[dtype], float((got.float() - want.float()).abs().max()))
+                    n += 1
+    results["k1_checks"] = n
+    results["k1_max_abs_err_f32"] = err[torch.float32]
+    results["k1_max_abs_err_bf16"] = err[torch.bfloat16]
+    log(f"[k1] {n} checks against the plain version passed over {len(shapes)} (In, H) shapes "
+        f"x B in (1, {RAGGED_B}, 8192) x (f32, bf16) x pwl: max abs err "
+        f"f32 {err[torch.float32]:.3g} (tol {F32_TOL}), bf16 {err[torch.bfloat16]:.3g} (tol {BF16_TOL})")
+
+
+def time_k1(torch, b: int, results, card) -> dict:
+    """K1 at the main path's shapes: every layer of lstm-ae-f64-d6 at batch b, f32."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_plain
+
+    ae = get_config("lstm-ae-f64-d6").lstm_ae
+    rows = []
+    for li, (in_dim, hidden) in enumerate(zip(ae.layer_input_sizes(), ae.layer_sizes())):
+        x, h, c, wx, wh, bias = cell_inputs(torch, b, in_dim, hidden, torch.float32, seed=1000 + li)
+        h_out, c_out = torch.empty_like(h), torch.empty_like(c)
+        w_ih = wx.permute(0, 2, 1).reshape(4 * hidden, in_dim).contiguous()
+        w_hh = wh.permute(0, 2, 1).reshape(4 * hidden, hidden).contiguous()
+        b_ih, b_hh = bias.reshape(4 * hidden).contiguous(), torch.zeros(4 * hidden, device="cuda")
+        hl, cl = torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)
+        hp, cp = lstm_cell_plain(x, h, c, wx, wh, bias)
+        torch.testing.assert_close(hl, hp, rtol=F32_TOL, atol=F32_TOL)   # same function
+        torch.testing.assert_close(cl, cp, rtol=F32_TOL, atol=F32_TOL)
+        flops, nbytes = k1_bound(b, in_dim, hidden)
+        row = {
+            "in": in_dim, "hidden": hidden, "batch": b, "flop": flops, "bytes": nbytes,
+            "kernel_ms": device_ms(torch, lambda: lstm_cell_cuda(x, h, c, wx, wh, bias,
+                                                                 h_out=h_out, c_out=c_out)),
+            "kernel_host_ms": host_ms(torch, lambda: lstm_cell_cuda(x, h, c, wx, wh, bias,
+                                                                    h_out=h_out, c_out=c_out)),
+            "plain_ms": device_ms(torch, lambda: lstm_cell_plain(x, h, c, wx, wh, bias)),
+            "library_ms": device_ms(torch, lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)),
+            "ops_ms": flops / PEAK_F32_FLOPS * 1e3,
+            "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+        }
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        rows.append(row)
+        log(f"[k1 time] f64-d6 layer {li} (In={in_dim}, H={hidden}, B={b}, f32): "
+            f"kernel {row['kernel_ms']:.5f} ms (device), {row['kernel_host_ms']:.5f} ms per call "
+            f"in a Python loop; plain {row['plain_ms']:.5f} ms; torch.lstm_cell "
+            f"{row['library_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms "
+            f"({'operations' if row['ops_ms'] >= row['bytes_ms'] else 'bytes'}) [{card}]")
+    ops = sum(r["ops_ms"] for r in rows)
+    mem = sum(r["bytes_ms"] for r in rows)
+    total = {k: sum(r[k] for r in rows) for k in ("kernel_ms", "kernel_host_ms", "plain_ms",
+                                                   "library_ms", "flop", "bytes")}
+    total["bound_ms"] = max(ops, mem)
+    total["bound_by"] = "operations" if ops >= mem else "bytes"
+    results["k1_layers"] = rows
+    results["k1_timestep"] = total
+    log(f"[k1 time] one timestep of lstm-ae-f64-d6 at B={b} (6 launches): kernel "
+        f"{total['kernel_ms']:.5f} ms, {total['kernel_host_ms']:.5f} ms per 6 calls in a Python "
+        f"loop, plain {total['plain_ms']:.5f} ms, torch.lstm_cell {total['library_ms']:.5f} ms, "
+        f"bound {total['bound_ms']:.5f} ms ({total['bound_by']}; {total['flop']:.4g} FLOP, "
+        f"{total['bytes']:.4g} B) [{card}]")
+    return total
+
+
+def drive_service(torch, arch: str, batch: int, seq_len: int, requests: int, results, card):
+    """Serve ``arch`` on every single-GPU schedule; check the kernel path's
+    launch count and its agreement with the other schedules and the CPU."""
+    from repro_torch.data import TimeseriesConfig, make_batch
+    from repro_torch.engine import AnomalyService
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.utils import params_to_numpy
+
+    fused = AnomalyService(arch, schedule="fused", device="cuda", seed=0)
+    feats, depth = fused.features, len(fused.cfg.lstm_ae.layer_sizes())
+    data_cfg = TimeseriesConfig(features=feats, seq_len=seq_len, batch=batch, anomaly_rate=0.05)
+    series = [make_batch(data_cfg, i)[0] for i in range(requests)]
+    threshold = fused.calibrate(TimeseriesConfig(features=feats, seq_len=seq_len, batch=batch))
+
+    torch.cuda.synchronize()
+    h2d = host_ms(torch, lambda: series[0].to("cuda"), iters=5)
+    out = {"arch": arch, "batch": batch, "seq_len": seq_len, "requests": requests,
+           "threshold": threshold, "h2d_ms": h2d, "schedules": {}}
+    scores = {}
+    for name in ("fused", "sequential", "wavefront"):
+        svc = fused
+        if name != "fused":
+            svc = AnomalyService(arch, schedule=name, device="cuda", seed=0)
+            svc.recalibrate(params=fused.params, threshold=threshold)
+            svc.score(series[0]).cpu()   # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        scores[name] = [svc.score(s).cpu() for s in series]
+        dt = time.perf_counter() - t0
+        launches = launch_counts()["lstm_cell"]
+        want = requests * depth * seq_len if name == "fused" else 0
+        if launches != want:
+            raise AssertionError(f"{arch} [{name}]: K1 launched {launches} times, expected {want}")
+        alerts = sum(int((s > threshold).sum()) for s in scores[name])
+        ms = dt / requests * 1e3
+        rate = requests * batch * seq_len / dt
+        out["schedules"][name] = {"ms_per_request": ms, "timesteps_per_s": rate,
+                                  "k1_launches": launches, "alerts": alerts}
+        log(f"[serve] {arch} [{name}] B={batch} T={seq_len}: {requests} requests, "
+            f"{ms:.3f} ms/request, {rate:,.0f} timesteps/s, K1 launches {launches}, "
+            f"alerts={alerts} [{card}]")
+        if name == "fused":
+            out["k1_launches"] = launches
+    # the same requests with the input already on the card: the request
+    # time without its host-to-device copy (outside the counted run)
+    on_card = [s.to("cuda") for s in series]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in on_card:
+        fused.score(s).cpu()
+    out["fused_ms_per_request_input_on_card"] = (time.perf_counter() - t0) / requests * 1e3
+    log(f"[serve] {arch} [fused] with the input already on the card: "
+        f"{out['fused_ms_per_request_input_on_card']:.3f} ms/request [{card}]")
+    for name in ("sequential", "wavefront"):
+        for got, want in zip(scores["fused"], scores[name]):
+            torch.testing.assert_close(got, want, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
+    rows = min(batch, 256)
+    cpu = AnomalyService(arch, schedule="fused", device="cpu", seed=0)
+    cpu.recalibrate(params=params_to_numpy(fused.params))
+    cpu_scores = cpu.score(series[0][:rows])
+    torch.testing.assert_close(scores["fused"][0][:rows], cpu_scores,
+                               rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
+    err = max(float((scores["fused"][0] - scores[n][0]).abs().max()) for n in ("sequential", "wavefront"))
+    out["max_abs_score_diff_vs_other_schedules"] = err
+    out["max_abs_score_diff_vs_cpu"] = float((scores["fused"][0][:rows] - cpu_scores).abs().max())
+    log(f"[serve] {arch}: fused scores agree with sequential and wavefront (max abs diff "
+        f"{err:.3g}) and with the CPU path on {rows} rows (max abs diff "
+        f"{out['max_abs_score_diff_vs_cpu']:.3g}); rtol {SCHEDULE_RTOL}, atol {SCHEDULE_ATOL}; "
+        f"host-to-device copy of one request {h2d:.3f} ms")
+    results.setdefault("serve", []).append(out)
+    return fused, series[0]
+
+
+def check_streaming(torch, svc, series, results) -> None:
+    rows, steps = series[:512, :8], 8
+    sess = svc.stream_start(rows.shape[0])
+    state = svc.engine.init_stream_state(rows.shape[0])
+    ys = []
+    for t in range(steps):
+        errors, sess = svc.stream_step(rows[:, t], sess)
+        y_t, state = svc.engine.stream(rows[:, t], state)
+        ys.append(y_t)
+    recon = svc.engine.reconstruct({"series": rows})
+    torch.testing.assert_close(torch.stack(ys, dim=1), recon, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
+    torch.testing.assert_close(errors, svc.score(rows), rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
+    results["streaming"] = {"rows": rows.shape[0], "steps": steps}
+    log(f"[stream] {steps} stream_step calls on {rows.shape[0]} rows agree with reconstruct and score")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json", default=None, help="also write every measurement to this file")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible; this script runs on the GPU only",
+              file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} visible device(s)")
+    log(f"[card] allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}")
+
+    t0 = time.perf_counter()
+    paths = _build.build()
+    results["build_s"] = time.perf_counter() - t0
+    for name, path in paths.items():
+        report = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
+                  if "registers" in ln or "spill" in ln]
+        log(f"[build] {name}: {path.name} in {results['build_s']:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+        for ln in report:
+            log(f"[build]   {ln}")
+
+    from repro_torch.config import LSTMAE_SHAPES
+
+    serve = next(s for s in LSTMAE_SHAPES if s.name == "serve_64")   # B=8192, T=64
+    check_k1(torch, results)
+    k1 = time_k1(torch, serve.global_batch, results, card)
+
+    svc, first = drive_service(torch, "lstm-ae-f64-d6", serve.global_batch, serve.seq_len, 3,
+                               results, card)
+    main_launches = results["serve"][0]["k1_launches"]
+    drive_service(torch, "lstm-ae-f32-d2", 1024, 64, 3, results, card)
+    check_streaming(torch, svc, first, results)
+
+    kernels = {"kernels": [{
+        "name": "lstm_cell",
+        "route": "cuda",
+        "source": K1_SOURCE,
+        "replaces": K1_REPLACES,
+        "launches": main_launches,
+        "max_abs_err": results["k1_max_abs_err_f32"],
+        "ms": k1["kernel_ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
+    }]}
+    results["kernels"] = kernels["kernels"]
+    results["total_s"] = time.perf_counter() - t_start
+    log(f"[done] {results['total_s']:.1f} s; kernel times are per timestep of lstm-ae-f64-d6 "
+        f"at B={serve.global_batch} (6 launches); launches are the main path's 3 requests")
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(results, f, indent=1)
+    print(card, flush=True)
+    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

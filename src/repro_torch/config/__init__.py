@@ -1,0 +1,13 @@
+from repro_torch.config.core import LSTMAE_SHAPES, LSTMAEConfig, ModelConfig, ShapeConfig
+from repro_torch.config.registry import REGISTRY, get_config, list_archs, reduced_config
+
+__all__ = [
+    "LSTMAE_SHAPES",
+    "LSTMAEConfig",
+    "ModelConfig",
+    "REGISTRY",
+    "ShapeConfig",
+    "get_config",
+    "list_archs",
+    "reduced_config",
+]

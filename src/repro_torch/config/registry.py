@@ -1,0 +1,40 @@
+"""Architecture registry of the port: ``--arch <id>`` resolves here.
+
+Each ``repro_torch/configs/<id>.py`` module defines ``CONFIG`` (the paper's
+configuration) and ``reduced()`` (a smoke-test-sized config of the same
+family).  The port serves the paper's four LSTM-AE models.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.config.core import ModelConfig
+
+_ARCH_MODULES: dict[str, str] = {
+    "lstm-ae-f32-d2": "repro_torch.configs.lstm_ae_f32_d2",
+    "lstm-ae-f32-d6": "repro_torch.configs.lstm_ae_f32_d6",
+    "lstm-ae-f64-d2": "repro_torch.configs.lstm_ae_f64_d2",
+    "lstm-ae-f64-d6": "repro_torch.configs.lstm_ae_f64_d6",
+}
+
+REGISTRY = dict(_ARCH_MODULES)  # public view of known ids
+
+
+def _module(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(_ARCH_MODULES[arch])
+
+
+def get_config(arch: str) -> ModelConfig:
+    """The exact published configuration for ``arch``."""
+    return _module(arch).CONFIG
+
+
+def reduced_config(arch: str) -> ModelConfig:
+    """A smoke-test-sized config of the same family."""
+    return _module(arch).reduced()
+
+
+def list_archs() -> list[str]:
+    return sorted(_ARCH_MODULES)

@@ -1,0 +1,17 @@
+"""LSTM-AE-F64-D6 — 6 layers, 64->32->16->8->16->32->64 features.
+
+Paper Section 4.1, Table 1: RH_m = 8 on the ZCU104.
+"""
+from repro_torch.config.core import LSTMAEConfig, ModelConfig
+
+CONFIG = ModelConfig(
+    name="lstm-ae-f64-d6",
+    family="lstm_ae",
+    num_layers=6,
+    lstm_ae=LSTMAEConfig(input_features=64, depth=6),
+)
+
+
+def reduced() -> ModelConfig:
+    # Already small; the reduced config is the config itself under a new name.
+    return CONFIG.with_overrides(name="lstm-ae-f64-d6-reduced")

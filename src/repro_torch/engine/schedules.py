@@ -1,0 +1,183 @@
+"""Named execution schedules for the LSTM-AE (paper Section 3).
+
+Counterpart of ``repro/engine/schedules.py``.  Each schedule walks the
+(layer x time) iteration grid of the recurrent stack its own way and is
+selected by name:
+
+* ``"sequential"`` — layer-by-layer: layer i runs over all timesteps
+  before layer i+1 (plain PyTorch).
+* ``"wavefront"``  — temporal-parallel dataflow (§3.2): at wavefront step k
+  every layer fires on its own timestep, as one batched cell (plain PyTorch).
+* ``"pipelined"``  — multi-device pipeline; on one GPU it degenerates to
+  the wavefront schedule.  Two or more stages wait for the multi-GPU slice.
+* ``"fused"``      — the hand-written CUDA LSTM cell (``kernels/lstm_cell.py``,
+  K1) once per (layer, timestep), walked layer by layer.
+
+Third-party backends register with :func:`register_schedule`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import TYPE_CHECKING, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.config.core import ModelConfig
+from repro_torch.core.lstm import lstm_ae_sequential
+from repro_torch.core.temporal import wavefront_forward
+from repro_torch.kernels.lstm_cell import pack_weights
+from repro_torch.kernels.ops import lstm_cell_op
+from repro_torch.utils import Params
+
+if TYPE_CHECKING:
+    from repro_torch.engine.base import EngineConfig
+
+# (params, xs (T, B, F)) -> reconstruction (T, B, F)
+ForwardFn = Callable[[Params, torch.Tensor], torch.Tensor]
+
+
+class Schedule(NamedTuple):
+    """A resolved schedule: the executor plus its Eq-1 accounting kind."""
+    name: str            # requested registry name
+    resolved: str        # actual executor after fallbacks (may differ)
+    latency_kind: str    # "dataflow" | "sequential" (core.latency Eq-1 mode)
+    forward: ForwardFn
+
+    @property
+    def tag(self) -> str:
+        """Display form: the requested name, plus the resolved executor
+        when it differs (e.g. ``pipelined->wavefront``)."""
+        return self.name if self.resolved == self.name else f"{self.name}->{self.resolved}"
+
+
+# name -> factory(cfg, engine_cfg) -> Schedule
+_SCHEDULES: dict[str, Callable[[ModelConfig, "EngineConfig"], Schedule]] = {}
+# name -> EngineConfig field names the factory reads (None = all), so configs
+# differing only in fields a schedule ignores share one cached Schedule
+_SCHEDULE_FIELDS: dict[str, Optional[tuple[str, ...]]] = {}
+
+SCHEDULE_CACHE_CAPACITY = 32
+_RESOLVE_CACHE: "OrderedDict[tuple, Schedule]" = OrderedDict()
+
+
+def register_schedule(name: str, *, config_fields: Optional[tuple[str, ...]] = None):
+    """Register a schedule factory under ``name`` (decorator).
+
+    The factory receives ``(model_cfg, engine_cfg)`` and returns a
+    :class:`Schedule` whose ``forward`` maps ``(params, xs (T,B,F))`` to the
+    reconstruction ``(T,B,F)``.  ``config_fields`` names the
+    :class:`EngineConfig` fields the factory reads; omit it to key the
+    resolve cache on every field."""
+    def deco(factory):
+        _SCHEDULES[name] = factory
+        _SCHEDULE_FIELDS[name] = config_fields
+        _RESOLVE_CACHE.clear()  # re-registration must not serve stale entries
+        return factory
+    return deco
+
+
+def unregister_schedule(name: str) -> None:
+    """Remove a registered schedule and drop its cached resolutions."""
+    _SCHEDULES.pop(name, None)
+    _SCHEDULE_FIELDS.pop(name, None)
+    _RESOLVE_CACHE.clear()
+
+
+def available_schedules() -> list[str]:
+    return sorted(_SCHEDULES)
+
+
+def _canonical_cfg(name: str, engine_cfg: "EngineConfig") -> "EngineConfig":
+    """Project ``engine_cfg`` onto the fields schedule ``name`` reads."""
+    fields = _SCHEDULE_FIELDS.get(name)
+    if fields is None:
+        return dataclasses.replace(engine_cfg, schedule=name)
+    from repro_torch.engine.base import EngineConfig
+
+    return EngineConfig(schedule=name, **{f: getattr(engine_cfg, f) for f in fields})
+
+
+def resolve_schedule(name: str, cfg: ModelConfig, engine_cfg: "EngineConfig") -> Schedule:
+    """Look up ``name`` in the registry and build its executor, cached per
+    (name, cfg, canonical engine_cfg) in a capped LRU."""
+    if name not in _SCHEDULES:
+        raise ValueError(
+            f"unknown schedule {name!r}; available schedules: "
+            f"{', '.join(available_schedules())}"
+        )
+    key = (name, cfg, _canonical_cfg(name, engine_cfg))
+    sched = _RESOLVE_CACHE.get(key)
+    if sched is None:
+        sched = _SCHEDULES[name](cfg, key[2])
+        _RESOLVE_CACHE[key] = sched
+        while len(_RESOLVE_CACHE) > SCHEDULE_CACHE_CAPACITY:
+            _RESOLVE_CACHE.popitem(last=False)
+    else:
+        _RESOLVE_CACHE.move_to_end(key)
+    return sched
+
+
+def resolve_forward(name: str, cfg: ModelConfig, *, pwl: bool = False,
+                    n_stages: Optional[int] = None) -> ForwardFn:
+    """Schedule name -> ForwardFn with a default EngineConfig."""
+    from repro_torch.engine.base import EngineConfig
+
+    ecfg = EngineConfig(schedule=name, pwl=pwl, n_stages=n_stages)
+    return resolve_schedule(name, cfg, ecfg).forward
+
+
+@register_schedule("sequential", config_fields=("pwl",))
+def _sequential(cfg: ModelConfig, ecfg: "EngineConfig") -> Schedule:
+    def forward(params, xs):
+        return lstm_ae_sequential(params, xs, pwl=ecfg.pwl)
+
+    return Schedule("sequential", "sequential", "sequential", forward)
+
+
+@register_schedule("wavefront", config_fields=("pwl",))
+def _wavefront(cfg: ModelConfig, ecfg: "EngineConfig") -> Schedule:
+    def forward(params, xs):
+        return wavefront_forward(params, xs, pwl=ecfg.pwl)
+
+    return Schedule("wavefront", "wavefront", "dataflow", forward)
+
+
+@register_schedule("fused", config_fields=("pwl",))
+def _fused(cfg: ModelConfig, ecfg: "EngineConfig") -> Schedule:
+    """K1 once per (layer, timestep), layer by layer: the paper's
+    single-module datapath as one kernel launch per cell step.
+
+    Weights are packed once per forward.  Each step writes h' in place into
+    the layer's output buffer (``ys[t]``, which is the next step's h) and
+    updates c in place, so a layer allocates only ys and c."""
+    def forward(params, xs):
+        ys = xs.contiguous()
+        t_len, bsz, _ = xs.shape
+        for layer in params["layers"]:
+            packed = pack_weights(layer)
+            hidden = packed[1].shape[1]
+            out = torch.empty((t_len, bsz, hidden), dtype=xs.dtype, device=xs.device)
+            h = torch.zeros((bsz, hidden), dtype=xs.dtype, device=xs.device)
+            c = torch.zeros((bsz, hidden), dtype=torch.float32, device=xs.device)
+            for t in range(t_len):
+                h, c = lstm_cell_op(packed, ys[t], h, c, pwl=ecfg.pwl, h_out=out[t], c_out=c)
+            ys = out
+        return ys
+
+    return Schedule("fused", "fused", "sequential", forward)
+
+
+@register_schedule("pipelined", config_fields=("pwl", "n_stages"))
+def _pipelined(cfg: ModelConfig, ecfg: "EngineConfig") -> Schedule:
+    """On one GPU the pipeline degenerates to the wavefront schedule (same
+    dataflow semantics, no stage axis; Eq-1 accounting stays "dataflow")."""
+    if cfg.lstm_ae is None:
+        raise ValueError("pipelined schedule requires an lstm_ae config")
+    if (ecfg.n_stages or 1) >= 2:
+        raise NotImplementedError(
+            f"pipelined schedule with n_stages={ecfg.n_stages} needs the "
+            "multi-GPU pipeline, which is not ported yet: ROADMAP.md, queue 1, "
+            "item 10 (Multi-GPU)")
+    wf = _wavefront(cfg, ecfg)
+    return Schedule("pipelined", "wavefront", "dataflow", wf.forward)

@@ -1,0 +1,154 @@
+"""AnomalyService: the paper's deployment scenario as one object.
+
+calibrate (threshold on a benign split) -> score / detect (batched windows)
+-> stream (per-timestep state + running errors), on a named execution
+schedule and one device.  Counterpart of ``repro/engine/service.py``;
+``fit`` and ``open_gateway`` wait for the training and gateway slices, so
+weights come from the seeded init or through ``recalibrate(params=...)``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Union
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config.core import ModelConfig
+from repro_torch.config.registry import get_config
+from repro_torch.core.anomaly import DetectionReport, calibrate_threshold, evaluate_detection
+from repro_torch.core.latency import LatencyEstimate
+from repro_torch.core.lstm import init_lstm_ae
+from repro_torch.data.timeseries import TimeseriesConfig, make_batch
+from repro_torch.engine.base import Engine, EngineConfig, build_engine
+from repro_torch.utils import Params
+
+_UNSET = object()  # distinguishes "not given" from an explicit None
+
+
+@dataclass
+class StreamSession:
+    """Carried state of one streaming connection: per-layer (h, c) plus the
+    running sum of squared reconstruction error per series."""
+    state: Params
+    sq_err_sum: torch.Tensor   # (B,)
+    steps: int
+
+    @property
+    def errors(self) -> torch.Tensor:
+        """Mean squared reconstruction error so far, per series (B,)."""
+        return self.sq_err_sum / max(1, self.steps)
+
+
+class AnomalyService:
+    """End-to-end anomaly detection on a pluggable execution engine.
+
+    >>> svc = AnomalyService("lstm-ae-f64-d6", schedule="fused")   # on the GPU
+    >>> svc.calibrate(TimeseriesConfig(features=64, seq_len=64, batch=8192))
+    >>> report = svc.detect(series, labels)
+    """
+
+    def __init__(
+        self,
+        model: Union[str, ModelConfig],
+        schedule: Union[str, EngineConfig] = "wavefront",
+        *,
+        seed: int = 0,
+        device=None,
+    ):
+        cfg = get_config(model) if isinstance(model, str) else model
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.engine: Engine = build_engine(cfg, schedule, device=self.device)
+        self.seed = seed
+        gen = torch.Generator().manual_seed(seed)
+        self.params: Params = self.engine.bind(init_lstm_ae(gen, cfg, self.device)).params
+        self.threshold: Optional[float] = None
+
+    @property
+    def features(self) -> int:
+        return self.cfg.lstm_ae.input_features
+
+    # -- calibrate --------------------------------------------------------
+
+    def calibrate(
+        self,
+        benign: Union[TimeseriesConfig, torch.Tensor],
+        k_sigma: float = 3.0,
+        seed: int = 99_999,
+    ) -> float:
+        """Threshold = mean + k*std of scores on a benign split.  ``benign``
+        is either a series batch (B, T, F) or a TimeseriesConfig to draw one."""
+        if isinstance(benign, TimeseriesConfig):
+            benign, _ = make_batch(benign, seed)
+        self.threshold = calibrate_threshold(self.score(benign), k_sigma=k_sigma)
+        return self.threshold
+
+    def recalibrate(
+        self,
+        benign: Union[TimeseriesConfig, torch.Tensor, None] = None,
+        *,
+        threshold=_UNSET,
+        params: Optional[Params] = None,
+        k_sigma: float = 3.0,
+        seed: int = 99_999,
+    ) -> Optional[float]:
+        """Refresh the live detector in place.
+
+        Optionally rebinds ``params`` (tensors or numpy arrays, e.g. weights
+        carried from the JAX package) onto the engine, then swaps the
+        threshold: either ``threshold`` directly (an explicit None disables
+        alerting; omit it to leave the threshold alone), or re-derived from
+        a ``benign`` split after the param swap.  Returns the threshold now
+        in effect."""
+        if params is not None:
+            self.params = self.engine.bind(params).params
+        if threshold is not _UNSET:
+            self.threshold = None if threshold is None else float(threshold)
+        elif benign is not None:
+            self.calibrate(benign, k_sigma=k_sigma, seed=seed)
+        return self.threshold
+
+    # -- batch scoring ----------------------------------------------------
+
+    def score(self, series) -> torch.Tensor:
+        """(B, T, F) -> per-sequence reconstruction errors (B,), on the device."""
+        return self.engine.score({"series": series})
+
+    def alerts(self, series) -> torch.Tensor:
+        """(B, T, F) -> boolean alert mask (B,); requires calibration."""
+        return self.score(series) > self._require_threshold()
+
+    def detect(self, series, labels) -> DetectionReport:
+        """Score + evaluate against ground-truth labels (B,)."""
+        return evaluate_detection(self.score(series), labels, self._require_threshold())
+
+    def _require_threshold(self) -> float:
+        if self.threshold is None:
+            raise ValueError("service is not calibrated; call calibrate(...) first")
+        return self.threshold
+
+    # -- streaming --------------------------------------------------------
+
+    def stream_start(self, batch: int) -> StreamSession:
+        return StreamSession(
+            state=self.engine.init_stream_state(batch),
+            sq_err_sum=torch.zeros((batch,), dtype=torch.float32, device=self.device),
+            steps=0,
+        )
+
+    def stream_step(self, x_t, session: StreamSession) -> tuple[torch.Tensor, StreamSession]:
+        """One timestep x_t (B, F); returns (running errors (B,), session)."""
+        x_t = torch.as_tensor(x_t, device=self.device)
+        y_t, state = self.engine.stream(x_t, session.state)
+        sq = torch.mean(torch.square(y_t.float() - x_t.float()), dim=-1)
+        session = StreamSession(
+            state=state, sq_err_sum=session.sq_err_sum + sq, steps=session.steps + 1
+        )
+        return session.errors, session
+
+    # -- analytics --------------------------------------------------------
+
+    def latency_model(self, timesteps: int, **kw) -> LatencyEstimate:
+        """Eq-1 accounting of the bound schedule (paper accelerator model)."""
+        return self.engine.latency_model(timesteps, **kw)

@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels for Hopper, with their plain PyTorch versions.
+
+- lstm_cell.py  K1, the fused LSTM cell (``csrc/lstm_cell.cu``)
+- ops.py        device-dispatching wrappers and the launch counts
+- _build.py     nvcc build at first use, ctypes loading
+
+The kernels are built and loaded inside the calls that launch them, never
+at import, so the package imports where there is no CUDA toolkit.
+"""

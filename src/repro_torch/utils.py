@@ -1,0 +1,57 @@
+"""Parameter helpers: initialisation and the weight carrier to and from numpy.
+
+Parameters are plain nested containers of tensors, in the JAX package's
+layout: ``{"layers": ({"wx": (In, 4H), "wh": (H, 4H), "b": (4H,)}, ...)}``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+Params = Any  # nested dict / tuple / list of tensors
+
+
+def truncated_normal_init(
+    shape: tuple[int, ...], fan_in: int | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """He-style truncated normal (std = 1/sqrt(fan_in), cut at 2 std) on the CPU.
+
+    The distribution of ``repro.utils.truncated_normal_init``; the values
+    differ, because ``torch.Generator`` and ``jax.random`` draw other bits."""
+    if fan_in is None:
+        fan_in = shape[0] if len(shape) >= 1 else 1
+    std = 1.0 / math.sqrt(max(1, fan_in))
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t * std
+
+
+def _map(tree: Params, fn) -> Params:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+def params_from_numpy(tree: Params, device: Union[str, torch.device, None] = None) -> Params:
+    """Numpy arrays (e.g. ``np.asarray`` of the JAX package's params) or
+    tensors -> tensors on ``device``, same containers and dtypes.  Arrays
+    are copied, so the tensors never share memory with the caller's arrays."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        return a.to(dev) if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a)).to(dev)
+
+    return _map(tree, leaf)
+
+
+def params_to_numpy(tree: Params) -> Params:
+    """Tensors -> numpy arrays on the host, same containers."""
+    return _map(tree, lambda t: t.detach().cpu().numpy())

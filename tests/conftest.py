@@ -7,6 +7,11 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (hand-written CUDA kernels); skips elsewhere")
+
 # -- shared gateway/transport test helpers (test_gateway.py, test_server.py).
 # Both suites check the same contract — pooled/socketed serving is value-
 # identical to solo streaming — so the reference data and solo oracle live
