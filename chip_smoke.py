@@ -16,7 +16,22 @@ toolkit.  It
    scores agree with the ``sequential`` and ``wavefront`` schedules on the
    card and with the CPU path, and times each schedule; then the same at a
    smaller batch for ``lstm-ae-f32-d2``;
-5. streams a few timesteps and checks them against batch scoring.
+5. streams a few timesteps and checks them against batch scoring;
+6. holds K2 (the sequence-streaming LSTM layer) to its plain version at
+   every paper layer shape (B in 1, 37, 8192; T=64) and the sweep up to
+   (128, 256) at a smaller B*T, f32 and bf16, PWL on and off — shapes whose
+   weights stay in shared memory and shapes that read them from L2 — and
+   times it per layer of lstm-ae-f64-d6 at B=8192, T=64 beside its bound,
+   the plain version, a one-layer cuDNN LSTM and 64 x K1;
+7. drives K2's path, ``ops.lstm_seq_op``, layer by layer through
+   lstm-ae-f64-d6 at B=8192, T=64 (6 launches) and checks the
+   reconstruction against the fused schedule's;
+8. drives the gateway: ``AnomalyService("lstm-ae-f64-d6", "fused")`` at full
+   width, ``open_gateway(capacity=1024, max_batch=256)``: 2048 logical
+   streams churned through the pool (16 sampled streams checked against
+   solo ``stream_step``), then 512 one-shot windows of lengths 8-64 (each
+   score checked against ``score_masked`` of the window alone, and K1's
+   launches against 6 x bucket_T per flush).
 
 Any failed check raises and the script exits non-zero; without a GPU, or
 without the rest of the repository beside it, it exits non-zero at once.
@@ -45,11 +60,26 @@ F32_TOL = 1e-5              # tests/test_kernels.py bar for f32
 BF16_TOL = 2e-2             # and for bf16
 SCHEDULE_RTOL = 1e-4        # 64 compounding steps of differently ordered f32 sums
 SCHEDULE_ATOL = 1e-6
+LIBRARY_RTOL = 1e-3         # cuDNN's LSTM against the plain version, 64 steps
+LIBRARY_ATOL = 1e-4
 SWEEP = ((16, 16), (32, 64), (64, 128), (128, 256))
 RAGGED_B = 37
 
 K1_SOURCE = "src/repro_torch/kernels/csrc/lstm_cell.cu"
 K1_REPLACES = "src/repro/kernels/lstm_cell.py:79"
+K2_SOURCE = "src/repro_torch/kernels/csrc/lstm_seq.cu"
+K2_REPLACES = "src/repro/kernels/lstm_seq.py:86"
+K2_T = 64                   # timesteps per K2 launch at the main path's shape
+SWEEP_BT = ((1, 16), (RAGGED_B, 16), (1024, 16))   # (B, T) for the sweep shapes
+
+GATEWAY_ARCH = "lstm-ae-f64-d6"
+GATEWAY_CAPACITY = 1024
+GATEWAY_MAX_BATCH = 256
+# K1 is held to its plain version at the gateway's flush width as well
+K1_BATCHES = (1, RAGGED_B, GATEWAY_MAX_BATCH, 8192)
+GATEWAY_STREAMS = 2048
+GATEWAY_WINDOWS = 512
+GATEWAY_SAMPLED = 16
 
 
 def log(msg: str) -> None:
@@ -68,6 +98,15 @@ def k1_bound(b: int, in_dim: int, hidden: int, s: int = 4) -> tuple[float, float
     """(FLOP, bytes) of one K1 launch: each input read once, each output written once."""
     flops = 8.0 * b * hidden * (in_dim + hidden)
     nbytes = b * (in_dim + hidden) * s + b * hidden * (8 + s) + 16 * hidden * (in_dim + hidden) + 16 * hidden
+    return flops, float(nbytes)
+
+
+def k2_bound(t_len: int, b: int, in_dim: int, hidden: int, s: int = 4) -> tuple[float, float]:
+    """(FLOP, bytes) of one K2 launch: xs, h0, c0, the weights and the bias
+    read once; ys, h_T, c_T written once."""
+    flops = 8.0 * t_len * b * hidden * (in_dim + hidden)
+    nbytes = (t_len * b * (in_dim + hidden) * s + b * hidden * (2 * s + 8)
+              + 16 * hidden * (in_dim + hidden) + 16 * hidden)
     return flops, float(nbytes)
 
 
@@ -133,7 +172,7 @@ def check_k1(torch, results) -> None:
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
     for in_dim, hidden in shapes:
-        for b in (1, RAGGED_B, 8192):
+        for b in K1_BATCHES:
             for dtype in (torch.float32, torch.bfloat16):
                 for pwl in (False, True):
                     args = cell_inputs(torch, b, in_dim, hidden, dtype, seed=n)
@@ -151,8 +190,310 @@ def check_k1(torch, results) -> None:
     results["k1_max_abs_err_f32"] = err[torch.float32]
     results["k1_max_abs_err_bf16"] = err[torch.bfloat16]
     log(f"[k1] {n} checks against the plain version passed over {len(shapes)} (In, H) shapes "
-        f"x B in (1, {RAGGED_B}, 8192) x (f32, bf16) x pwl: max abs err "
+        f"x B in {K1_BATCHES} x (f32, bf16) x pwl: max abs err "
         f"f32 {err[torch.float32]:.3g} (tol {F32_TOL}), bf16 {err[torch.bfloat16]:.3g} (tol {BF16_TOL})")
+
+
+def seq_inputs(torch, t_len, b, in_dim, hidden, dtype, seed):
+    x, h, c, wx, wh, bias = cell_inputs(torch, b, in_dim, hidden, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    xs = torch.randn(t_len, b, in_dim, generator=g, device="cuda").to(dtype)
+    return xs, h, c, wx, wh, bias
+
+
+def check_k2(torch, results) -> None:
+    from repro_torch.config import get_config
+    from repro_torch.kernels.lstm_seq import lstm_seq_cuda, lstm_seq_plain, lstm_seq_plan
+
+    cases = [(s, b, K2_T) for s in paper_layer_shapes(get_config) for b in (1, RAGGED_B, 8192)]
+    cases += [(s, b, t) for s in SWEEP for b, t in SWEEP_BT]
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    paths = set()
+    n = 0
+    for (in_dim, hidden), b, t_len in cases:
+        paths.add(lstm_seq_plan(b, in_dim, hidden)[0])
+        for dtype in (torch.float32, torch.bfloat16):
+            for pwl in (False, True):
+                args = seq_inputs(torch, t_len, b, in_dim, hidden, dtype, seed=500 + n)
+                ys, (hk, ck) = lstm_seq_cuda(*args, pwl=pwl)
+                torch.cuda.synchronize()
+                yp, (hp, cp) = lstm_seq_plain(*args, pwl=pwl)
+                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                if ys.dtype != dtype or hk.dtype != dtype or ck.dtype != torch.float32:
+                    raise AssertionError(f"K2 output dtypes {ys.dtype}, {hk.dtype}, {ck.dtype}")
+                for got, want in ((ys, yp), (hk, hp), (ck, cp)):
+                    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+                    err[dtype] = max(err[dtype], float((got.float() - want.float()).abs().max()))
+                n += 1
+    if paths != {True, False}:
+        raise AssertionError(f"K2 checks covered only weights-in-shared-memory={paths}")
+    results["k2_checks"] = n
+    results["k2_max_abs_err_f32"] = err[torch.float32]
+    results["k2_max_abs_err_bf16"] = err[torch.bfloat16]
+    log(f"[k2] {n} checks against the plain version passed ({len(cases)} (In, H, B, T) cases: "
+        f"paper shapes at B in (1, {RAGGED_B}, 8192), T={K2_T}; sweep {list(SWEEP)} at (B, T) in "
+        f"{list(SWEEP_BT)}; weights in shared memory and from L2 both covered) x (f32, bf16) x pwl: "
+        f"max abs err f32 {err[torch.float32]:.3g} (tol {F32_TOL}), "
+        f"bf16 {err[torch.bfloat16]:.3g} (tol {BF16_TOL})")
+
+
+def time_k2(torch, b: int, k1_rows, results, card) -> dict:
+    """K2 per layer of lstm-ae-f64-d6 at batch b, T=64, f32, beside its bound,
+    the plain version, a one-layer cuDNN LSTM and 64 launches of K1."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.lstm_seq import lstm_seq_cuda, lstm_seq_plain, lstm_seq_plan
+
+    ae = get_config("lstm-ae-f64-d6").lstm_ae
+    rows = []
+    for li, (in_dim, hidden) in enumerate(zip(ae.layer_input_sizes(), ae.layer_sizes())):
+        xs, h0, c0, wx, wh, bias = seq_inputs(torch, K2_T, b, in_dim, hidden, torch.float32,
+                                              seed=2000 + li)
+        lstm = torch.nn.LSTM(in_dim, hidden).cuda()
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(wx.permute(0, 2, 1).reshape(4 * hidden, in_dim))
+            lstm.weight_hh_l0.copy_(wh.permute(0, 2, 1).reshape(4 * hidden, hidden))
+            lstm.bias_ih_l0.copy_(bias.reshape(4 * hidden))
+            lstm.bias_hh_l0.zero_()
+
+            def library():
+                return lstm(xs, (h0[None], c0[None]))
+
+            yl, (hl, cl) = library()
+            yp, (hp, cp) = lstm_seq_plain(xs, h0, c0, wx, wh, bias)
+            # the same function (gate order, bias, state); the bar allows f32
+            # sums of another order over 64 steps, and catches any mix-up
+            for got, want in ((yl, yp), (hl[0], hp), (cl[0], cp)):
+                torch.testing.assert_close(got, want, rtol=LIBRARY_RTOL, atol=LIBRARY_ATOL)
+            flops, nbytes = k2_bound(K2_T, b, in_dim, hidden)
+            row = {
+                "in": in_dim, "hidden": hidden, "batch": b, "t": K2_T, "flop": flops,
+                "bytes": nbytes, "weights_in_smem": lstm_seq_plan(b, in_dim, hidden)[0],
+                "kernel_ms": device_ms(torch, lambda: lstm_seq_cuda(xs, h0, c0, wx, wh, bias),
+                                       iters=10, reps=5),
+                "kernel_host_ms": host_ms(torch, lambda: lstm_seq_cuda(xs, h0, c0, wx, wh, bias),
+                                          iters=10),
+                "plain_ms": device_ms(torch, lambda: lstm_seq_plain(xs, h0, c0, wx, wh, bias),
+                                      iters=3, reps=3),
+                "library_ms": device_ms(torch, library, iters=10, reps=5),
+                "k1_x64_ms": 64 * k1_rows[li]["kernel_ms"],
+                "ops_ms": flops / PEAK_F32_FLOPS * 1e3,
+                "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+            }
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        rows.append(row)
+        log(f"[k2 time] f64-d6 layer {li} (In={in_dim}, H={hidden}, B={b}, T={K2_T}, f32, weights "
+            f"{'in shared memory' if row['weights_in_smem'] else 'from L2'}): kernel "
+            f"{row['kernel_ms']:.4f} ms (device), {row['kernel_host_ms']:.4f} ms per call on the "
+            f"host; bound {row['bound_ms']:.4f} ms "
+            f"({'operations' if row['ops_ms'] >= row['bytes_ms'] else 'bytes'}); plain "
+            f"{row['plain_ms']:.3f} ms; cuDNN LSTM {row['library_ms']:.4f} ms; 64 x K1 "
+            f"{row['k1_x64_ms']:.4f} ms [{card}]")
+    ops = sum(r["ops_ms"] for r in rows)
+    mem = sum(r["bytes_ms"] for r in rows)
+    total = {k: sum(r[k] for r in rows) for k in ("kernel_ms", "kernel_host_ms", "plain_ms",
+                                                   "library_ms", "k1_x64_ms", "flop", "bytes")}
+    total["bound_ms"] = max(ops, mem)
+    total["bound_by"] = "operations" if ops >= mem else "bytes"
+    results["k2_layers"] = rows
+    results["k2_forward"] = total
+    log(f"[k2 time] one forward of lstm-ae-f64-d6 at B={b}, T={K2_T} (6 launches): kernel "
+        f"{total['kernel_ms']:.4f} ms, {total['kernel_host_ms']:.4f} ms on the host, bound "
+        f"{total['bound_ms']:.4f} ms ({total['bound_by']}; {total['flop']:.4g} FLOP, "
+        f"{total['bytes']:.4g} B), plain {total['plain_ms']:.3f} ms, cuDNN LSTM "
+        f"{total['library_ms']:.4f} ms, 64 x K1 {total['k1_x64_ms']:.4f} ms [{card}]")
+    return total
+
+
+def drive_k2_path(torch, svc, series, results, card) -> int:
+    """K2's path: ``ops.lstm_seq_op`` once per layer through the service's
+    model; the reconstruction must equal the fused schedule's."""
+    from repro_torch.kernels.ops import launch_counts, lstm_seq_op, reset_launch_counts
+
+    xs = series.to("cuda").transpose(0, 1).contiguous()          # (T, B, F)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ys = xs
+    for layer in svc.params["layers"]:
+        ys, _ = lstm_seq_op(layer, ys)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    depth = len(svc.params["layers"])
+    if counts != {"lstm_cell": 0, "lstm_seq": depth}:
+        raise AssertionError(f"K2 path launched {counts}, expected {depth} lstm_seq launches")
+    want = svc.engine.reconstruct({"series": series})
+    torch.testing.assert_close(ys.transpose(0, 1), want, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
+    err = float((ys.transpose(0, 1) - want).abs().max())
+    results["k2_path"] = {"launches": counts["lstm_seq"], "ms": dt * 1e3, "max_abs_diff_vs_fused": err}
+    log(f"[k2 path] lstm_seq_op over the {depth} layers of {svc.cfg.name} at B={series.shape[0]}, "
+        f"T={series.shape[1]}: {counts['lstm_seq']} K2 launches, {dt*1e3:.2f} ms on the host clock "
+        f"(input on the card); reconstruction agrees with the fused schedule (max abs diff "
+        f"{err:.3g}; rtol {SCHEDULE_RTOL}, atol {SCHEDULE_ATOL}) [{card}]")
+    return counts["lstm_seq"]
+
+
+def churn_spans(n: int, capacity: int, t_len: int, churn_every: int = 8) -> dict:
+    """{stream: (first, end) timestep} that ``drive_stream_churn`` serves."""
+    resident, waiting = list(range(min(capacity, n))), list(range(min(capacity, n), n))
+    start, end = dict.fromkeys(resident, 0), {}
+    for t in range(t_len):
+        if waiting and t and t % churn_every == 0:
+            old = resident.pop(0)
+            end[old] = t + 1
+            nxt = waiting.pop(0)
+            start[nxt] = t + 1
+            resident.append(nxt)
+    end.update(dict.fromkeys(resident, t_len))
+    return {sid: (start[sid], end[sid]) for sid in end}
+
+
+def profile_pool_step(torch, gw, windows, card) -> dict:
+    """Where a full pool step's time goes: the whole ``gw.step`` (host
+    assembly of every slot's sample, copy, masked step, error readback)
+    against the masked step alone with its inputs already on the card, on
+    the host clock and on the device (CUDA events)."""
+    cap = gw.pool.capacity
+    for sid in range(cap):
+        gw.admit(("profile", sid))
+    inputs = {("profile", sid): windows[sid, 0] for sid in range(cap)}
+    steps = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        gw.step(inputs)
+        steps.append((time.perf_counter() - t0) * 1e3)
+    for sid in range(cap):
+        gw.evict(("profile", sid))
+    x_t = torch.from_numpy(windows[:cap, 0].copy()).to("cuda")
+    keep = torch.ones(cap, dtype=torch.bool, device="cuda")
+    state = gw.pool._state
+    engine = gw.engine
+    out = {"step_ms": statistics.median(steps),
+           "masked_step_host_ms": host_ms(torch, lambda: engine.stream_masked(x_t, state, keep),
+                                          iters=20),
+           "masked_step_device_ms": device_ms(torch, lambda: engine.stream_masked(x_t, state, keep),
+                                              iters=20, reps=3)}
+    out["outside_masked_step_ms"] = out["step_ms"] - out["masked_step_host_ms"]
+    log(f"[gateway] one pool step with all {cap} slots stepping: {out['step_ms']:.3f} ms "
+        f"(median of 20); the masked step alone with its inputs on the card "
+        f"{out['masked_step_host_ms']:.3f} ms on the host clock, "
+        f"{out['masked_step_device_ms']:.3f} ms of device time; the rest (assembly of the "
+        f"samples, copy, error readback) {out['outside_masked_step_ms']:.3f} ms [{card}]")
+    return out
+
+
+def drive_gateway(torch, results, card) -> int:
+    """The gateway at full width over the fused schedule: pooled streaming
+    with churn, then micro-batched one-shot scoring.  Returns K1's launches
+    in the one-shot phase."""
+    import numpy as np
+
+    from repro_torch.data import TimeseriesConfig, make_batch
+    from repro_torch.engine import AnomalyService
+    from repro_torch.gateway import drive_stream_churn
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    svc = AnomalyService(GATEWAY_ARCH, schedule="fused", device="cuda", seed=0)
+    gw = svc.open_gateway(capacity=GATEWAY_CAPACITY, max_batch=GATEWAY_MAX_BATCH)
+    feats, t_len = svc.features, 64
+    data_cfg = TimeseriesConfig(features=feats, seq_len=t_len, batch=GATEWAY_STREAMS,
+                                anomaly_rate=0.05, seed=7)
+    windows = make_batch(data_cfg, 0)[0].numpy()                 # (N, T, F)
+    out = {"arch": GATEWAY_ARCH, "capacity": GATEWAY_CAPACITY, "max_batch": GATEWAY_MAX_BATCH,
+           "streams": GATEWAY_STREAMS, "seq_len": t_len}
+
+    # --- streaming: more logical streams than slots, admit/evict churn
+    gw.telemetry.reset()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    finals, unserved = drive_stream_churn(gw, windows)
+    dt = time.perf_counter() - t0
+    s = gw.stats()
+    if set(finals) & set(unserved) or len(finals) + len(unserved) != GATEWAY_STREAMS:
+        raise AssertionError(f"streams: {len(finals)} served + {len(unserved)} waiting "
+                             f"!= {GATEWAY_STREAMS}")
+    spans = churn_spans(GATEWAY_STREAMS, GATEWAY_CAPACITY, t_len)
+    if set(spans) != set(finals):
+        raise AssertionError("served streams differ from drive_stream_churn's schedule")
+    out["stream"] = {"served": len(finals), "waiting": len(unserved), "wall_s": dt,
+                     "stream_steps": s["counters"]["pool.stream_steps"],
+                     "stream_steps_per_s": s["stream_steps_per_s"],
+                     "pool_step_ms_p50": gw.telemetry.histograms["pool_step_ms"].percentile(50),
+                     "kernel_launches": launch_counts()}
+    churned = sorted(i for i, (a, e) in spans.items() if a == 0 and e < t_len)
+    late = sorted(i for i, (a, _) in spans.items() if a > 0)
+    sampled = (churned + late)[:GATEWAY_SAMPLED - 2] + [churned[-1] + 1, GATEWAY_CAPACITY - 1]
+    worst = 0.0
+    for sid in sampled:
+        a, e = spans[sid]
+        sess = svc.stream_start(1)
+        for t in range(a, e):
+            errs, sess = svc.stream_step(windows[sid:sid + 1, t], sess)
+        solo = float(errs[0])
+        np.testing.assert_allclose(finals[sid], solo, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
+        worst = max(worst, abs(finals[sid] - solo))
+    out["stream"]["sampled"] = sampled
+    out["stream"]["max_abs_diff_vs_solo"] = worst
+    log(f"[gateway] {GATEWAY_ARCH} [fused] capacity={GATEWAY_CAPACITY}: streamed {len(finals)} of "
+        f"{GATEWAY_STREAMS} logical streams ({len(unserved)} still waiting) over T={t_len}: "
+        f"{s['stream_steps_per_s']:,.0f} stream-steps/s ({s['counters']['pool.stream_steps']:.0f} "
+        f"stream-steps in {dt:.3f} s), pool step p50 {out['stream']['pool_step_ms_p50']:.3f} ms; "
+        f"{len(sampled)} sampled streams agree with solo stream_step (max abs diff {worst:.3g}) "
+        f"[{card}]")
+    out["pool_step"] = profile_pool_step(torch, gw, windows, card)
+
+    # --- one-shot: micro-batched scoring of mixed-length windows
+    rng = np.random.default_rng(12)
+    lens = rng.integers(8, t_len + 1, size=GATEWAY_WINDOWS)
+    requests = [windows[i % GATEWAY_STREAMS, :n] for i, n in enumerate(lens)]
+    flush_t = []
+    real = gw.engine.score_masked
+
+    def recorded(batch):   # bucket_T of every flush, to predict K1's launches
+        flush_t.append(batch["series"].shape[1])
+        return real(batch)
+
+    gw.engine.score_masked = recorded
+    gw.telemetry.reset()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tickets = []
+    for w in requests:
+        tickets.append(gw.submit(w))
+        gw.pump()
+    gw.flush()
+    dt = time.perf_counter() - t0
+    k1 = launch_counts()["lstm_cell"]
+    del gw.engine.score_masked
+    s = gw.stats()
+    depth = len(svc.params["layers"])
+    want = depth * sum(flush_t)
+    if k1 != want or len(flush_t) != s["counters"]["batch.flushes"]:
+        raise AssertionError(f"K1 launched {k1} times over {len(flush_t)} flushes "
+                             f"(telemetry {s['counters']['batch.flushes']}), expected {want}")
+    worst = 0.0
+    for w, ticket in zip(requests, tickets):
+        direct = float(svc.engine.score_masked({"series": w[None],
+                                                 "lengths": np.array([w.shape[0]])})[0])
+        np.testing.assert_allclose(ticket.score, direct, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
+        worst = max(worst, abs(ticket.score - direct))
+    buckets = sorted(set(flush_t))
+    out["oneshot"] = {"windows": GATEWAY_WINDOWS, "wall_s": dt, "flushes": len(flush_t),
+                      "bucket_t": flush_t, "k1_launches": k1,
+                      "requests_per_s": s["requests_per_s"], "batch_fill": s["batch_fill_ratio"],
+                      "p50_ms": s["latency_ms"]["p50"], "p95_ms": s["latency_ms"]["p95"],
+                      "compute_ms_p50": gw.telemetry.histograms["compute_ms"].percentile(50),
+                      "max_abs_diff_vs_direct": worst}
+    results["gateway"] = out
+    log(f"[gateway] {GATEWAY_WINDOWS} one-shot windows (T in 8..{t_len}, buckets {buckets}) in "
+        f"{len(flush_t)} flushes of max_batch={GATEWAY_MAX_BATCH}: {s['requests_per_s']:,.0f} "
+        f"requests/s over {dt:.3f} s, batch fill {s['batch_fill_ratio']:.3f}, p50 "
+        f"{s['latency_ms']['p50']:.2f} ms, p95 {s['latency_ms']['p95']:.2f} ms, flush compute "
+        f"p50 {out['oneshot']['compute_ms_p50']:.2f} ms; K1 launches {k1} = {depth} x sum of "
+        f"bucket_T; every score agrees with score_masked of its window alone (max abs diff "
+        f"{worst:.3g}) [{card}]")
+    return k1
 
 
 def time_k1(torch, b: int, results, card) -> dict:
@@ -342,6 +683,11 @@ def main(argv=None) -> int:
     drive_service(torch, "lstm-ae-f32-d2", 1024, 64, 3, results, card)
     check_streaming(torch, svc, first, results)
 
+    check_k2(torch, results)
+    k2 = time_k2(torch, serve.global_batch, results["k1_layers"], results, card)
+    k2_launches = drive_k2_path(torch, svc, first, results, card)
+    drive_gateway(torch, results, card)
+
     kernels = {"kernels": [{
         "name": "lstm_cell",
         "route": "cuda",
@@ -354,11 +700,25 @@ def main(argv=None) -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+    }, {
+        "name": "lstm_seq",
+        "route": "cuda",
+        "source": K2_SOURCE,
+        "replaces": K2_REPLACES,
+        "launches": k2_launches,
+        "max_abs_err": results["k2_max_abs_err_f32"],
+        "ms": k2["kernel_ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
     }]}
     results["kernels"] = kernels["kernels"]
     results["total_s"] = time.perf_counter() - t_start
-    log(f"[done] {results['total_s']:.1f} s; kernel times are per timestep of lstm-ae-f64-d6 "
-        f"at B={serve.global_batch} (6 launches); launches are the main path's 3 requests")
+    log(f"[done] {results['total_s']:.1f} s; lstm_cell: times per timestep of lstm-ae-f64-d6 at "
+        f"B={serve.global_batch} (6 launches), launches from the fused serving path's 3 requests; "
+        f"lstm_seq: times per forward of lstm-ae-f64-d6 at B={serve.global_batch}, T={K2_T} "
+        f"(6 launches), launches from its lstm_seq_op path")
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

@@ -59,6 +59,7 @@ _SCHEDULE_FIELDS: dict[str, Optional[tuple[str, ...]]] = {}
 
 SCHEDULE_CACHE_CAPACITY = 32
 _RESOLVE_CACHE: "OrderedDict[tuple, Schedule]" = OrderedDict()
+_CACHE_STATS = {"hits": 0, "misses": 0}
 
 
 def register_schedule(name: str, *, config_fields: Optional[tuple[str, ...]] = None):
@@ -88,14 +89,29 @@ def available_schedules() -> list[str]:
     return sorted(_SCHEDULES)
 
 
+def schedule_cache_info() -> dict:
+    """Resolve-cache occupancy and its hit/miss counters (the schema of
+    ``repro.engine.schedules.schedule_cache_info``)."""
+    return {
+        "size": len(_RESOLVE_CACHE),
+        "capacity": SCHEDULE_CACHE_CAPACITY,
+        "always_keyed": ("schedule", "placement"),
+        "placements": sorted({repr(k[2].placement) for k in _RESOLVE_CACHE}),
+        "hits": _CACHE_STATS["hits"],
+        "misses": _CACHE_STATS["misses"],
+    }
+
+
 def _canonical_cfg(name: str, engine_cfg: "EngineConfig") -> "EngineConfig":
-    """Project ``engine_cfg`` onto the fields schedule ``name`` reads."""
+    """Project ``engine_cfg`` onto the fields schedule ``name`` reads; the
+    placement is always part of the key."""
     fields = _SCHEDULE_FIELDS.get(name)
     if fields is None:
         return dataclasses.replace(engine_cfg, schedule=name)
     from repro_torch.engine.base import EngineConfig
 
-    return EngineConfig(schedule=name, **{f: getattr(engine_cfg, f) for f in fields})
+    return EngineConfig(schedule=name, placement=engine_cfg.placement,
+                        **{f: getattr(engine_cfg, f) for f in fields})
 
 
 def resolve_schedule(name: str, cfg: ModelConfig, engine_cfg: "EngineConfig") -> Schedule:
@@ -109,11 +125,13 @@ def resolve_schedule(name: str, cfg: ModelConfig, engine_cfg: "EngineConfig") ->
     key = (name, cfg, _canonical_cfg(name, engine_cfg))
     sched = _RESOLVE_CACHE.get(key)
     if sched is None:
+        _CACHE_STATS["misses"] += 1
         sched = _SCHEDULES[name](cfg, key[2])
         _RESOLVE_CACHE[key] = sched
         while len(_RESOLVE_CACHE) > SCHEDULE_CACHE_CAPACITY:
             _RESOLVE_CACHE.popitem(last=False)
     else:
+        _CACHE_STATS["hits"] += 1
         _RESOLVE_CACHE.move_to_end(key)
     return sched
 

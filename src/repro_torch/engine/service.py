@@ -1,13 +1,15 @@
 """AnomalyService: the paper's deployment scenario as one object.
 
 calibrate (threshold on a benign split) -> score / detect (batched windows)
--> stream (per-timestep state + running errors), on a named execution
-schedule and one device.  Counterpart of ``repro/engine/service.py``;
-``fit`` and ``open_gateway`` wait for the training and gateway slices, so
+-> stream (per-timestep state + running errors) -> ``open_gateway`` (the
+session pool and micro-batcher of ``repro_torch.gateway``), on a named
+execution schedule and one device.  Counterpart of
+``repro/engine/service.py``; ``fit`` waits for the training slice, so
 weights come from the seeded init or through ``recalibrate(params=...)``.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -64,6 +66,20 @@ class AnomalyService:
         gen = torch.Generator().manual_seed(seed)
         self.params: Params = self.engine.bind(init_lstm_ae(gen, cfg, self.device)).params
         self.threshold: Optional[float] = None
+        # open gateways, weakly held so a dropped gateway is collectable;
+        # _bind rebinds every one whose engine is not ours on a param swap.
+        # Until multi-GPU placements exist (ROADMAP.md, queue 1, item 10),
+        # with_placement returns this engine itself, so every gateway shares
+        # it and that rebinding branch has no case to act on yet
+        self._gateways: "weakref.WeakSet" = weakref.WeakSet()
+
+    def _bind(self, params: Params) -> None:
+        """Swap ``params`` onto this service AND every open gateway engine,
+        so no gateway serves stale params."""
+        self.params = self.engine.bind(params).params
+        for gw in list(self._gateways):
+            if gw.engine is not self.engine:
+                gw.engine.bind(self.params)
 
     @property
     def features(self) -> int:
@@ -102,7 +118,7 @@ class AnomalyService:
         a ``benign`` split after the param swap.  Returns the threshold now
         in effect."""
         if params is not None:
-            self.params = self.engine.bind(params).params
+            self._bind(params)
         if threshold is not _UNSET:
             self.threshold = None if threshold is None else float(threshold)
         elif benign is not None:
@@ -146,6 +162,36 @@ class AnomalyService:
             state=state, sq_err_sum=session.sq_err_sum + sq, steps=session.steps + 1
         )
         return session.errors, session
+
+    # -- gateway ----------------------------------------------------------
+
+    def open_gateway(
+        self,
+        *,
+        capacity: int = 32,
+        max_batch: int = 32,
+        max_wait_ms: float = 5.0,
+        max_queue: int = 1024,
+        max_seq_len: Optional[int] = None,
+        placement=None,
+        **kw,
+    ):
+        """Open a streaming/micro-batching gateway over this service.
+
+        Returns a :class:`repro_torch.gateway.AnomalyGateway`: a
+        ``capacity``-slot session pool (admit/step/evict over one masked
+        step) plus a shape-bucketed one-shot scoring queue (flush on
+        ``max_batch`` or ``max_wait_ms``, reject past ``max_queue`` pending
+        or ``max_seq_len`` timesteps), on this service's device.  The
+        gateway registers itself, so ``recalibrate(params=...)`` rebinds
+        its engine too."""
+        from repro_torch.gateway import AnomalyGateway  # lazy: gateway imports engine
+
+        return AnomalyGateway(
+            self, capacity=capacity, max_batch=max_batch,
+            max_wait_ms=max_wait_ms, max_queue=max_queue,
+            max_seq_len=max_seq_len, placement=placement, **kw,
+        )
 
     # -- analytics --------------------------------------------------------
 

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, with their plain PyTorch versions.
 
 - lstm_cell.py  K1, the fused LSTM cell (``csrc/lstm_cell.cu``)
+- lstm_seq.py   K2, the sequence-streaming LSTM layer (``csrc/lstm_seq.cu``)
 - ops.py        device-dispatching wrappers and the launch counts
 - _build.py     nvcc build at first use, ctypes loading
 

@@ -4,6 +4,17 @@ Counterpart of ``repro/kernels/ops.py``.  The reference picks interpret
 mode off the TPU; here the device of the tensors decides: a CPU tensor goes
 to the kernel's plain PyTorch version, a CUDA tensor to the kernel, which
 launches or raises.  Nothing falls back from the kernel to the plain version.
+
+- :func:`lstm_cell_op` — K1, one LSTM timestep; the body of the ``fused``
+  schedule, and so of the gateway's bucketed one-shot scoring under it.
+- :func:`lstm_seq_op` — K2, one LSTM layer over a whole window in one
+  launch.  As in the reference, this wrapper is K2's only entry point and
+  no schedule uses it.  Its bound on an H100 is the larger of
+  8·T·B·H·(In+H) FLOP at 67 TFLOP/s (FP32 cores) and its bytes (inputs and
+  outputs once, weights once) at 3.35 TB/s; at the paper's widths the
+  FLOP bound it.  Left for later: tensor cores, and splitting H across a
+  thread-block cluster for weights larger than one block's shared memory
+  (today those are read from L2 every step).
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ from repro_torch.kernels.lstm_cell import (
     lstm_cell_plain,
     pack_weights,
 )
+from repro_torch.kernels.lstm_seq import check_seq_args, lstm_seq_cuda, lstm_seq_plain
 
 
 def lstm_cell_op(params, x, h, c, *, pwl: bool = False,
@@ -39,10 +51,32 @@ def lstm_cell_op(params, x, h, c, *, pwl: bool = False,
     return h_out, c_out
 
 
+def lstm_seq_op(params, xs, h0=None, c0=None, *, pwl: bool = False):
+    """Sequence-streaming LSTM layer, state on chip across T.
+
+    ``params`` is the core layout {wx, wh, b} or a packed (wx, wh, b) tuple;
+    xs (T, B, In) -> (ys (T, B, H), (h_T, c_T)).  h0 defaults to zeros in
+    xs's dtype and c0 to zeros in f32, as in the reference; c0 is taken in
+    f32."""
+    wx, wh, b = params if isinstance(params, tuple) else pack_weights(params)
+    bsz, hidden = xs.shape[1], wh.shape[1]
+    if h0 is None:
+        h0 = torch.zeros((bsz, hidden), dtype=xs.dtype, device=xs.device)
+    c0 = torch.zeros((bsz, hidden), dtype=torch.float32, device=xs.device) if c0 is None \
+        else c0.float()
+    if xs.device.type == "cuda":
+        return lstm_seq_cuda(xs, h0, c0, wx, wh, b, pwl=pwl)
+    if xs.device.type != "cpu":
+        raise ValueError(f"lstm_seq_op runs on cuda or cpu tensors, got {xs.device}")
+    check_seq_args(xs, h0, c0, wx, wh, b)
+    return lstm_seq_plain(xs, h0, c0, wx, wh, b, pwl=pwl)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel (plain-version calls are not counted)."""
-    return {"lstm_cell": lstm_cell_cuda.launches}
+    return {"lstm_cell": lstm_cell_cuda.launches, "lstm_seq": lstm_seq_cuda.launches}
 
 
 def reset_launch_counts() -> None:
     lstm_cell_cuda.launches = 0
+    lstm_seq_cuda.launches = 0

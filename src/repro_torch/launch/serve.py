@@ -1,21 +1,27 @@
 """Serving launcher of the port: ``python -m repro_torch.launch.serve --arch <id>``.
 
-Runs the LSTM-AE anomaly service (``repro_torch.engine.AnomalyService``) on
-a named execution schedule and prints the reference launcher's ``[serve]``
-lines.  The device defaults to the GPU and never falls back to the CPU:
-``--device cpu`` asks for it.  Request batches are drawn before the timed
-loop, so ms/request covers the host-to-device copy, the forward pass and
-the scores' return to the host.
+Modes, as in the reference launcher:
+- the LSTM-AE anomaly service (``repro_torch.engine.AnomalyService``) on a
+  named execution schedule, printing the ``[serve]`` lines.  Request
+  batches are drawn before the timed loop, so ms/request covers the
+  host-to-device copy, the forward pass and the scores' return to the host;
+- with ``--gateway``: the streaming gateway (``svc.open_gateway``) — a
+  ``--capacity``-slot session pool with admit/evict churn over
+  ``--streams`` logical streams, then a micro-batched one-shot request
+  stream (``--max-batch`` / ``--max-wait-ms``), printing the ``[gateway]``
+  lines and its telemetry.
 
-The gateway, the socket transport, worker processes and training are not
-ported yet; their flags exit with an error that names the ``ROADMAP.md``
-item that will port them.
+The device defaults to the GPU and never falls back to the CPU:
+``--device cpu`` asks for it.  The socket transport, worker processes and
+training are not ported yet; their flags exit with an error that names the
+``ROADMAP.md`` item that will port them.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -25,7 +31,6 @@ from repro_torch.data import TimeseriesConfig, make_batch
 from repro_torch.engine import AnomalyService, available_schedules
 
 NOT_PORTED = {
-    "gateway": "ROADMAP.md, queue 1, item 6 (gateway core)",
     "http": "ROADMAP.md, queue 1, item 7 (transport)",
     "workers": "ROADMAP.md, queue 1, item 8 (durability and multi-process)",
     "train_steps": "ROADMAP.md, queue 1, item 5 (fit: AdamW and the train step)",
@@ -59,6 +64,57 @@ def serve_lstm_ae(cfg, args) -> None:
               f"T={args.seq_len}: {est.ms:.3f} ms ({est.cycles} cycles)")
 
 
+def serve_gateway(cfg, args) -> None:
+    """Drive the streaming gateway: pooled sessions with churn + a
+    micro-batched one-shot request stream, then print its telemetry."""
+    from repro_torch.gateway import drive_stream_churn
+
+    svc = AnomalyService(cfg, schedule=args.schedule, device=args.device)
+    feats = cfg.lstm_ae.input_features
+    gw = svc.open_gateway(capacity=args.capacity, max_batch=args.max_batch,
+                          max_wait_ms=args.max_wait_ms)
+    dev = svc.device
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host CPU"
+    print(f"[gateway] device {dev} ({name})")
+    print(f"[gateway] {gw!r}")
+
+    # --- streaming phase: more logical streams than slots, admit/evict churn
+    n_streams = args.streams or 2 * args.capacity
+    data_cfg = TimeseriesConfig(features=feats, seq_len=args.seq_len,
+                                batch=n_streams, anomaly_rate=0.05, seed=7)
+    xs = make_batch(data_cfg, 0)[0].numpy()          # (N, T, F)
+    t0 = time.perf_counter()
+    finals, unserved = drive_stream_churn(gw, xs)
+    dt = time.perf_counter() - t0
+    stepped = int(gw.stats()["counters"]["pool.stream_steps"])
+    print(f"[gateway] streamed {len(finals)}/{n_streams} logical streams over "
+          f"{gw.pool.capacity} slots: {stepped/dt:,.0f} stream-steps/s "
+          f"({dt*1e3:.1f} ms wall)"
+          + (f", {len(unserved)} still waiting at end" if unserved else ""))
+
+    # --- one-shot phase: micro-batched score requests (mixed lengths)
+    lens = [max(4, args.seq_len - (i % 3) * 2) for i in range(args.requests)]
+    tickets = []
+    for i, length in enumerate(lens):
+        tickets.append(gw.submit(xs[i % n_streams, :length]))
+        gw.pump()
+    gw.flush()
+    scores = np.array([t.score for t in tickets])
+    # "is not None": a calibrated threshold of 0.0 is a real threshold
+    alerts = int((scores > svc.threshold).sum()) if svc.threshold is not None else 0
+    s = gw.stats()
+    print(f"[gateway] scored {len(tickets)} one-shot requests "
+          f"(fill={s['batch_fill_ratio']:.2f}, "
+          f"p50={s['latency_ms']['p50']:.2f}ms, "
+          f"p95={s['latency_ms']['p95']:.2f}ms)"
+          + (f", alerts={alerts}" if svc.threshold is not None else ""))
+    print(f"[gateway] stats: schedule={s['schedule']} "
+          f"stream_steps_per_s={s['stream_steps_per_s']:,.0f} "
+          f"requests_per_s={s['requests_per_s']:,.0f} "
+          f"arrival_rps_window={s['arrival_rps_window']:,.0f} "
+          f"rejected={s['counters'].get('queue.rejected', 0):.0f}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True, choices=list_archs())
@@ -70,7 +126,16 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises without a GPU)")
     ap.add_argument("--train-steps", type=int, default=0, help="not ported yet")
-    ap.add_argument("--gateway", action="store_true", help="not ported yet")
+    ap.add_argument("--gateway", action="store_true",
+                    help="streaming gateway mode (session pool + micro-batched queue)")
+    ap.add_argument("--capacity", type=int, default=32,
+                    help="gateway: session-pool slots")
+    ap.add_argument("--max-batch", type=int, default=16,
+                    help="gateway: micro-batch flush size")
+    ap.add_argument("--max-wait-ms", type=float, default=5.0,
+                    help="gateway: micro-batch max wait")
+    ap.add_argument("--streams", type=int, default=0,
+                    help="gateway: logical streams to churn (default 2x capacity)")
     ap.add_argument("--http", action="store_true", help="not ported yet")
     ap.add_argument("--workers", type=int, default=0, help="not ported yet")
     ap.add_argument("--reduced", action="store_true", default=True)
@@ -82,7 +147,10 @@ def main(argv=None) -> None:
             ap.error(f"--{flag.replace('_', '-')} is not ported to repro_torch yet: {item}")
     resolve_device(args.device)  # fail before any work when no GPU is visible
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    serve_lstm_ae(cfg, args)
+    if args.gateway:
+        serve_gateway(cfg, args)
+    else:
+        serve_lstm_ae(cfg, args)
 
 
 if __name__ == "__main__":

@@ -115,7 +115,8 @@ def test_launcher_runs_on_cpu_when_asked(schedule, capsys):
     assert "timesteps/s" in out and "[serve] Eq-1 model" in out
 
 
-@pytest.mark.parametrize("flag,item", [(["--gateway"], "item 6"), (["--http"], "item 7"),
+@pytest.mark.parametrize("flag,item", [(["--gateway", "--train-steps", "2"], "item 5"),
+                                       (["--http"], "item 7"),
                                        (["--workers", "2"], "item 8"),
                                        (["--train-steps", "5"], "item 5")])
 def test_launcher_rejects_unported_modes(flag, item, capsys):
