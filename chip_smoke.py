@@ -31,7 +31,21 @@ toolkit.  It
    streams churned through the pool (16 sampled streams checked against
    solo ``stream_step``), then 512 one-shot windows of lengths 8-64 (each
    score checked against ``score_masked`` of the window alone, and K1's
-   launches against 6 x bucket_T per flush).
+   launches against 6 x bucket_T per flush);
+9. holds K3 (the RWKV-6 WKV recurrence) to its plain version at the
+   reference sweep, f32 and bf16, chunk chaining, and rwkv6-7b's heads
+   (H=64, hd=64) at train_4k's T=4096, B=32; times it there in f32 beside
+   its bound and the plain version, and alone at B in (8, 16, 32, 64) to
+   show how the grid's size sets its rate; drives its path,
+   ``ops.wkv6_op``, once whole and once as a chained pair (3 launches);
+10. holds K4 (the flash-attention forward, causal mask top-left) to its
+   plain version at the reference sweep, causal and not, f32 and bf16, at
+   S != Sk both ways, ragged S and Sk, and phi4-mini-3.8b's heads (H=24,
+   kv heads expanded, d=128) at S=Sk=4096, B=4, causal, at limits scaled
+   to the small outputs of late rows; times it there per
+   dtype beside its bound, the plain version and PyTorch's
+   ``scaled_dot_product_attention`` (timed only: the port never calls it);
+   drives its path, ``ops.flash_attention_op``, once at that shape in bf16.
 
 Any failed check raises and the script exits non-zero; without a GPU, or
 without the rest of the repository beside it, it exits non-zero at once.
@@ -55,6 +69,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM data-sheet peaks at a 700 W limit (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12      # FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # HBM3
+PEAK_BF16_FLOPS = 989e12    # dense bf16 tensor cores
 
 F32_TOL = 1e-5              # tests/test_kernels.py bar for f32
 BF16_TOL = 2e-2             # and for bf16
@@ -71,6 +86,39 @@ K2_SOURCE = "src/repro_torch/kernels/csrc/lstm_seq.cu"
 K2_REPLACES = "src/repro/kernels/lstm_seq.py:86"
 K2_T = 64                   # timesteps per K2 launch at the main path's shape
 SWEEP_BT = ((1, 16), (RAGGED_B, 16), (1024, 16))   # (B, T) for the sweep shapes
+
+K3_SOURCE = "src/repro_torch/kernels/csrc/wkv6.cu"
+K3_REPLACES = "src/repro/kernels/wkv6.py:60"
+K4_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+K4_REPLACES = "src/repro/kernels/flash_attention.py:101"
+WKV_F32_TOL, WKV_BF16_TOL = 1e-4, 3e-2        # tests/test_kernels.py:102
+ATTN_F32_TOL, ATTN_BF16_TOL = 2e-3, 3e-2      # tests/test_kernels.py:142
+# At phi4-mini's full width most rows average thousands of keys, so their
+# outputs are small (per-coordinate std about sqrt(e / (i + 1)): 0.026 at
+# row 4096) and the reference's absolute limits above would pass a fault of
+# tens of percent there.  The full-width checks hold each element to
+# atol + row * rms(its row of d) + rtol * |want| with (rtol, atol, row):
+# f32 1e-4 relative plus 1e-5 (the kernel's error there was 1.0e-6 at
+# most); bf16 two bf16 ulps of the value (2^-6) plus 5% of the row's rms,
+# since rounding P to bf16 (relative to the running maximum in the kernel,
+# to the final one in the plain version) errs in proportion to the row.
+ATTN_WIDE_TOL = {"f32": (1e-4, 1e-5, 0.0), "bf16": (2.0 ** -6, 0.0, 0.05)}
+WKV_SWEEP = ((8, 16, 2), (32, 32, 4), (64, 64, 2))   # (T, hd, H), tests/test_kernels.py:86
+ATTN_SWEEP = ((128, 64), (256, 64), (256, 128))      # (S, d), tests/test_kernels.py:124
+# (S, Sk, d) beyond the sweep: S != Sk both ways, ragged S, ragged S and Sk
+ATTN_EXTRA = ((128, 256, 64), (256, 128, 128), (200, 200, 64), (200, 136, 128))
+# rwkv6-7b (src/repro/configs/rwkv6_7b.py): d_model 4096 in heads of 64, so
+# 64 heads; train_4k's T = 4096 (src/repro/config/core.py); B cut from 256
+# to 32 so that the plain version's check fits beside it.  B*H blocks of hd
+# threads: at B=32 that is 2048 blocks, 2.2 waves of the 7 blocks per SM
+# the kernel's 144 registers allow on 132 SMs; the kernel alone is also
+# timed at RWKV_B_SWEEP
+RWKV_B, RWKV_T, RWKV_H, RWKV_HD = 32, 4096, 64, 64
+RWKV_B_SWEEP = (8, 16, 32, 64)
+# phi4-mini-3.8b (src/repro/configs/phi4_mini_3_8b.py): 24 query heads, 8 kv
+# heads (expanded to 24 as layers/attention.py::_expand_kv does), d_model
+# 3072 / 24 = 128; S = Sk = 4096, B = 4
+PHI_B, PHI_S, PHI_H, PHI_KV_H, PHI_HD = 4, 4096, 24, 8, 128
 
 GATEWAY_ARCH = "lstm-ae-f64-d6"
 GATEWAY_CAPACITY = 1024
@@ -108,6 +156,25 @@ def k2_bound(t_len: int, b: int, in_dim: int, hidden: int, s: int = 4) -> tuple[
     nbytes = (t_len * b * (in_dim + hidden) * s + b * hidden * (2 * s + 8)
               + 16 * hidden * (in_dim + hidden) + 16 * hidden)
     return flops, float(nbytes)
+
+
+def k3_bound(b: int, t_len: int, h: int, hd: int, s: int = 4) -> tuple[float, float]:
+    """(FLOP, bytes) of one K3 launch: 5*hd^2 FLOP per (b, h, t) (y = r.S +
+    (r.(u*k)) v, S <- w*S + k^T v); r, k, v (s bytes each), w, u, s0 read
+    once; y and S_T written once, f32."""
+    flops = 5.0 * b * t_len * h * hd * hd
+    nbytes = b * t_len * h * hd * (3 * s + 4 + 4) + h * hd * 4 + 2 * b * h * hd * hd * 4
+    return flops, float(nbytes)
+
+
+def k4_bound(b: int, h: int, s_len: int, sk_len: int, d: int, causal: bool,
+             itemsize: int) -> tuple[float, float, int]:
+    """(FLOP, bytes, visible pairs) of one K4 launch: 4*d FLOP per visible
+    (query, key) pair (top-left causal mask); q, k, v read once, o written once."""
+    per_head = sum(min(i + 1, sk_len) for i in range(s_len)) if causal else s_len * sk_len
+    pairs = b * h * per_head
+    nbytes = b * h * d * itemsize * (2 * s_len + 2 * sk_len)
+    return 4.0 * d * pairs, float(nbytes), pairs
 
 
 def device_ms(torch, fn, iters: int = 50, reps: int = 5) -> float:
@@ -320,7 +387,7 @@ def drive_k2_path(torch, svc, series, results, card) -> int:
     dt = time.perf_counter() - t0
     counts = launch_counts()
     depth = len(svc.params["layers"])
-    if counts != {"lstm_cell": 0, "lstm_seq": depth}:
+    if counts != {"lstm_cell": 0, "lstm_seq": depth, "wkv6": 0, "flash_attention": 0}:
         raise AssertionError(f"K2 path launched {counts}, expected {depth} lstm_seq launches")
     want = svc.engine.reconstruct({"series": series})
     torch.testing.assert_close(ys.transpose(0, 1), want, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
@@ -494,6 +561,309 @@ def drive_gateway(torch, results, card) -> int:
         f"bucket_T; every score agrees with score_masked of its window alone (max abs diff "
         f"{worst:.3g}) [{card}]")
     return k1
+
+
+def wkv_inputs(torch, b, t_len, h, hd, dtype, seed, zero_state=False):
+    """Drawn as tests/test_kernels.py::test_wkv6_kernel_sweep draws them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    r, k, v = ((randn(b, t_len, h, hd) * 0.3).to(dtype) for _ in range(3))
+    w = torch.sigmoid(randn(b, t_len, h, hd))
+    u = randn(h, hd) * 0.1
+    s0 = torch.zeros(b, h, hd, hd, device="cuda") if zero_state else randn(b, h, hd, hd) * 0.1
+    return r, k, v, w, u, s0
+
+
+def split_time(args, t_split):
+    """The (r, k, v, w) streams of ``args`` cut at ``t_split``: two contiguous halves."""
+    return [tuple(t[:, sl].contiguous() for t in args[:4])
+            for sl in (slice(0, t_split), slice(t_split, None))]
+
+
+def check_k3(torch, results) -> None:
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+
+    cases = [(2, t, h, hd) for t, hd, h in WKV_SWEEP] + [(RWKV_B, RWKV_T, RWKV_H, RWKV_HD)]
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for b, t_len, h, hd in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = wkv_inputs(torch, b, t_len, h, hd, dtype, seed=3000 + n)
+            y, s = wkv6_cuda(*args)
+            torch.cuda.synchronize()
+            yp, sp = wkv6_plain(*args)
+            if y.dtype != torch.float32 or s.dtype != torch.float32:
+                raise AssertionError(f"K3 output dtypes {y.dtype}, {s.dtype}")
+            tol = WKV_F32_TOL if dtype == torch.float32 else WKV_BF16_TOL
+            for got, want in ((y, yp), (s, sp)):
+                torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+                err[dtype] = max(err[dtype], float((got - want).abs().max()))
+            n += 1
+    # chunk chaining: two launches with the state handed through == one launch
+    for b, t_len, h, hd in ((2, 32, 2, 16), (RWKV_B, RWKV_T, RWKV_H, RWKV_HD)):
+        args = wkv_inputs(torch, b, t_len, h, hd, torch.float32, seed=3100 + n, zero_state=True)
+        first, second = split_time(args, t_len // 2)
+        y1, s1 = wkv6_cuda(*first, *args[4:])
+        y2, s2 = wkv6_cuda(*second, args[4], s1)
+        y, s = wkv6_cuda(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(s2, s, rtol=1e-4, atol=1e-5)
+        n += 1
+    results["k3_checks"] = n
+    results["k3_max_abs_err_f32"] = err[torch.float32]
+    results["k3_max_abs_err_bf16"] = err[torch.bfloat16]
+    log(f"[k3] {n} checks passed: the sweep {list(WKV_SWEEP)} (T, hd, H) at B=2 and rwkv6-7b's "
+        f"heads (B={RWKV_B}, T={RWKV_T}, H={RWKV_H}, hd={RWKV_HD}) x (f32, bf16) against the plain "
+        f"version, max abs err f32 {err[torch.float32]:.3g} (tol {WKV_F32_TOL}), bf16 "
+        f"{err[torch.bfloat16]:.3g} (tol {WKV_BF16_TOL}); two chained launches equal one at "
+        f"(2, 32, 2, 16) and at full width")
+
+
+def time_k3(torch, results, card) -> dict:
+    """K3 at rwkv6-7b's heads, train_4k's T, f32: alone at each B of
+    RWKV_B_SWEEP beside its bound, then at RWKV_B beside the plain version
+    too (no single PyTorch call computes WKV-6)."""
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+
+    sweep = []
+    for b in RWKV_B_SWEEP:
+        args = wkv_inputs(torch, b, RWKV_T, RWKV_H, RWKV_HD, torch.float32, seed=3250 + b)
+        flops, nbytes = k3_bound(b, RWKV_T, RWKV_H, RWKV_HD)
+        ms = device_ms(torch, lambda: wkv6_cuda(*args), iters=5, reps=3)
+        bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        sweep.append({"batch": b, "blocks": b * RWKV_H, "kernel_ms": ms, "bound_ms": bound,
+                      "ns_per_step_per_head": ms * 1e6 / (b * RWKV_H * RWKV_T)})
+        del args
+    results["k3_batch_sweep"] = sweep
+    log(f"[k3 time] B sweep at T={RWKV_T}, H={RWKV_H}, hd={RWKV_HD}, f32 (B*H blocks of "
+        f"{RWKV_HD} threads): " + "; ".join(
+            f"B={r['batch']} ({r['blocks']} blocks) {r['kernel_ms']:.4f} ms, "
+            f"{r['kernel_ms'] / r['bound_ms']:.2f}x its {r['bound_ms']:.4f} ms bound, "
+            f"{r['ns_per_step_per_head']:.4f} ns per (b, h, t)" for r in sweep) + f" [{card}]")
+    args = wkv_inputs(torch, RWKV_B, RWKV_T, RWKV_H, RWKV_HD, torch.float32, seed=3200)
+    flops, nbytes = k3_bound(RWKV_B, RWKV_T, RWKV_H, RWKV_HD)
+    row = {"batch": RWKV_B, "t": RWKV_T, "heads": RWKV_H, "head_dim": RWKV_HD, "dtype": "f32",
+           "flop": flops, "bytes": nbytes,
+           "kernel_ms": device_ms(torch, lambda: wkv6_cuda(*args), iters=10, reps=5),
+           "kernel_host_ms": host_ms(torch, lambda: wkv6_cuda(*args), iters=10),
+           "plain_ms": device_ms(torch, lambda: wkv6_plain(*args), iters=1, reps=2),
+           "library_ms": None,
+           "ops_ms": flops / PEAK_F32_FLOPS * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+    row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+    row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+    results["k3_time"] = row
+    log(f"[k3 time] rwkv6-7b heads, B={RWKV_B}, T={RWKV_T}, H={RWKV_H}, hd={RWKV_HD}, f32: kernel "
+        f"{row['kernel_ms']:.4f} ms (device), {row['kernel_host_ms']:.4f} ms per call on the host; "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; {flops:.4g} FLOP -> "
+        f"{row['ops_ms']:.4f} ms, {nbytes:.4g} B -> {row['bytes_ms']:.4f} ms); plain "
+        f"{row['plain_ms']:.2f} ms; no library call [{card}]")
+    return row
+
+
+def drive_k3_path(torch, results, card) -> int:
+    """K3's path: ``ops.wkv6_op`` at full width, once whole and once as a
+    chained pair; the pair must equal the whole, and batch row 0 the plain
+    version."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, wkv6_op
+    from repro_torch.kernels.wkv6 import wkv6_plain
+
+    args = wkv_inputs(torch, RWKV_B, RWKV_T, RWKV_H, RWKV_HD, torch.float32, seed=3300)
+    first, second = split_time(args, RWKV_T // 2)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    y, s = wkv6_op(*args)
+    y1, s1 = wkv6_op(*first, *args[4:])
+    y2, s2 = wkv6_op(*second, args[4], s1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 3, "flash_attention": 0}:
+        raise AssertionError(f"K3 path launched {counts}, expected 3 wkv6 launches")
+    if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+        raise AssertionError("K3 path produced non-finite values")
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s2, s, rtol=1e-4, atol=1e-5)
+    yp, sp = wkv6_plain(*(t[:1] for t in args[:4]), args[4], args[5][:1])
+    torch.testing.assert_close(y[:1], yp, rtol=WKV_F32_TOL, atol=WKV_F32_TOL)
+    torch.testing.assert_close(s[:1], sp, rtol=WKV_F32_TOL, atol=WKV_F32_TOL)
+    err = max(float((y[:1] - yp).abs().max()), float((s[:1] - sp).abs().max()))
+    results["k3_path"] = {"launches": counts["wkv6"], "ms": dt * 1e3, "max_abs_err_row0": err}
+    log(f"[k3 path] wkv6_op at B={RWKV_B}, T={RWKV_T}, H={RWKV_H}, hd={RWKV_HD}, f32, whole and "
+        f"as a chained pair: {counts['wkv6']} K3 launches, {dt*1e3:.2f} ms on the host clock; the "
+        f"pair equals the whole, batch row 0 agrees with the plain version (max abs err "
+        f"{err:.3g}, tol {WKV_F32_TOL}) [{card}]")
+    return counts["wkv6"]
+
+
+def attention_inputs(torch, b, h, s_len, sk_len, d, dtype, seed, kv_heads=None):
+    """q (B,H,S,d), k/v (B,H,Sk,d), standard normal; with ``kv_heads`` k and
+    v are drawn with that many heads and expanded to H as ``_expand_kv`` does."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, s_len, d, generator=g, device="cuda").to(dtype)
+    hk = kv_heads or h
+    k, v = (torch.randn(b, hk, sk_len, d, generator=g, device="cuda").to(dtype)
+            .repeat_interleave(h // hk, dim=1) for _ in range(2))
+    return q, k, v
+
+
+def check_wide(torch, got, want, dtype) -> dict:
+    """Hold a K4 output (..., d) to the plain version's at ATTN_WIDE_TOL;
+    raises past the limit, else returns the max abs error, the largest share
+    of the limit any element used and the largest error over its row's rms."""
+    rtol, atol, row = ATTN_WIDE_TOL["f32" if dtype == torch.float32 else "bf16"]
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    share = float((diff / (atol + row * rms + rtol * want.abs())).max())
+    if not share <= 1.0:
+        raise AssertionError(f"K4 output off by {share:.3g} of the limit (rtol, atol, row) = "
+                             f"{(rtol, atol, row)}; max abs err {float(diff.max()):.3g}")
+    return {"max_abs_err": float(diff.max()), "limit_share": share,
+            "max_err_over_row_rms": float((diff / rms).max())}
+
+
+def check_k4(torch, results) -> None:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    cases = [(2, 3, s, s, d) for s, d in ATTN_SWEEP] + [(2, 3, s, sk, d) for s, sk, d in ATTN_EXTRA]
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for b, h, s_len, sk_len, d in cases:
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = attention_inputs(torch, b, h, s_len, sk_len, d, dtype, seed=4000 + n)
+                out = flash_attention_cuda(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                want = flash_attention_plain(q, k, v, causal=causal)
+                if out.dtype != dtype:
+                    raise AssertionError(f"K4 output dtype {out.dtype}, expected {dtype}")
+                tol = ATTN_F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+                torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+                err[dtype] = max(err[dtype], float((out.float() - want.float()).abs().max()))
+                n += 1
+    sweep_err = dict(err)
+    # full width, causal: the plain version one batch row at a time, at
+    # limits scaled to the late rows' small outputs
+    wide = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attention_inputs(torch, PHI_B, PHI_H, PHI_S, PHI_S, PHI_HD, dtype,
+                                   seed=4100 + n, kv_heads=PHI_KV_H)
+        out = flash_attention_cuda(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        name = "f32" if dtype == torch.float32 else "bf16"
+        w = wide[name] = {"max_abs_err": 0.0, "limit_share": 0.0, "max_err_over_row_rms": 0.0,
+                          "mean_abs_out": 0.0, "rtol_atol_row": ATTN_WIDE_TOL[name]}
+        for row in range(PHI_B):
+            want = flash_attention_plain(q[row:row + 1], k[row:row + 1], v[row:row + 1], causal=True)
+            got = check_wide(torch, out[row:row + 1], want, dtype)
+            for key, val in got.items():
+                w[key] = max(w[key], val)
+            w["mean_abs_out"] += float(want.float().abs().mean()) / PHI_B
+        err[dtype] = max(err[dtype], w["max_abs_err"])
+        n += 1
+    results["k4_checks"] = n
+    results["k4_max_abs_err_f32"] = err[torch.float32]
+    results["k4_max_abs_err_bf16"] = err[torch.bfloat16]
+    results["k4_wide_check"] = wide
+    log(f"[k4] {n} checks passed against the plain version (top-left causal mask): (B, H, S, Sk, "
+        f"d) in {cases} x causal on/off x (f32, bf16), max abs err f32 "
+        f"{sweep_err[torch.float32]:.3g} (tol {ATTN_F32_TOL}), bf16 "
+        f"{sweep_err[torch.bfloat16]:.3g} (tol {ATTN_BF16_TOL}); and phi4-mini-3.8b's heads "
+        f"(B={PHI_B}, H={PHI_H} from {PHI_KV_H} kv heads, S=Sk={PHI_S}, d={PHI_HD}), causal: "
+        + "; ".join(f"{k} max abs err {w['max_abs_err']:.3g}, at most "
+                    f"{w['max_err_over_row_rms']:.3g} of its row's rms and {w['limit_share']:.3f} "
+                    f"of the limit (rtol, atol, row) {w['rtol_atol_row']}; mean |o| "
+                    f"{w['mean_abs_out']:.4f}" for k, w in wide.items()))
+
+
+def time_k4(torch, results, card) -> dict:
+    """K4 at phi4-mini-3.8b's heads, S=Sk=4096, B=4, causal, per dtype,
+    beside its bound, the plain version and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    rows = {}
+    for dtype, name, peak in ((torch.bfloat16, "bf16", PEAK_BF16_FLOPS),
+                              (torch.float32, "f32", PEAK_F32_FLOPS)):
+        q, k, v = attention_inputs(torch, PHI_B, PHI_H, PHI_S, PHI_S, PHI_HD, dtype, seed=4200,
+                                   kv_heads=PHI_KV_H)
+        flops, nbytes, pairs = k4_bound(PHI_B, PHI_H, PHI_S, PHI_S, PHI_HD, True, q.element_size())
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        out = flash_attention_cuda(q, k, v, causal=True)
+        lib_out = library()
+        torch.cuda.synchronize()
+        tol = ATTN_F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+        # the same function (PyTorch's is_causal is top-left too)
+        torch.testing.assert_close(lib_out.float(), out.float(), rtol=tol, atol=tol)
+        row = {"batch": PHI_B, "heads": PHI_H, "s": PHI_S, "sk": PHI_S, "head_dim": PHI_HD,
+               "dtype": name, "causal": True, "pairs": pairs, "flop": flops, "bytes": nbytes,
+               "max_abs_diff_vs_library": float((lib_out.float() - out.float()).abs().max()),
+               "kernel_ms": device_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True),
+                                      iters=3, reps=3),
+               "kernel_host_ms": host_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True),
+                                         iters=3),
+               "plain_ms": device_ms(torch, lambda: flash_attention_plain(q, k, v, causal=True),
+                                     iters=1, reps=2),
+               "library_ms": device_ms(torch, library, iters=5, reps=3),
+               "ops_ms": flops / peak * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+        del lib_out, out
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+        rows[name] = row
+        log(f"[k4 time] phi4-mini-3.8b heads, B={PHI_B}, H={PHI_H}, S=Sk={PHI_S}, d={PHI_HD}, "
+            f"causal, {name}: kernel {row['kernel_ms']:.4f} ms (device), "
+            f"{row['kernel_host_ms']:.4f} ms per call on the host; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}; {pairs} visible pairs, {flops:.4g} FLOP at {peak/1e12:g} "
+            f"TFLOP/s -> {row['ops_ms']:.4f} ms, {nbytes:.4g} B -> {row['bytes_ms']:.4f} ms); "
+            f"plain {row['plain_ms']:.3f} ms; scaled_dot_product_attention "
+            f"{row['library_ms']:.4f} ms (max abs diff to the kernel "
+            f"{row['max_abs_diff_vs_library']:.3g}) [{card}]")
+    results["k4_time"] = rows
+    return rows["bf16"]
+
+
+def drive_k4_path(torch, results, card) -> int:
+    """K4's path: ``ops.flash_attention_op`` on (B, S, H, d) bf16 tensors at
+    phi4-mini-3.8b's heads, S=4096, B=4, causal; batch row 0 must agree
+    with the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ops import flash_attention_op, launch_counts, reset_launch_counts
+
+    q, k, v = (t.transpose(1, 2).contiguous() for t in attention_inputs(
+        torch, PHI_B, PHI_H, PHI_S, PHI_S, PHI_HD, torch.bfloat16, seed=4300, kv_heads=PHI_KV_H))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = flash_attention_op(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 0, "flash_attention": 1}:
+        raise AssertionError(f"K4 path launched {counts}, expected 1 flash_attention launch")
+    if out.shape != q.shape or out.dtype != q.dtype or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"K4 path gave {out.shape} {out.dtype} or non-finite values")
+    if not out.is_contiguous():
+        raise AssertionError("flash_attention_op returned a non-contiguous (B, S, H, d) tensor")
+    want = flash_attention_plain(*(t[:1].transpose(1, 2) for t in (q, k, v)), causal=True)
+    got = check_wide(torch, out[:1].transpose(1, 2), want, torch.bfloat16)
+    err, share = got["max_abs_err"], got["limit_share"]
+    results["k4_path"] = {"launches": counts["flash_attention"], "ms": dt * 1e3,
+                          "max_abs_err_row0": err, "limit_share_row0": share}
+    log(f"[k4 path] flash_attention_op on (B, S, H, d) = ({PHI_B}, {PHI_S}, {PHI_H}, {PHI_HD}) "
+        f"bf16, causal: {counts['flash_attention']} K4 launch, {dt*1e3:.2f} ms on the host clock "
+        f"(first call at this shape); batch row 0 agrees with the plain version (max abs err "
+        f"{err:.3g}, {share:.3f} of the limit (rtol, atol, row) {ATTN_WIDE_TOL['bf16']} at "
+        f"most) [{card}]")
+    return counts["flash_attention"]
 
 
 def time_k1(torch, b: int, results, card) -> dict:
@@ -688,6 +1058,13 @@ def main(argv=None) -> int:
     k2_launches = drive_k2_path(torch, svc, first, results, card)
     drive_gateway(torch, results, card)
 
+    check_k3(torch, results)
+    k3 = time_k3(torch, results, card)
+    k3_launches = drive_k3_path(torch, results, card)
+    check_k4(torch, results)
+    k4 = time_k4(torch, results, card)
+    k4_launches = drive_k4_path(torch, results, card)
+
     kernels = {"kernels": [{
         "name": "lstm_cell",
         "route": "cuda",
@@ -712,13 +1089,40 @@ def main(argv=None) -> int:
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
+    }, {
+        "name": "wkv6",
+        "route": "cuda",
+        "source": K3_SOURCE,
+        "replaces": K3_REPLACES,
+        "launches": k3_launches,
+        "max_abs_err": results["k3_max_abs_err_f32"],
+        "ms": k3["kernel_ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": K4_SOURCE,
+        "replaces": K4_REPLACES,
+        "launches": k4_launches,
+        "max_abs_err": results["k4_max_abs_err_bf16"],
+        "ms": k4["kernel_ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"],
     }]}
     results["kernels"] = kernels["kernels"]
     results["total_s"] = time.perf_counter() - t_start
     log(f"[done] {results['total_s']:.1f} s; lstm_cell: times per timestep of lstm-ae-f64-d6 at "
         f"B={serve.global_batch} (6 launches), launches from the fused serving path's 3 requests; "
         f"lstm_seq: times per forward of lstm-ae-f64-d6 at B={serve.global_batch}, T={K2_T} "
-        f"(6 launches), launches from its lstm_seq_op path")
+        f"(6 launches), launches from its lstm_seq_op path; wkv6: f32 at B={RWKV_B}, T={RWKV_T}, "
+        f"H={RWKV_H}, hd={RWKV_HD}, launches from its wkv6_op path (whole + chained pair); "
+        f"flash_attention: bf16 at B={PHI_B}, H={PHI_H}, S=Sk={PHI_S}, d={PHI_HD}, causal, "
+        f"launches from its flash_attention_op path")
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

@@ -15,6 +15,14 @@ launches or raises.  Nothing falls back from the kernel to the plain version.
   FLOP bound it.  Left for later: tensor cores, and splitting H across a
   thread-block cluster for weights larger than one block's shared memory
   (today those are read from L2 every step).
+- :func:`wkv6_op` — K3, the RWKV-6 WKV recurrence over (B, T, H, hd).
+- :func:`flash_attention_op` — K4, the flash-attention forward over
+  (B, S, H, d), causal mask aligned top-left.
+
+As in the reference, K3 and K4 are reached only through these two wrappers:
+no model layer calls them.  The reference wrappers' ``block_q``/``block_k``
+and ``interpret`` are TPU tiling and mode knobs that do not change the
+function; they are not carried over.
 """
 from __future__ import annotations
 
@@ -28,7 +36,13 @@ from repro_torch.kernels.lstm_cell import (
     lstm_cell_plain,
     pack_weights,
 )
+from repro_torch.kernels.flash_attention import (
+    check_attention_args,
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.lstm_seq import check_seq_args, lstm_seq_cuda, lstm_seq_plain
+from repro_torch.kernels.wkv6 import check_wkv6_args, wkv6_cuda, wkv6_plain
 
 
 def lstm_cell_op(params, x, h, c, *, pwl: bool = False,
@@ -72,11 +86,48 @@ def lstm_seq_op(params, xs, h0=None, c0=None, *, pwl: bool = False):
     return lstm_seq_plain(xs, h0, c0, wx, wh, b, pwl=pwl)
 
 
+def wkv6_op(r, k, v, w, u, s0):
+    """RWKV-6 WKV recurrence: r, k, v (B, T, H, hd) in one dtype (f32 or
+    bf16), w (B, T, H, hd), u (H, hd) and s0 (B, H, hd, hd) in f32 ->
+    (y (B, T, H, hd) f32, S_T (B, H, hd, hd) f32).  Chunks chain: a call on
+    the rest of a sequence with the state the first call returned equals one
+    call on the whole."""
+    if r.device.type == "cuda":
+        return wkv6_cuda(r, k, v, w, u, s0)
+    if r.device.type != "cpu":
+        raise ValueError(f"wkv6_op runs on cuda or cpu tensors, got {r.device}")
+    check_wkv6_args(r, k, v, w, u, s0)
+    return wkv6_plain(r, k, v, w, u, s0)
+
+
+def flash_attention_op(q, k, v, *, causal: bool = True):
+    """Attention over the (B, S, H, d) layout: q (B, S, H, d), k/v
+    (B, Sk, H, d) with kv heads already expanded, one dtype (f32 or bf16);
+    returns a contiguous (B, S, H, d) tensor in q's dtype on either device,
+    whatever q's strides.  Under ``causal`` key j is visible to query i iff
+    j <= i (top-left, as the Pallas kernel; ``ref_attention`` aligns
+    bottom-right and agrees only when S == Sk).  The kernel reads the
+    (B, H, S, d) views through strides and writes o through the transpose of
+    a contiguous (B, S, H, d) tensor: no transpose is copied."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if q.device.type == "cuda":
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        flash_attention_cuda(qt, kt, vt, causal=causal, out=out.transpose(1, 2))
+        return out
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention_op runs on cuda or cpu tensors, got {q.device}")
+    check_attention_args(qt, kt, vt)
+    return flash_attention_plain(qt, kt, vt, causal=causal).transpose(1, 2).contiguous()
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel (plain-version calls are not counted)."""
-    return {"lstm_cell": lstm_cell_cuda.launches, "lstm_seq": lstm_seq_cuda.launches}
+    return {"lstm_cell": lstm_cell_cuda.launches, "lstm_seq": lstm_seq_cuda.launches,
+            "wkv6": wkv6_cuda.launches, "flash_attention": flash_attention_cuda.launches}
 
 
 def reset_launch_counts() -> None:
     lstm_cell_cuda.launches = 0
     lstm_seq_cuda.launches = 0
+    wkv6_cuda.launches = 0
+    flash_attention_cuda.launches = 0

@@ -4,16 +4,33 @@ Needs only torch (the GPU machine has no JAX).  Every test is marked
 ``cuda`` and skips without a GPU, deciding inside the test.  On a GPU:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
+import functools
+import os
+import sys
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
+# chip_smoke.py holds the one definition of the K3 and K4 inputs that both
+# GPU checks draw (it imports nothing at module level beyond the stdlib)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
+
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.core.lstm import init_lstm_ae  # noqa: E402
 from repro_torch.engine import build_engine  # noqa: E402
+from repro_torch.kernels import flash_attention as tf  # noqa: E402
 from repro_torch.kernels import lstm_cell as tk  # noqa: E402
 from repro_torch.kernels import lstm_seq as ts  # noqa: E402
-from repro_torch.kernels.ops import launch_counts, lstm_cell_op, lstm_seq_op  # noqa: E402
+from repro_torch.kernels import wkv6 as tw  # noqa: E402
+from repro_torch.kernels.ops import (  # noqa: E402
+    flash_attention_op,
+    launch_counts,
+    lstm_cell_op,
+    lstm_seq_op,
+    wkv6_op,
+)
 
 SHAPES = [(16, 16), (32, 64), (64, 128), (128, 256), (64, 32), (8, 4)]
 
@@ -167,3 +184,146 @@ def test_gateway_on_the_card(cuda):
     for i, n in enumerate(lens):
         direct = svc.score(windows[i:i + 1, :n])
         torch.testing.assert_close(torch.tensor(scores[i]), direct[0].cpu(), rtol=1e-4, atol=1e-6)
+
+
+# (b, t_len, h, hd, dtype, seed, zero_state=False) -> r, k, v, w, u, s0
+_wkv6_inputs = functools.partial(chip_smoke.wkv_inputs, torch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_len,hd,h", [(8, 16, 2), (32, 32, 4), (64, 64, 2), (37, 64, 3)])
+def test_wkv6_kernel_matches_plain(cuda, t_len, hd, h, dtype):
+    """K3 against its plain version: the reference sweep and a T that is no
+    multiple of the kernel's staging chunk."""
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    args = _wkv6_inputs(2, t_len, h, hd, dtype, seed=t_len + hd)
+    before = launch_counts()["wkv6"]
+    y, s = wkv6_op(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["wkv6"] == before + 1
+    yp, sp = tw.wkv6_plain(*args)
+    assert y.dtype == s.dtype == torch.float32
+    torch.testing.assert_close(y, yp, rtol=tol, atol=tol)
+    torch.testing.assert_close(s, sp, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_chains_across_chunks(cuda):
+    """Two launches with the state handed through equal one launch."""
+    r, k, v, w, u, s0 = _wkv6_inputs(2, 32, 2, 16, torch.float32, seed=11, zero_state=True)
+    halves = [tuple(t[:, sl].contiguous() for t in (r, k, v, w)) for sl in (slice(0, 16), slice(16, 32))]
+    y1, s1 = wkv6_op(*halves[0], u, s0)
+    y2, s2 = wkv6_op(*halves[1], u, s1)
+    y, s = wkv6_op(r, k, v, w, u, s0)
+    yp, sp = tw.wkv6_plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s2, s, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s, sp, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_wkv6_refused_launches_raise(cuda):
+    r, k, v, w, u, s0 = _wkv6_inputs(2, 8, 2, 16, torch.float32, seed=4)
+    with pytest.raises(ValueError, match="head dims"):
+        tw.wkv6_cuda(*_wkv6_inputs(2, 8, 2, 24, torch.float32, seed=4))
+    with pytest.raises(TypeError, match="share a dtype"):
+        tw.wkv6_cuda(r, k.to(torch.bfloat16), v, w, u, s0)
+    strided = torch.zeros(2, 8, 2, 32, device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tw.wkv6_cuda(strided, k, v, w, u, s0)
+    with pytest.raises(ValueError, match="one device"):
+        tw.wkv6_cuda(r, k, v, w, u.cpu(), s0)
+
+
+# (b, h, s, sk, d, dtype, seed) -> q (B,H,S,d), k/v (B,H,Sk,d), standard normal
+_attention_inputs = functools.partial(chip_smoke.attention_inputs, torch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,sk,d", [(128, 128, 64), (256, 256, 64), (256, 256, 128),
+                                    (128, 256, 64), (256, 128, 128), (200, 200, 64),
+                                    (77, 130, 128)])
+def test_flash_attention_kernel_matches_plain(cuda, s, sk, d, causal, dtype):
+    """K4 against its plain version (top-left causal mask): the reference
+    sweep, S != Sk both ways, and ragged S and Sk."""
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    q, k, v = _attention_inputs(2, 3, s, sk, d, dtype, seed=s + sk + d)
+    want = tf.flash_attention_plain(q, k, v, causal=causal)
+    got = tf.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # the public (B, S, H, d) wrapper: strided views, one launch, same values
+    before = launch_counts()["flash_attention"]
+    out = flash_attention_op(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert out.is_contiguous() and out.shape == (2, s, 3, d)   # written in q's layout
+    torch.testing.assert_close(out.transpose(1, 2), got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refused_launches_raise(cuda):
+    q, k, v = _attention_inputs(1, 2, 64, 64, 64, torch.float32, seed=5)
+    with pytest.raises(ValueError, match="head dims"):
+        tf.flash_attention_cuda(*_attention_inputs(1, 2, 64, 64, 96, torch.float32, seed=5))
+    with pytest.raises(TypeError, match="share a dtype"):
+        tf.flash_attention_cuda(q, k.to(torch.bfloat16), v)
+    strided = torch.zeros(1, 2, 64, 128, device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tf.flash_attention_cuda(strided, k, v)
+    with pytest.raises(ValueError, match="one device"):
+        tf.flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="out must be"):
+        tf.flash_attention_cuda(q, k, v, out=torch.empty_like(q)[:, :1])
+    with pytest.raises(ValueError, match="share storage"):
+        tf.flash_attention_cuda(q, k, v, out=q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_op_output_layout_is_fixed(cuda, dtype):
+    """The (B, S, H, d) wrapper returns a contiguous tensor for a q that is
+    not dense (heads sliced out of a wider tensor), as on the CPU, and the
+    kernel wrapper writes a given ``out`` through its strides."""
+    q, k, v = _attention_inputs(2, 4, 72, 72, 64, dtype, seed=8)
+    q2, k2, v2 = (t.transpose(1, 2)[:, :, :2] for t in (q, k, v))   # (B, S, 2 of 4 heads, d)
+    assert not q2.is_contiguous()
+    out = flash_attention_op(q2, k2, v2)
+    cpu = flash_attention_op(q2.cpu(), k2.cpu(), v2.cpu())
+    assert out.is_contiguous() and cpu.is_contiguous() and out.shape == cpu.shape == q2.shape
+    want = tf.flash_attention_plain(*(t.transpose(1, 2) for t in (q2, k2, v2)))
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.transpose(1, 2).float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(out.cpu().float(), cpu.float(), rtol=tol, atol=tol)
+    wide = torch.zeros(2, 3, 72, 128, dtype=dtype, device="cuda")
+    got = tf.flash_attention_cuda(q[:, :3], k[:, :3], v[:, :3], out=wide[..., 32:96])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == wide[..., 32:96].data_ptr()
+    assert not wide[..., :32].any() and not wide[..., 96:].any()
+    torch.testing.assert_close(got, tf.flash_attention_cuda(q[:, :3], k[:, :3], v[:, :3]),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_launch_counters_count_kernel_launches_only(cuda):
+    """Each wrapper adds one per launch; refused launches and plain versions
+    add nothing."""
+    from repro_torch.kernels.ops import reset_launch_counts
+
+    reset_launch_counts()
+    wargs = _wkv6_inputs(1, 4, 1, 16, torch.float32, seed=6)
+    wkv6_op(*wargs)
+    tw.wkv6_plain(*wargs)
+    q, k, v = _attention_inputs(1, 1, 8, 8, 64, torch.float32, seed=6)
+    flash_attention_op(q, k, v)
+    flash_attention_op(q, k, v, causal=False)
+    tf.flash_attention_plain(q, k, v)
+    with pytest.raises(ValueError):
+        tf.flash_attention_cuda(q[..., :32], k[..., :32], v[..., :32])
+    torch.cuda.synchronize()
+    assert launch_counts() == {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 1, "flash_attention": 2}
