@@ -9,7 +9,8 @@ toolkit.  It
 3. holds K1 (the fused LSTM cell) to its plain PyTorch version at every
    layer shape of the four paper configs and the kernel-test sweep, f32 and
    bf16, with and without the PWL activations, and times it at the shapes
-   of the main path beside its bound, the plain version and ``torch.lstm_cell``;
+   of the main path (B=8192) and of the gateway's flushes (B=256) beside its
+   bound, the plain version and ``torch.lstm_cell``, naming each launch's tile;
 4. drives the main path: ``AnomalyService("lstm-ae-f64-d6", schedule="fused")``
    at the ``serve_64`` shape (B=8192, T=64, F=64) — calibrate, then three
    scoring requests — and checks that K1 ran 3 x 6 x 64 times, that the
@@ -44,10 +45,13 @@ toolkit.  It
    kv heads expanded, d=128) at S=Sk=4096, B=4, causal, at limits scaled
    to the small outputs of late rows; times it there per
    dtype beside its bound, the plain version and PyTorch's
-   ``scaled_dot_product_attention`` (timed only: the port never calls it);
+   ``scaled_dot_product_attention`` (timed only: the port never calls it),
+   with the achieved TFLOP/s and the kernel instantiation that served each
+   dtype (bf16: tensor cores; f32: FP32 FMAs);
    drives its path, ``ops.flash_attention_op``, once at that shape in bf16.
 
-Any failed check raises and the script exits non-zero; without a GPU, or
+The build fails if ``ptxas`` reports a spill in K1 or K4.  Any failed
+check raises and the script exits non-zero; without a GPU, or
 without the rest of the repository beside it, it exits non-zero at once.
 The line before the last is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
@@ -58,6 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -119,6 +124,9 @@ RWKV_B_SWEEP = (8, 16, 32, 64)
 # heads (expanded to 24 as layers/attention.py::_expand_kv does), d_model
 # 3072 / 24 = 128; S = Sk = 4096, B = 4
 PHI_B, PHI_S, PHI_H, PHI_KV_H, PHI_HD = 4, 4096, 24, 8, 128
+
+# kernels whose ptxas report must show no spill
+NO_SPILL = ("lstm_cell", "flash_attention")
 
 GATEWAY_ARCH = "lstm-ae-f64-d6"
 GATEWAY_CAPACITY = 1024
@@ -728,7 +736,11 @@ def check_wide(torch, got, want, dtype) -> dict:
 
 
 def check_k4(torch, results) -> None:
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+        kernel_name,
+    )
 
     cases = [(2, 3, s, s, d) for s, d in ATTN_SWEEP] + [(2, 3, s, sk, d) for s, sk, d in ATTN_EXTRA]
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -770,6 +782,11 @@ def check_k4(torch, results) -> None:
     results["k4_max_abs_err_f32"] = err[torch.float32]
     results["k4_max_abs_err_bf16"] = err[torch.bfloat16]
     results["k4_wide_check"] = wide
+    results["k4_kernels"] = {
+        f"{'f32' if dtype == torch.float32 else 'bf16'} d={d}": kernel_name(dtype, d, True)
+        for dtype in (torch.float32, torch.bfloat16) for d in (64, 128)}
+    for key, val in results["k4_kernels"].items():
+        log(f"[k4] {key} (causal; the same kernel without the mask otherwise) is served by {val}")
     log(f"[k4] {n} checks passed against the plain version (top-left causal mask): (B, H, S, Sk, "
         f"d) in {cases} x causal on/off x (f32, bf16), max abs err f32 "
         f"{sweep_err[torch.float32]:.3g} (tol {ATTN_F32_TOL}), bf16 "
@@ -786,7 +803,11 @@ def time_k4(torch, results, card) -> dict:
     beside its bound, the plain version and scaled_dot_product_attention."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+        kernel_name,
+    )
 
     rows = {}
     for dtype, name, peak in ((torch.bfloat16, "bf16", PEAK_BF16_FLOPS),
@@ -818,14 +839,18 @@ def time_k4(torch, results, card) -> dict:
         del lib_out, out
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+        row["kernel"] = kernel_name(dtype, PHI_HD, True)
+        row["tflops"] = flops / row["kernel_ms"] * 1e-9
+        row["library_tflops"] = flops / row["library_ms"] * 1e-9
         rows[name] = row
         log(f"[k4 time] phi4-mini-3.8b heads, B={PHI_B}, H={PHI_H}, S=Sk={PHI_S}, d={PHI_HD}, "
-            f"causal, {name}: kernel {row['kernel_ms']:.4f} ms (device), "
+            f"causal, {name}, served by {row['kernel']}: kernel {row['kernel_ms']:.4f} ms "
+            f"(device), {row['tflops']:.1f} TFLOP/s, "
             f"{row['kernel_host_ms']:.4f} ms per call on the host; bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}; {pairs} visible pairs, {flops:.4g} FLOP at {peak/1e12:g} "
             f"TFLOP/s -> {row['ops_ms']:.4f} ms, {nbytes:.4g} B -> {row['bytes_ms']:.4f} ms); "
             f"plain {row['plain_ms']:.3f} ms; scaled_dot_product_attention "
-            f"{row['library_ms']:.4f} ms (max abs diff to the kernel "
+            f"{row['library_ms']:.4f} ms, {row['library_tflops']:.1f} TFLOP/s (max abs diff to the kernel "
             f"{row['max_abs_diff_vs_library']:.3g}) [{card}]")
     results["k4_time"] = rows
     return rows["bf16"]
@@ -866,10 +891,12 @@ def drive_k4_path(torch, results, card) -> int:
     return counts["flash_attention"]
 
 
-def time_k1(torch, b: int, results, card) -> dict:
-    """K1 at the main path's shapes: every layer of lstm-ae-f64-d6 at batch b, f32."""
+def time_k1(torch, b: int, results, card, tag: str = "") -> dict:
+    """K1 at the main path's shapes: every layer of lstm-ae-f64-d6 at batch b,
+    f32; the rows land in ``results["k1_layers" + tag]``, the sum over the
+    six layers in ``results["k1_timestep" + tag]``."""
     from repro_torch.config import get_config
-    from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_plain
+    from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_plain, lstm_cell_tile
 
     ae = get_config("lstm-ae-f64-d6").lstm_ae
     rows = []
@@ -886,6 +913,7 @@ def time_k1(torch, b: int, results, card) -> dict:
         flops, nbytes = k1_bound(b, in_dim, hidden)
         row = {
             "in": in_dim, "hidden": hidden, "batch": b, "flop": flops, "bytes": nbytes,
+            "tile": lstm_cell_tile(b, hidden),
             "kernel_ms": device_ms(torch, lambda: lstm_cell_cuda(x, h, c, wx, wh, bias,
                                                                  h_out=h_out, c_out=c_out)),
             "kernel_host_ms": host_ms(torch, lambda: lstm_cell_cuda(x, h, c, wx, wh, bias,
@@ -897,7 +925,8 @@ def time_k1(torch, b: int, results, card) -> dict:
         }
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         rows.append(row)
-        log(f"[k1 time] f64-d6 layer {li} (In={in_dim}, H={hidden}, B={b}, f32): "
+        log(f"[k1 time] f64-d6 layer {li} (In={in_dim}, H={hidden}, B={b}, f32, tile "
+            f"{row['tile'][0]} rows x {row['tile'][1]} units): "
             f"kernel {row['kernel_ms']:.5f} ms (device), {row['kernel_host_ms']:.5f} ms per call "
             f"in a Python loop; plain {row['plain_ms']:.5f} ms; torch.lstm_cell "
             f"{row['library_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms "
@@ -908,8 +937,8 @@ def time_k1(torch, b: int, results, card) -> dict:
                                                    "library_ms", "flop", "bytes")}
     total["bound_ms"] = max(ops, mem)
     total["bound_by"] = "operations" if ops >= mem else "bytes"
-    results["k1_layers"] = rows
-    results["k1_timestep"] = total
+    results["k1_layers" + tag] = rows
+    results["k1_timestep" + tag] = total
     log(f"[k1 time] one timestep of lstm-ae-f64-d6 at B={b} (6 launches): kernel "
         f"{total['kernel_ms']:.5f} ms, {total['kernel_host_ms']:.5f} ms per 6 calls in a Python "
         f"loop, plain {total['plain_ms']:.5f} ms, torch.lstm_cell {total['library_ms']:.5f} ms, "
@@ -1040,12 +1069,17 @@ def main(argv=None) -> int:
         log(f"[build] {name}: {path.name} in {results['build_s']:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
         for ln in report:
             log(f"[build]   {ln}")
+        spills = [ln for ln in report
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+        if name in NO_SPILL and spills:
+            raise AssertionError(f"{name}: ptxas reports spills: {spills}")
 
     from repro_torch.config import LSTMAE_SHAPES
 
     serve = next(s for s in LSTMAE_SHAPES if s.name == "serve_64")   # B=8192, T=64
     check_k1(torch, results)
     k1 = time_k1(torch, serve.global_batch, results, card)
+    time_k1(torch, GATEWAY_MAX_BATCH, results, card, tag=f"_b{GATEWAY_MAX_BATCH}")
 
     svc, first = drive_service(torch, "lstm-ae-f64-d6", serve.global_batch, serve.seq_len, 3,
                                results, card)

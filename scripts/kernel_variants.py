@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Time variants of one of the port's CUDA kernels beside the committed source, on one GPU.
+
+    python3 scripts/kernel_variants.py lstm_cell 'kTargetBlocks = 128;=>kTargetBlocks = 256;'
+    python3 scripts/kernel_variants.py flash_attention 'kMmaWarps = 4;=>kMmaWarps = 8;'
+
+Each variant is ``src/repro_torch/kernels/csrc/<kernel>.cu`` with one piece
+of text replaced (``OLD=>NEW``; OLD must occur exactly once).  The script
+builds the committed library and every variant with the nvcc flags of
+``kernels/_build.py`` (all compilers at once, into ``kernels/_build/variants/``),
+prints each build's registers and spills as ptxas reports them, holds each
+build to the plain version with ``chip_smoke.py``'s checks, and times it on
+the card in turns: the committed build, the variants, then the same in
+reverse, so that the order favours none.  What is timed:
+
+- ``lstm_cell``: one timestep of lstm-ae-f64-d6 (6 launches, f32) at B=8192
+  and at B=256, as ``chip_smoke.time_k1``;
+- ``flash_attention``: one bf16 launch at phi4-mini-3.8b's heads (B=4, H=24,
+  S=Sk=4096, d=128, causal), the shape of ``chip_smoke.time_k4``.
+
+Device times come from CUDA events (``chip_smoke.device_ms``).  ``--json
+PATH`` also writes every time.  A variant that fails to build or to agree
+with the plain version stops the script with a non-zero exit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+KERNELS = ("lstm_cell", "flash_attention")
+
+
+def apply_variant(source: str, spec: str) -> str:
+    """``source`` with the OLD of ``spec`` ("OLD=>NEW") replaced by NEW;
+    raises ValueError unless OLD occurs exactly once."""
+    if "=>" not in spec:
+        raise ValueError(f"a variant is OLD=>NEW, got {spec!r}")
+    old, new = spec.split("=>", 1)
+    count = source.count(old)
+    if count != 1:
+        raise ValueError(f"{old!r} occurs {count} times in the source; it must occur once")
+    return source.replace(old, new)
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers of every kernel and the non-zero spills in an ``nvcc -Xptxas -v`` log."""
+    return {"registers": [int(n) for n in re.findall(r"Used (\d+) registers", log)],
+            "spill_bytes": [int(n) for n in re.findall(r"(\d+) bytes spill", log) if n != "0"]}
+
+
+def measure(torch, cs, kernel: str, card: str) -> dict:
+    """Check the loaded build against the plain version, then time it."""
+    res: dict = {}
+    if kernel == "lstm_cell":
+        cs.check_k1(torch, res)
+        big = cs.time_k1(torch, 8192, res, card)
+        small = cs.time_k1(torch, cs.GATEWAY_MAX_BATCH, res, card, tag="_small")
+        return {"b8192_ms": big["kernel_ms"], "b8192_layers_ms": [r["kernel_ms"] for r in res["k1_layers"]],
+                "b256_ms": small["kernel_ms"],
+                "b256_layers_ms": [r["kernel_ms"] for r in res["k1_layers_small"]]}
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    cs.check_k4(torch, res)
+    q, k, v = cs.attention_inputs(torch, cs.PHI_B, cs.PHI_H, cs.PHI_S, cs.PHI_S, cs.PHI_HD,
+                                  torch.bfloat16, seed=4200, kv_heads=cs.PHI_KV_H)
+    ms = cs.device_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), iters=5, reps=5)
+    flops = cs.k4_bound(cs.PHI_B, cs.PHI_H, cs.PHI_S, cs.PHI_S, cs.PHI_HD, True, 2)[0]
+    return {"bf16_ms": ms, "tflops": flops / ms * 1e-9, "max_abs_err_bf16": res["k4_max_abs_err_bf16"]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=KERNELS)
+    ap.add_argument("variants", nargs="+", help="OLD=>NEW replacements, one variant each")
+    ap.add_argument("--json", default=None, help="also write every time to this file")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device is visible", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as tf
+    from repro_torch.kernels import lstm_cell as tk
+
+    source = (_build.CSRC / f"{args.kernel}.cu").read_text()
+    sources = {f"variant {i + 1}": apply_variant(source, spec) for i, spec in enumerate(args.variants)}
+    libs = {"committed": _build.build((args.kernel,))[args.kernel]}
+    logs = {"committed": libs["committed"].with_suffix(".log").read_text()}
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        stem = str(out_dir / f"{args.kernel}_{name.replace(' ', '_')}")
+        with open(stem + ".cu", "w") as f:
+            f.write(text)
+        libs[name] = stem + ".so"
+        procs[name] = subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                                        "-o", libs[name], stem + ".cu"],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode:
+            print(f"{name} failed to build:\n{logs[name][-4000:]}", file=sys.stderr)
+            return 1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = cs.card_line()
+    wrapper = tk if args.kernel == "lstm_cell" else tf
+    real_load = _build.load
+    results = {"card": card, "kernel": args.kernel,
+               "variants": dict(zip(sources, args.variants)),
+               "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}, "runs": []}
+    for name, summary in results["ptxas"].items():
+        print(f"[ptxas] {name}: registers {summary['registers']}, spills {summary['spill_bytes'] or 'none'}",
+              flush=True)
+    order = ["committed", *sources]
+    try:
+        for name in order + order[::-1]:
+            _build.load = (lambda _n, path=str(libs[name]): ctypes.CDLL(path))
+            wrapper._lib.cache_clear()
+            got = measure(torch, cs, args.kernel, card)
+            results["runs"].append({"build": name, **got})
+            print(f"[time] {name}: " + ", ".join(f"{k} {v:.5f}" for k, v in got.items()
+                                                  if isinstance(v, float)) + f" [{card}]", flush=True)
+    finally:
+        _build.load = real_load
+        wrapper._lib.cache_clear()
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(results, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

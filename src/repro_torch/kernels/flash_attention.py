@@ -6,9 +6,18 @@ written by hand for Hopper in ``csrc/flash_attention.cu`` (see its header
 for the design).  Its bound on an H100 is 4·d FLOP per visible (query, key)
 pair, at 989 TFLOP/s for bf16 (tensor cores) and 67 TFLOP/s for f32 (FP32
 cores: the f32 bar of 2e-3 rules out TF32), against q, k, v and o once at
-3.35 TB/s; at phi4-mini-3.8b's heads the operations bound it.  This kernel
-runs both types on FP32 FMAs.  As in the reference it is reached only
-through ``ops.flash_attention_op``; no model layer calls it.
+3.35 TB/s; at phi4-mini-3.8b's heads the operations bound it.  As in the
+reference it is reached only through ``ops.flash_attention_op``; no model
+layer calls it.
+
+The dtype picks the kernel, and neither stands in for the other: bf16 runs
+on the tensor cores (``mma.sync`` m16n8k16, FlashAttention-2 style: bf16 K/V
+tiles double-buffered in shared memory by ``cp.async``, Q fragments and the
+online softmax in registers, P fed to P·V from registers), where the first
+design widened bf16 to f32 and ran both products on FP32 FMAs; f32
+keeps that first FP32 kernel.  :func:`kernel_name` names the one that serves
+a call.  Left for later: ``wgmma`` with TMA loads and warp specialisation
+for bf16, the only way to the tensor cores' full rate.
 
 Layout (B, H, S, d) for q and o, (B, H, Sk, d) for k and v, as the Pallas
 kernel takes them; f32 or bf16, one dtype for all three.  The kernel reads
@@ -26,7 +35,10 @@ j <= i: the mask is aligned top-left, as the Pallas kernel's
 ``kernels/ref.py::ref_attention`` aligns it bottom-right (``tril(k=Sk-S)``),
 so it differs from the kernel, and from this port, only when S != Sk.  The
 kernel takes any S and Sk (the Pallas kernel needs them divisible by its
-blocks) and d in :data:`HEAD_DIMS`.
+blocks) and d in :data:`HEAD_DIMS`.  In bf16 every row of q, k, v and o
+must start on 16 bytes (the tiles are copied 16 bytes at a time): the data
+pointers, and the strides of every dimension longer than 1 in multiples of
+8 elements; a contiguous tensor, or a transposed (B, S, H, d) one, is.
 
 :func:`flash_attention_cuda` launches the kernel on CUDA tensors and raises
 on anything it does not take; :func:`flash_attention_plain` is the same
@@ -80,6 +92,20 @@ def check_attention_args(q, k, v) -> None:
         raise ValueError("attention needs at least one key (Sk = 0)")
 
 
+def check_row_alignment(*tensors) -> None:
+    """Raise unless every row of each bf16 (B, H, rows, d) view starts on 16
+    bytes: its data pointer, and the stride of each dimension longer than 1,
+    a multiple of 16 bytes.  The bf16 kernel copies tiles 16 bytes at a time."""
+    for t in tensors:
+        size = t.element_size()
+        bad = [dim for dim in range(t.dim() - 1)
+               if t.shape[dim] > 1 and (t.stride(dim) * size) % 16]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"the bf16 kernel needs every row of q, k, v and o on 16 bytes: a view with "
+                f"data pointer {t.data_ptr():#x} and strides {t.stride()} breaks this")
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
@@ -88,7 +114,16 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_forward.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_kernel_name.argtypes = [ctypes.c_int] * 3
+    lib.flash_attention_kernel_name.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_name(dtype: torch.dtype, head_dim: int, causal: bool) -> str:
+    """The kernel instantiation that serves (dtype, d, causal), as the
+    library names it (builds the library; needs ``nvcc``)."""
+    return _lib().flash_attention_kernel_name(
+        int(dtype == torch.bfloat16), head_dim, int(causal)).decode()
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
@@ -101,7 +136,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     shares no storage with q, k, v; ``ops.flash_attention_op`` passes the
     transpose of a contiguous (B,S,H,d) tensor).  Raises on a CPU tensor, on
     any shape, dtype or layout the kernel does not take (d outside
-    :data:`HEAD_DIMS`), and when the launch is refused.  Each launch adds one
+    :data:`HEAD_DIMS`, a bf16 row off 16 bytes), and when the launch is
+    refused.  Each launch adds one
     to ``flash_attention_cuda.launches``."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
@@ -125,6 +161,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if bsz == 0 or heads == 0 or s == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        check_row_alignment(q, k, v, out)
     strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
     lib = _lib()
     rc = lib.flash_attention_forward(

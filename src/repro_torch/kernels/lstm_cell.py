@@ -1,12 +1,31 @@
 """Fused LSTM cell: the CUDA kernel's launch wrapper and its plain PyTorch version.
 
-Counterpart of ``repro/kernels/lstm_cell.py`` (K1).  One timestep of MVM_X +
-MVM_H + gates + the element-wise update, as one kernel written by hand for
-Hopper in ``csrc/lstm_cell.cu`` (see its header for the design and bound).
+Counterpart of ``repro/kernels/lstm_cell.py::lstm_cell_pallas`` (K1).  One
+timestep of MVM_X + MVM_H + gates + the element-wise update, as one kernel
+written by hand for Hopper in ``csrc/lstm_cell.cu``.
+
+Design: the launch is a GEMM [x | h] (B x (In+H)) times the four gates'
+weights, on FP32 FMAs (the f32 bar of 1e-5 rules out TF32), with the c'/h'
+update fused into its epilogue.  A block owns a tile of batch rows and
+hidden units with all four gates; the contraction runs in chunks of 16
+through double-buffered shared memory (``cp.async`` where rows are 16-byte
+aligned f32), and each thread keeps a register micro-tile of up to 4 rows x
+2 units x 4 gates, so one shared-memory load of a weight feeds up to four
+FMAs and one of an activation eight.  The first design fed every
+FMA with its own load of a weight from L1/L2 and was bound by those loads.
+The tile is chosen by shape (:func:`lstm_cell_tile`): large batches take
+64-row tiles, small ones (the gateway's flushes, B = 1) spread over
+hidden-unit blocks.  Its bound on an H100 is the larger of 8·B·H·(In+H)
+FLOP at 67 TFLOP/s and its bytes at 3.35 TB/s; at the paper's widths the
+operations bound it.  Left for later: a CUDA graph over the serving path's
+per-(layer, timestep) launches, which leave the host, not the kernel, the
+bottleneck there.
 
 Weights are gate-major: wx (4, In, H), wh (4, H, H), b (4, H), f32
 (:func:`pack_weights` converts the core layout).  x and h are f32 or bf16;
-c is f32.  h' comes out in h's dtype and c' always in f32.
+c is f32.  h' comes out in h's dtype and c' always in f32.  Any In and H are
+taken; one launch takes at most 65,535 row tiles of 64, so 4,194,240 rows,
+and a larger batch is refused (``RuntimeError``).
 
 :func:`lstm_cell_cuda` launches the kernel on CUDA tensors and raises on
 anything it does not take; :func:`lstm_cell_plain` is the same function in
@@ -107,7 +126,17 @@ def _lib() -> ctypes.CDLL:
     lib.lstm_cell_forward.restype = ctypes.c_int
     lib.lstm_cell_error_string.argtypes = [ctypes.c_int]
     lib.lstm_cell_error_string.restype = ctypes.c_char_p
+    lib.lstm_cell_tile.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.lstm_cell_tile.restype = None
     return lib
+
+
+def lstm_cell_tile(batch: int, hidden: int) -> tuple[int, int]:
+    """(rows, hidden units) of the block tile a launch at this shape uses, as
+    the kernel's library chooses it (builds the library; needs ``nvcc``)."""
+    bm, bn = ctypes.c_int(), ctypes.c_int()
+    _lib().lstm_cell_tile(batch, hidden, ctypes.byref(bm), ctypes.byref(bn))
+    return bm.value, bn.value
 
 
 def lstm_cell_cuda(x, h, c, wx, wh, b, *, pwl: bool = False,

@@ -85,10 +85,75 @@ def test_lstm_cell_kernel_in_place_c(cuda):
 
 @pytest.mark.cuda
 def test_refused_launch_raises(cuda):
-    """A launch the kernel cannot take (too much shared memory) raises."""
-    args = _inputs(4, 6000, 200, torch.float32, seed=2)
+    """A launch the kernel cannot take raises.  The K-looped kernel takes any
+    width, so the refused launch is one row past its 65,535 row tiles of 64
+    (CUDA's cap on the grid's second dimension)."""
+    args = _inputs(65535 * 64 + 1, 4, 4, torch.float32, seed=2)
+    assert tk.lstm_cell_tile(65535 * 64 + 1, 4) == (64, 8)
     with pytest.raises(RuntimeError, match="lstm_cell kernel launch failed"):
         tk.lstm_cell_cuda(*args)
+
+
+def _cell_against_plain(args, pwl, in_place):
+    """K1 on ``args`` (c updated in place when ``in_place``) against its plain version."""
+    x, h, c, wx, wh, b = args
+    dtype = x.dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    hp, cp = tk.lstm_cell_plain(x, h, c, wx, wh, b, pwl=pwl)
+    c_out = c if in_place else None
+    hk, ck = tk.lstm_cell_cuda(x, h, c, wx, wh, b, pwl=pwl, c_out=c_out)
+    torch.cuda.synchronize()
+    if in_place:
+        assert ck.data_ptr() == c.data_ptr()
+    assert hk.dtype == dtype and ck.dtype == torch.float32
+    torch.testing.assert_close(hk.float(), hp.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(ck, cp, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pwl", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dim,hidden,b", [(24, 40, 37), (8, 4, 1), (128, 256, 300),
+                                             (7, 13, 37)])
+def test_lstm_cell_kernel_tile_edges(cuda, in_dim, hidden, b, dtype, pwl):
+    """K1 where In, H and B are no multiples of the contraction chunk (16),
+    the unit tile or the row tile, c updated in place; (7, 13) also takes
+    the path for rows that are not 16-byte aligned."""
+    _cell_against_plain(_inputs(b, in_dim, hidden, dtype, seed=in_dim + b), pwl, in_place=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 256])
+@pytest.mark.parametrize("in_dim,hidden", [(64, 32), (32, 64), (16, 8)])
+def test_lstm_cell_kernel_small_batch_spreads(cuda, in_dim, hidden, b, dtype):
+    """At B=1 and the gateway's 256-row flushes the kernel takes 16-row tiles
+    and narrows its unit tile, so the grid spreads over hidden-unit blocks."""
+    bm, bn = tk.lstm_cell_tile(b, hidden)
+    assert bm == 16 and bn <= min(32, max(8, hidden))
+    if b == 256 and hidden == 64:
+        assert bn == 8   # 16 row tiles x 8 unit tiles
+    for pwl in (False, True):
+        _cell_against_plain(_inputs(b, in_dim, hidden, dtype, seed=b + hidden), pwl,
+                            in_place=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_cell_kernel_wide_and_offset_rows(cuda, dtype):
+    """Rows wider than any tile (In=6000, which the first design refused)
+    and x, h, wx views that start 4 bytes off a 16-byte boundary."""
+    _cell_against_plain(_inputs(40, 6000, 200, dtype, seed=9), False, in_place=False)
+    x, h, c, wx, wh, b = _inputs(37, 32, 64, dtype, seed=10)
+
+    def offset(t):   # the same values, one element into a larger buffer
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    x2, h2, wx2 = offset(x), offset(h), offset(wx)
+    assert x2.is_contiguous() and x2.data_ptr() % 16 and wx2.data_ptr() % 16
+    _cell_against_plain((x2, h2, c, wx2, wh, b), True, in_place=True)
 
 
 @pytest.mark.cuda
@@ -264,6 +329,72 @@ def test_flash_attention_kernel_matches_plain(cuda, s, sk, d, causal, dtype):
     assert launch_counts()["flash_attention"] == before + 1
     assert out.is_contiguous() and out.shape == (2, s, 3, d)   # written in q's layout
     torch.testing.assert_close(out.transpose(1, 2), got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_ragged_tiles_are_zero_filled(cuda, d, causal):
+    """bf16 with S and Sk no multiples of 64 and NaN in the storage past them
+    (narrowed views of larger tensors): the tensor-core kernel must load the
+    rows past Sk as zeros, or 0 * NaN would reach every row."""
+    s, sk = 77, 130
+    q, k, v = _attention_inputs(2, 3, s, sk, d, torch.bfloat16, seed=d + s)
+    want = tf.flash_attention_plain(q, k, v, causal=causal)
+    views = []
+    for t, n in ((q, s), (k, sk), (v, sk)):
+        big = torch.full((2, 3, n + 64, d), float("nan"), dtype=t.dtype, device=t.device)
+        big[:, :, :n] = t
+        views.append(big[:, :, :n])
+    got = tf.flash_attention_cuda(*views, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_transposed_views(cuda, d, causal):
+    """bf16 on (B, H, S, d) views of contiguous (B, S, H, d) tensors, read and
+    written through their strides."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _attention_inputs(2, 4, 200, 136, d, torch.bfloat16, seed=d))
+    assert not q.is_contiguous()
+    out = torch.empty(2, 200, 4, d, dtype=torch.bfloat16, device="cuda").transpose(1, 2)
+    got = tf.flash_attention_cuda(q, k, v, causal=causal, out=out)
+    torch.cuda.synchronize()
+    want = tf.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_refuses_misaligned_views(cuda):
+    """A bf16 view whose rows are off 16 bytes is refused with an error,
+    before any launch; the f32 kernel, which loads element by element,
+    takes the same view."""
+    from repro_torch.kernels.ops import reset_launch_counts
+
+    q, k, v = _attention_inputs(1, 2, 64, 64, 64, torch.bfloat16, seed=12)
+    wide = torch.zeros(1, 2, 64, 65, dtype=torch.bfloat16, device="cuda")
+    wide[..., 1:] = q
+    bad = wide[..., 1:]                     # pointer 2 bytes off, row stride 65
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        tf.flash_attention_cuda(bad, k, v)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tf.flash_attention_cuda(q, k, v, out=torch.empty(1, 2, 64, 65, dtype=torch.bfloat16,
+                                                         device="cuda")[..., 1:])
+    assert launch_counts()["flash_attention"] == 0
+    wide_f32 = torch.zeros(1, 2, 64, 65, device="cuda")
+    wide_f32[..., 1:] = q.float()
+    bad_f32 = wide_f32[..., 1:]             # pointer 4 bytes off, row stride 65
+    assert bad_f32.data_ptr() % 16 and bad_f32.stride(2) == 65
+    got = tf.flash_attention_cuda(bad_f32, k.float(), v.float())
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got, tf.flash_attention_plain(q.float(), k.float(), v.float()),
+                               rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.cuda

@@ -160,3 +160,18 @@ def test_flash_attention_plain_calls_are_not_counted():
     reset_launch_counts()
     flash_attention_op(*_torch(_case(1, 4, 4, 1, 64, seed=2), torch.float32))
     assert launch_counts()["flash_attention"] == 0
+
+
+def test_bf16_row_alignment_check():
+    """The bf16 kernel's 16-byte row rule, checked before any launch:
+    contiguous and transposed (B, S, H, d) views pass, a view 2 bytes off or
+    with a 65-element row stride is refused, and a dimension of length 1
+    may have any stride."""
+    q = torch.zeros(2, 3, 40, 64, dtype=torch.bfloat16)
+    tk.check_row_alignment(q, q.transpose(1, 2).contiguous().transpose(1, 2), q[:, 1:2])
+    wide = torch.zeros(2, 3, 40, 65, dtype=torch.bfloat16)
+    for bad in (wide[..., 1:], wide[..., :64]):
+        with pytest.raises(ValueError, match="16 bytes"):
+            tk.check_row_alignment(q, bad)
+    single = torch.zeros(1, 1, 1, 65, dtype=torch.bfloat16)[..., :64]   # strides 65, one row
+    tk.check_row_alignment(single)
