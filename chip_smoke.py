@@ -23,7 +23,8 @@ toolkit.  It
    (128, 256) at a smaller B*T, f32 and bf16, PWL on and off — shapes whose
    weights stay in shared memory and shapes that read them from L2 — and
    times it per layer of lstm-ae-f64-d6 at B=8192, T=64 beside its bound,
-   the plain version, a one-layer cuDNN LSTM and 64 x K1;
+   the plain version, a one-layer cuDNN LSTM and 64 x K1, with each layer's
+   tile (rows per block and per thread) and achieved TFLOP/s;
 7. drives K2's path, ``ops.lstm_seq_op``, layer by layer through
    lstm-ae-f64-d6 at B=8192, T=64 (6 launches) and checks the
    reconstruction against the fused schedule's;
@@ -46,11 +47,15 @@ toolkit.  It
    to the small outputs of late rows; times it there per
    dtype beside its bound, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (timed only: the port never calls it),
-   with the achieved TFLOP/s and the kernel instantiation that served each
-   dtype (bf16: tensor cores; f32: FP32 FMAs);
-   drives its path, ``ops.flash_attention_op``, once at that shape in bf16.
+   with the achieved TFLOP/s, the kernel instantiation that served each
+   dtype (bf16: ``mma.sync`` bf16; f32: 3xTF32 on ``mma.sync`` tf32, its
+   bound 3 x the FLOP at the TF32 rate, the FP32-core bound logged beside
+   it) and the kernels SDPA ran (one ``torch.profiler`` pass); f32 is also
+   checked on views 4 bytes off 16 (the 4-byte copy path), and each check
+   logs its copy path; drives its path, ``ops.flash_attention_op``, once at
+   that shape in bf16.
 
-The build fails if ``ptxas`` reports a spill in K1 or K4.  Any failed
+The build fails if ``ptxas`` reports a spill in K1, K2 or K4.  Any failed
 check raises and the script exits non-zero; without a GPU, or
 without the rest of the repository beside it, it exits non-zero at once.
 The line before the last is ``{"kernels": [...]}`` and the last line is
@@ -75,6 +80,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_F32_FLOPS = 67e12      # FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # HBM3
 PEAK_BF16_FLOPS = 989e12    # dense bf16 tensor cores
+PEAK_TF32_FLOPS = 495e12    # dense TF32 tensor cores (K4's f32 path runs 3 TF32 products per product)
 
 F32_TOL = 1e-5              # tests/test_kernels.py bar for f32
 BF16_TOL = 2e-2             # and for bf16
@@ -126,7 +132,7 @@ RWKV_B_SWEEP = (8, 16, 32, 64)
 PHI_B, PHI_S, PHI_H, PHI_KV_H, PHI_HD = 4, 4096, 24, 8, 128
 
 # kernels whose ptxas report must show no spill
-NO_SPILL = ("lstm_cell", "flash_attention")
+NO_SPILL = ("lstm_cell", "lstm_seq", "flash_attention")
 
 GATEWAY_ARCH = "lstm-ae-f64-d6"
 GATEWAY_CAPACITY = 1024
@@ -316,7 +322,12 @@ def time_k2(torch, b: int, k1_rows, results, card) -> dict:
     """K2 per layer of lstm-ae-f64-d6 at batch b, T=64, f32, beside its bound,
     the plain version, a one-layer cuDNN LSTM and 64 launches of K1."""
     from repro_torch.config import get_config
-    from repro_torch.kernels.lstm_seq import lstm_seq_cuda, lstm_seq_plain, lstm_seq_plan
+    from repro_torch.kernels.lstm_seq import (
+        lstm_seq_cuda,
+        lstm_seq_plain,
+        lstm_seq_plan,
+        lstm_seq_tile,
+    )
 
     ae = get_config("lstm-ae-f64-d6").lstm_ae
     rows = []
@@ -343,6 +354,7 @@ def time_k2(torch, b: int, k1_rows, results, card) -> dict:
             row = {
                 "in": in_dim, "hidden": hidden, "batch": b, "t": K2_T, "flop": flops,
                 "bytes": nbytes, "weights_in_smem": lstm_seq_plan(b, in_dim, hidden)[0],
+                "tile": lstm_seq_tile(b, in_dim, hidden),
                 "kernel_ms": device_ms(torch, lambda: lstm_seq_cuda(xs, h0, c0, wx, wh, bias),
                                        iters=10, reps=5),
                 "kernel_host_ms": host_ms(torch, lambda: lstm_seq_cuda(xs, h0, c0, wx, wh, bias),
@@ -355,10 +367,13 @@ def time_k2(torch, b: int, k1_rows, results, card) -> dict:
                 "bytes_ms": nbytes / PEAK_BYTES * 1e3,
             }
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        row["tflops"] = flops / row["kernel_ms"] * 1e-9
         rows.append(row)
-        log(f"[k2 time] f64-d6 layer {li} (In={in_dim}, H={hidden}, B={b}, T={K2_T}, f32, weights "
+        log(f"[k2 time] f64-d6 layer {li} (In={in_dim}, H={hidden}, B={b}, T={K2_T}, f32, tile "
+            f"{row['tile'][0]} rows per block x {row['tile'][1]} per thread, weights "
             f"{'in shared memory' if row['weights_in_smem'] else 'from L2'}): kernel "
-            f"{row['kernel_ms']:.4f} ms (device), {row['kernel_host_ms']:.4f} ms per call on the "
+            f"{row['kernel_ms']:.4f} ms (device), {row['tflops']:.1f} TFLOP/s, "
+            f"{row['kernel_host_ms']:.4f} ms per call on the "
             f"host; bound {row['bound_ms']:.4f} ms "
             f"({'operations' if row['ops_ms'] >= row['bytes_ms'] else 'bytes'}); plain "
             f"{row['plain_ms']:.3f} ms; cuDNN LSTM {row['library_ms']:.4f} ms; 64 x K1 "
@@ -369,10 +384,12 @@ def time_k2(torch, b: int, k1_rows, results, card) -> dict:
                                                    "library_ms", "k1_x64_ms", "flop", "bytes")}
     total["bound_ms"] = max(ops, mem)
     total["bound_by"] = "operations" if ops >= mem else "bytes"
+    total["tflops"] = total["flop"] / total["kernel_ms"] * 1e-9
     results["k2_layers"] = rows
     results["k2_forward"] = total
     log(f"[k2 time] one forward of lstm-ae-f64-d6 at B={b}, T={K2_T} (6 launches): kernel "
-        f"{total['kernel_ms']:.4f} ms, {total['kernel_host_ms']:.4f} ms on the host, bound "
+        f"{total['kernel_ms']:.4f} ms ({total['tflops']:.1f} TFLOP/s), "
+        f"{total['kernel_host_ms']:.4f} ms on the host, bound "
         f"{total['bound_ms']:.4f} ms ({total['bound_by']}; {total['flop']:.4g} FLOP, "
         f"{total['bytes']:.4g} B), plain {total['plain_ms']:.3f} ms, cuDNN LSTM "
         f"{total['library_ms']:.4f} ms, 64 x K1 {total['k1_x64_ms']:.4f} ms [{card}]")
@@ -735,8 +752,17 @@ def check_wide(torch, got, want, dtype) -> dict:
             "max_err_over_row_rms": float((diff / rms).max())}
 
 
+def offset_view(torch, t):
+    """The same values as ``t`` (..., d), one element into rows of d + 1:
+    data pointer 4 bytes off 16 for f32, row stride d + 1."""
+    wide = torch.zeros(*t.shape[:-1], t.shape[-1] + 1, dtype=t.dtype, device=t.device)
+    wide[..., 1:] = t
+    return wide[..., 1:]
+
+
 def check_k4(torch, results) -> None:
     from repro_torch.kernels.flash_attention import (
+        copy_path,
         flash_attention_cuda,
         flash_attention_plain,
         kernel_name,
@@ -744,12 +770,19 @@ def check_k4(torch, results) -> None:
 
     cases = [(2, 3, s, s, d) for s, d in ATTN_SWEEP] + [(2, 3, s, sk, d) for s, sk, d in ATTN_EXTRA]
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    paths = {}   # (dtype, copy path) -> checks
     n = 0
     for b, h, s_len, sk_len, d in cases:
         for causal in (True, False):
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype, offset in ((torch.float32, False), (torch.bfloat16, False),
+                                  (torch.float32, True)):
+                if offset and (s_len, sk_len, d) not in ATTN_EXTRA:
+                    continue
                 q, k, v = attention_inputs(torch, b, h, s_len, sk_len, d, dtype, seed=4000 + n)
-                out = flash_attention_cuda(q, k, v, causal=causal)
+                out = torch.empty_like(q)
+                if offset:   # f32 views 4 bytes off 16, rows of d + 1: the 4-byte copy path
+                    q, k, v, out = (offset_view(torch, t) for t in (q, k, v, out))
+                out = flash_attention_cuda(q, k, v, causal=causal, out=out)
                 torch.cuda.synchronize()
                 want = flash_attention_plain(q, k, v, causal=causal)
                 if out.dtype != dtype:
@@ -757,7 +790,11 @@ def check_k4(torch, results) -> None:
                 tol = ATTN_F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
                 torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
                 err[dtype] = max(err[dtype], float((out.float() - want.float()).abs().max()))
+                key = ("f32" if dtype == torch.float32 else "bf16", copy_path(q, k, v, out))
+                paths[key] = paths.get(key, 0) + 1
                 n += 1
+    if ("f32", "4-byte cp.async") not in paths or ("f32", "16-byte cp.async") not in paths:
+        raise AssertionError(f"K4 f32 checks covered only the copy paths {sorted(paths)}")
     sweep_err = dict(err)
     # full width, causal: the plain version one batch row at a time, at
     # limits scaled to the late rows' small outputs
@@ -769,49 +806,75 @@ def check_k4(torch, results) -> None:
         torch.cuda.synchronize()
         name = "f32" if dtype == torch.float32 else "bf16"
         w = wide[name] = {"max_abs_err": 0.0, "limit_share": 0.0, "max_err_over_row_rms": 0.0,
-                          "mean_abs_out": 0.0, "rtol_atol_row": ATTN_WIDE_TOL[name]}
+                          "mean_abs_out": 0.0, "rtol_atol_row": ATTN_WIDE_TOL[name],
+                          "copy_path": copy_path(q, k, v, out)}
         for row in range(PHI_B):
             want = flash_attention_plain(q[row:row + 1], k[row:row + 1], v[row:row + 1], causal=True)
             got = check_wide(torch, out[row:row + 1], want, dtype)
             for key, val in got.items():
                 w[key] = max(w[key], val)
             w["mean_abs_out"] += float(want.float().abs().mean()) / PHI_B
+        paths[(name, w["copy_path"])] = paths.get((name, w["copy_path"]), 0) + 1
         err[dtype] = max(err[dtype], w["max_abs_err"])
         n += 1
     results["k4_checks"] = n
     results["k4_max_abs_err_f32"] = err[torch.float32]
     results["k4_max_abs_err_bf16"] = err[torch.bfloat16]
     results["k4_wide_check"] = wide
+    results["k4_copy_paths"] = {f"{dt} {path}": count for (dt, path), count in sorted(paths.items())}
     results["k4_kernels"] = {
         f"{'f32' if dtype == torch.float32 else 'bf16'} d={d}": kernel_name(dtype, d, True)
         for dtype in (torch.float32, torch.bfloat16) for d in (64, 128)}
     for key, val in results["k4_kernels"].items():
         log(f"[k4] {key} (causal; the same kernel without the mask otherwise) is served by {val}")
+    log("[k4] copy paths that served the checks: " + ", ".join(
+        f"{key}: {count}" for key, count in results["k4_copy_paths"].items()))
     log(f"[k4] {n} checks passed against the plain version (top-left causal mask): (B, H, S, Sk, "
-        f"d) in {cases} x causal on/off x (f32, bf16), max abs err f32 "
+        f"d) in {cases} x causal on/off x (f32, bf16), and f32 on views 4 bytes off 16 at "
+        f"{list(ATTN_EXTRA)}, max abs err f32 "
         f"{sweep_err[torch.float32]:.3g} (tol {ATTN_F32_TOL}), bf16 "
         f"{sweep_err[torch.bfloat16]:.3g} (tol {ATTN_BF16_TOL}); and phi4-mini-3.8b's heads "
         f"(B={PHI_B}, H={PHI_H} from {PHI_KV_H} kv heads, S=Sk={PHI_S}, d={PHI_HD}), causal: "
-        + "; ".join(f"{k} max abs err {w['max_abs_err']:.3g}, at most "
+        + "; ".join(f"{k} ({w['copy_path']}) max abs err {w['max_abs_err']:.3g}, at most "
                     f"{w['max_err_over_row_rms']:.3g} of its row's rms and {w['limit_share']:.3f} "
                     f"of the limit (rtol, atol, row) {w['rtol_atol_row']}; mean |o| "
                     f"{w['mean_abs_out']:.4f}" for k, w in wide.items()))
 
 
+def device_kernels(torch, fn) -> list[str]:
+    """Names of the device kernels one ``fn()`` call runs, from one
+    ``torch.profiler`` pass; raises if the pass sees none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    if not names:
+        raise AssertionError("torch.profiler saw no device kernel in its pass")
+    return names
+
+
 def time_k4(torch, results, card) -> dict:
     """K4 at phi4-mini-3.8b's heads, S=Sk=4096, B=4, causal, per dtype,
-    beside its bound, the plain version and scaled_dot_product_attention."""
+    beside its bound, the plain version and scaled_dot_product_attention.
+    The f32 path runs three TF32 tensor-core products per product, so its
+    bound is 3 x the FLOP at the TF32 rate; the FP32-core bound (1 x at the
+    FP32 rate) is logged beside it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
+        copy_path,
         flash_attention_cuda,
         flash_attention_plain,
         kernel_name,
     )
 
     rows = {}
-    for dtype, name, peak in ((torch.bfloat16, "bf16", PEAK_BF16_FLOPS),
-                              (torch.float32, "f32", PEAK_F32_FLOPS)):
+    for dtype, name, peak, passes in ((torch.bfloat16, "bf16", PEAK_BF16_FLOPS, 1),
+                                      (torch.float32, "f32", PEAK_TF32_FLOPS, 3)):
         q, k, v = attention_inputs(torch, PHI_B, PHI_H, PHI_S, PHI_S, PHI_HD, dtype, seed=4200,
                                    kv_heads=PHI_KV_H)
         flops, nbytes, pairs = k4_bound(PHI_B, PHI_H, PHI_S, PHI_S, PHI_HD, True, q.element_size())
@@ -828,6 +891,7 @@ def time_k4(torch, results, card) -> dict:
         row = {"batch": PHI_B, "heads": PHI_H, "s": PHI_S, "sk": PHI_S, "head_dim": PHI_HD,
                "dtype": name, "causal": True, "pairs": pairs, "flop": flops, "bytes": nbytes,
                "max_abs_diff_vs_library": float((lib_out.float() - out.float()).abs().max()),
+               "copy_path": copy_path(q, k, v, out),
                "kernel_ms": device_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True),
                                       iters=3, reps=3),
                "kernel_host_ms": host_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True),
@@ -835,7 +899,9 @@ def time_k4(torch, results, card) -> dict:
                "plain_ms": device_ms(torch, lambda: flash_attention_plain(q, k, v, causal=True),
                                      iters=1, reps=2),
                "library_ms": device_ms(torch, library, iters=5, reps=3),
-               "ops_ms": flops / peak * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+               "library_kernels": device_kernels(torch, library),
+               "ops_ms": passes * flops / peak * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+               "fp32_core_ops_ms": flops / PEAK_F32_FLOPS * 1e3}
         del lib_out, out
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
@@ -844,14 +910,16 @@ def time_k4(torch, results, card) -> dict:
         row["library_tflops"] = flops / row["library_ms"] * 1e-9
         rows[name] = row
         log(f"[k4 time] phi4-mini-3.8b heads, B={PHI_B}, H={PHI_H}, S=Sk={PHI_S}, d={PHI_HD}, "
-            f"causal, {name}, served by {row['kernel']}: kernel {row['kernel_ms']:.4f} ms "
+            f"causal, {name}, served by {row['kernel']} ({row['copy_path']}): kernel "
+            f"{row['kernel_ms']:.4f} ms "
             f"(device), {row['tflops']:.1f} TFLOP/s, "
             f"{row['kernel_host_ms']:.4f} ms per call on the host; bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}; {pairs} visible pairs, {flops:.4g} FLOP at {peak/1e12:g} "
-            f"TFLOP/s -> {row['ops_ms']:.4f} ms, {nbytes:.4g} B -> {row['bytes_ms']:.4f} ms); "
+            f"({row['bound_by']}; {pairs} visible pairs, {passes} x {flops:.4g} FLOP at "
+            f"{peak/1e12:g} TFLOP/s -> {row['ops_ms']:.4f} ms, {nbytes:.4g} B -> "
+            f"{row['bytes_ms']:.4f} ms; on the FP32 cores {row['fp32_core_ops_ms']:.4f} ms); "
             f"plain {row['plain_ms']:.3f} ms; scaled_dot_product_attention "
             f"{row['library_ms']:.4f} ms, {row['library_tflops']:.1f} TFLOP/s (max abs diff to the kernel "
-            f"{row['max_abs_diff_vs_library']:.3g}) [{card}]")
+            f"{row['max_abs_diff_vs_library']:.3g}), running {row['library_kernels']} [{card}]")
     results["k4_time"] = rows
     return rows["bf16"]
 

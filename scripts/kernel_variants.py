@@ -3,6 +3,7 @@
 
     python3 scripts/kernel_variants.py lstm_cell 'kTargetBlocks = 128;=>kTargetBlocks = 256;'
     python3 scripts/kernel_variants.py flash_attention 'kMmaWarps = 4;=>kMmaWarps = 8;'
+    python3 scripts/kernel_variants.py lstm_seq 'kTargetThreads = 256;=>kTargetThreads = 512;'
 
 Each variant is ``src/repro_torch/kernels/csrc/<kernel>.cu`` with one piece
 of text replaced (``OLD=>NEW``; OLD must occur exactly once).  The script
@@ -15,8 +16,11 @@ reverse, so that the order favours none.  What is timed:
 
 - ``lstm_cell``: one timestep of lstm-ae-f64-d6 (6 launches, f32) at B=8192
   and at B=256, as ``chip_smoke.time_k1``;
-- ``flash_attention``: one bf16 launch at phi4-mini-3.8b's heads (B=4, H=24,
-  S=Sk=4096, d=128, causal), the shape of ``chip_smoke.time_k4``.
+- ``flash_attention``: one bf16 and one f32 launch at phi4-mini-3.8b's
+  heads (B=4, H=24, S=Sk=4096, d=128, causal), the shape of
+  ``chip_smoke.time_k4``;
+- ``lstm_seq``: one forward of lstm-ae-f64-d6 (6 launches, f32) at B=8192,
+  T=64, the shape of ``chip_smoke.time_k2``.
 
 Device times come from CUDA events (``chip_smoke.device_ms``).  ``--json
 PATH`` also writes every time.  A variant that fails to build or to agree
@@ -36,7 +40,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-KERNELS = ("lstm_cell", "flash_attention")
+KERNELS = ("lstm_cell", "lstm_seq", "flash_attention")
 
 
 def apply_variant(source: str, spec: str) -> str:
@@ -67,14 +71,31 @@ def measure(torch, cs, kernel: str, card: str) -> dict:
         return {"b8192_ms": big["kernel_ms"], "b8192_layers_ms": [r["kernel_ms"] for r in res["k1_layers"]],
                 "b256_ms": small["kernel_ms"],
                 "b256_layers_ms": [r["kernel_ms"] for r in res["k1_layers_small"]]}
+    if kernel == "lstm_seq":
+        from repro_torch.config import get_config
+        from repro_torch.kernels.lstm_seq import lstm_seq_cuda
+
+        cs.check_k2(torch, res)
+        ae = get_config("lstm-ae-f64-d6").lstm_ae
+        layers = []
+        for li, (in_dim, hidden) in enumerate(zip(ae.layer_input_sizes(), ae.layer_sizes())):
+            args = cs.seq_inputs(torch, cs.K2_T, 8192, in_dim, hidden, torch.float32, seed=2000 + li)
+            layers.append(cs.device_ms(torch, lambda: lstm_seq_cuda(*args), iters=10, reps=5))
+        return {"forward_ms": sum(layers), "layers_ms": layers,
+                "max_abs_err_f32": res["k2_max_abs_err_f32"]}
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     cs.check_k4(torch, res)
-    q, k, v = cs.attention_inputs(torch, cs.PHI_B, cs.PHI_H, cs.PHI_S, cs.PHI_S, cs.PHI_HD,
-                                  torch.bfloat16, seed=4200, kv_heads=cs.PHI_KV_H)
-    ms = cs.device_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), iters=5, reps=5)
-    flops = cs.k4_bound(cs.PHI_B, cs.PHI_H, cs.PHI_S, cs.PHI_S, cs.PHI_HD, True, 2)[0]
-    return {"bf16_ms": ms, "tflops": flops / ms * 1e-9, "max_abs_err_bf16": res["k4_max_abs_err_bf16"]}
+    out = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = cs.attention_inputs(torch, cs.PHI_B, cs.PHI_H, cs.PHI_S, cs.PHI_S, cs.PHI_HD,
+                                      dtype, seed=4200, kv_heads=cs.PHI_KV_H)
+        ms = cs.device_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), iters=5, reps=5)
+        flops = cs.k4_bound(cs.PHI_B, cs.PHI_H, cs.PHI_S, cs.PHI_S, cs.PHI_HD, True, 2)[0]
+        out.update({f"{name}_ms": ms, f"{name}_tflops": flops / ms * 1e-9})
+    out["max_abs_err_bf16"] = res["k4_max_abs_err_bf16"]
+    out["max_abs_err_f32"] = res["k4_max_abs_err_f32"]
+    return out
 
 
 def main(argv=None) -> int:
@@ -93,6 +114,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as tf
     from repro_torch.kernels import lstm_cell as tk
+    from repro_torch.kernels import lstm_seq as ts
 
     source = (_build.CSRC / f"{args.kernel}.cu").read_text()
     sources = {f"variant {i + 1}": apply_variant(source, spec) for i, spec in enumerate(args.variants)}
@@ -117,7 +139,7 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
-    wrapper = tk if args.kernel == "lstm_cell" else tf
+    wrapper = {"lstm_cell": tk, "lstm_seq": ts, "flash_attention": tf}[args.kernel]
     real_load = _build.load
     results = {"card": card, "kernel": args.kernel,
                "variants": dict(zip(sources, args.variants)),

@@ -7,32 +7,32 @@
 // (layers/attention.py runs blocked_attention).
 //
 // Computes, per (b, h) and query row i, with scale = 1/sqrt(d) in f32:
-//   s_ij = scale * (q_i . k_j)                 (products exact, sums in f32)
+//   s_ij = scale * (q_i . k_j)                 (sums in f32)
 //   p_ij = exp(s_ij - m_i) over the visible keys, l_i = sum_j p_ij
 //   o_i  = (sum_j p~_ij v_j) / max(l_i, 1e-30), written in q's type
 // where p~ is p rounded to v's type (P is cast before P.V in the reference,
-// flash_attention.py:63) relative to the running maximum, and, under
-// `causal`, key j is visible to query i iff j <= i: the mask is aligned
-// top-left, as the Pallas kernel's k_pos <= q_pos (flash_attention.py:53-55),
-// also when S != Sk.  Any S and Sk, d in {64, 128}; rows of q, k, v and o are
-// read and written through strides (d contiguous), so (B, S, H, d) tensors
-// need no transpose.
+// flash_attention.py:63; f32 P is not rounded) relative to the running
+// maximum, and, under `causal`, key j is visible to query i iff j <= i: the
+// mask is aligned top-left, as the Pallas kernel's k_pos <= q_pos
+// (flash_attention.py:53-55), also when S != Sk.  Any S and Sk, d in
+// {64, 128}; rows of q, k, v and o are read and written through strides (d
+// contiguous), so (B, S, H, d) tensors need no transpose.
 //
 // Which kernel serves which dtype (fixed; neither stands in for the other):
-//   bf16 -> flash_fwd_mma_kernel<D, CAUSAL>: tensor cores (mma.sync).
-//   f32  -> flash_fwd_kernel<D, float, CAUSAL>: FP32 FMAs, the first design,
-//           kept as it was (the f32 bar of 2e-3 rules out TF32).
+//   bf16 -> flash_fwd_mma_kernel<D, CAUSAL>: mma.sync m16n8k16 bf16.
+//   f32  -> flash_fwd_tf32x3_kernel<D, CAUSAL, VEC>: 3xTF32 on mma.sync
+//           m16n8k8; VEC picks the copy path (16-byte cp.async when every
+//           row of q, k, v, o starts on 16 bytes, else 4-byte cp.async).
 //
-// Bound on an H100 SXM: 4*d FLOP per visible (query, key) pair (q.k and p.v),
-// at 989 TFLOP/s for bf16 (dense tensor cores) and 67 TFLOP/s for f32 (FP32
-// cores), against q, k, v, o once at 3.35 TB/s.  At phi4-mini-3.8b's heads
-// (H = 24, d = 128), S = Sk = 4096, B = 4, causal: 4.1e11 FLOP, 0.42 ms in
-// bf16 and 6.2 ms in f32; the operations bound both.
+// Bound on an H100 SXM: 4*d FLOP per visible (query, key) pair (q.k and p.v)
+// against q, k, v, o once at 3.35 TB/s.  bf16 runs at 989 TFLOP/s (dense
+// tensor cores).  f32 runs three TF32 products per product (below), so its
+// bound is 3 x its FLOP at 495 TFLOP/s (TF32 tensor cores); on the FP32
+// cores it would be 1 x at 67 TFLOP/s.  At phi4-mini-3.8b's heads (H = 24,
+// d = 128), S = Sk = 4096, B = 4, causal: 4.1e11 FLOP, 0.42 ms in bf16, 2.50
+// ms in f32 (6.2 ms on the FP32 cores); the operations bound both.
 //
-// bf16 design (FlashAttention-2 on mma.sync).  The first design widened
-// bf16 q, k, v to f32 in shared memory and ran both products on FP32 FMAs
-// (it could never leave the FP32 cores' 67 TFLOP/s), sent P through shared
-// memory, and loaded tiles synchronously.  Here a block has 4 warps and 64
+// bf16 design (FlashAttention-2 on mma.sync).  A block has 4 warps and 64
 // query rows, 16 per warp.  Q, K and V stay bf16 in shared memory in rows
 // padded by 16 bytes, so the ldmatrix reads of 8 rows at one column hit 8
 // different bank groups.  Each warp loads its Q fragments (m16n8k16 A
@@ -40,37 +40,60 @@
 // K and V tiles of 64 keys are double-buffered and copied with cp.async
 // (16 bytes a thread, zero-fill past Sk, so a stale or NaN row never meets
 // a p of 0), tile t+1 in flight while tile t computes.  S = Q.K^T runs as
-// mma.sync.m16n8k16 bf16 x bf16 -> f32 (exact products, f32 sums, as the
-// FP32 path), K fragments from ldmatrix.x4.  The online softmax runs on the
-// accumulators in registers: each thread holds two rows, row maxima take two
-// shuffles in the quad, p = exp2(s*log2(e)/sqrt(d) - m) with the scale and
-// log2(e) folded into one multiply; masked scores are -inf and their p is set
-// to 0.  P is rounded to bf16 in registers and fed straight in as the A
-// operand of P.V (the m16n8 accumulator layout is the A-fragment layout), V
-// fragments from ldmatrix.x4.trans; o accumulates in f32 registers and is
-// written as bf16 pairs.  Walk from KV tile 0 (every row meets key 0 first),
-// stop at the last tile a row of the block can see, skip (per warp) a tile
-// that none of the warp's rows can see, mask element-wise only on tiles that
-// cross the diagonal or the Sk edge, and issue the last query tiles (the most
-// K/V tiles under `causal`) first.  Shared memory: 46,080 bytes at d = 64,
+// mma.sync.m16n8k16 bf16 x bf16 -> f32 (exact products, f32 sums), K
+// fragments from ldmatrix.x4.  The online softmax runs on the accumulators
+// in registers: each thread holds two rows, row maxima take two shuffles in
+// the quad, p = exp2(s*log2(e)/sqrt(d) - m) with the scale and log2(e)
+// folded into one multiply; masked scores are -inf and their p is set to 0.
+// P is rounded to bf16 in registers and fed straight in as the A operand of
+// P.V (the m16n8 accumulator layout is the A-fragment layout), V fragments
+// from ldmatrix.x4.trans; o accumulates in f32 registers and is written as
+// bf16 pairs.  Walk from KV tile 0 (every row meets key 0 first), stop at the
+// last tile a row of the block can see, skip (per warp) a tile that none of
+// the warp's rows can see, mask element-wise only on tiles that cross the
+// diagonal or the Sk edge, and issue the last query tiles (the most K/V
+// tiles under `causal`) first.  Shared memory: 46,080 bytes at d = 64,
 // 87,040 at d = 128 (opt-in above 48 KB); 192-206 registers at d = 128, so
 // two blocks (8 warps) share an SM.  Every q, k, v, o row must start on 16
 // bytes (the wrapper checks pointers and strides).  At phi4-mini's heads it
-// runs at about 185 TFLOP/s, 5x its bound: with 8 warps an SM has little to
-// hide the latency of each warp's ldmatrix -> mma -> softmax chain, and a
-// register cap that would fit more blocks spills (scripts/kernel_variants.py
-// compares such variants on the card).
+// runs at about 185 TFLOP/s, 5x its bound.
 //
-// f32 design (kept): a block of 256 threads owns 64 query rows; Q^T (f32)
-// stays in shared memory, each tile stages K^T and V (f32), computes the
-// 64 x 64 scores as 4 x 4 per thread, takes row maxima and sums with warp
-// shuffles, writes P to shared memory and adds P.V into a 4 x d/16
-// accumulator per thread.  Shared memory is 67,840 bytes at d = 64 and
-// 118,272 bytes at d = 128.
+// f32 design (3xTF32, FlashAttention-2 on mma.sync m16n8k8).  The first
+// design ran both products on FP32 FMAs (4 x 4 scores per thread, K
+// transposed into shared memory by synchronous loads, P through shared
+// memory behind a barrier) and reached 29% of the FP32 cores' 67 TFLOP/s;
+// no FP32-core kernel can go much past SDPA's f32 time.  Plain TF32 keeps 10
+// mantissa bits and fails the f32 limit (1e-4 |want| + 1e-5 at full width).
+// 3xTF32 splits every f32 operand x into big = x cut to TF32 and small =
+// x - big (TF32 in the tensor core; see split_tf32), and runs a.b as
+// a_small.b_big + a_big.b_small + a_big.b_big on the tensor cores;
+// small.small is dropped.  In Q.K^T the three products have accumulators
+// of their own (chains of D/8 dependent mma, not 3 D/8: 7.82 against 7.95
+// ms at phi4-mini's heads on an H100), summed small terms first; in P.V
+// the small terms reach the accumulator before the large one.  That keeps
+// about 20 bits of each operand (2^-20 relative), against 10 for plain
+// TF32.  The walk (4 warps x 16 query rows, tile order, causal stop,
+// per-warp skip, zero-fill) is the bf16 kernel's.
+// Q's tile stays f32 in shared memory (copied once with the first K/V tile)
+// and each warp reads and splits its A fragments per k8 step: f32
+// fragments of all d in registers (64 at d = 128) beside the 64 accumulators
+// made ptxas spill.  K and V tiles of kF32BK = 32 keys stay f32 in shared
+// memory, double-buffered by cp.async with zero-fill past Sk, and are split
+// per fragment as they are read.  The contraction index of Q.K^T is
+// relabelled inside each k8 step (logical t -> column 2t, t + 4 -> 2t + 1),
+// so a Q or K fragment pair is one 8-byte load; Q and K rows are padded by 8
+// floats, which puts a half-warp's 8-byte reads on 32 banks.  P stays in
+// registers: the m16n8 accumulator gives thread (g, t) keys 2t and 2t + 1,
+// the tf32 A fragment wants k = t and t + 4, so the keys are relabelled
+// (a0 = c0, a1 = c2, a2 = c1, a3 = c3) and V's fragment reads keys 2t and
+// 2t + 1; V rows are padded by 4 floats, which puts those scalar reads on
+// 32 banks.  Shared memory: 54,272 bytes at d = 64, 103,424 at d = 128, so
+// two blocks (8 warps) share an SM.  At phi4-mini's heads it runs at about
+// 53 TFLOP/s (158 of the TF32 cores' 495 across the three passes), 3.1x its
+// bound, ahead of SDPA's f32 kernel (9.1 ms).
 //
 // Left for later: wgmma with TMA loads and warp specialisation (producer
-// warp, consumer warpgroups) for bf16, the only way to the tensor cores'
-// full rate; for f32, 3xTF32 or larger FP32 register tiles.
+// warp, consumer warpgroups), the only way to the tensor cores' full rate.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,186 +102,12 @@
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block (both kernels)
-constexpr int kBK = 64;          // keys per K/V tile (both kernels)
-constexpr int kThreads = 256;    // f32 kernel, 16 x 16: ty owns 4 rows, tx 4 keys / d/16 columns
-constexpr int kQS = kBQ + 4;     // Q^T row stride (float4-aligned)
-constexpr int kKS = kBK + 1;     // K^T row stride (conflict-free transposed writes)
-constexpr int kPS = kBK + 4;     // P row stride (float4-aligned)
+constexpr int kBK = 64;          // keys per K/V tile (bf16 kernel)
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-// v as the type T holds it (f32 holds it exactly)
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-
-__device__ __forceinline__ float comp(const float4& a, int i) {
-  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)D * kQS + (size_t)D * kKS + (size_t)kBK * D + (size_t)kBQ * kPS);
-}
 
 struct Strides {   // element strides of a (B, H, S, d) view, d contiguous
   long long b, h, s;
 };
-
-template <int D, typename T, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os, int heads,
-    int s_len, int sk_len, float scale) {
-  constexpr int NC = D / 64;   // float4 column groups of the accumulator per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qt_s = smem;                  // [D][kQS]   Q^T
-  float* kt_s = qt_s + D * kQS;        // [D][kKS]   K^T of the tile
-  float* v_s = kt_s + D * kKS;         // [kBK][D]   V of the tile
-  float* p_s = v_s + kBK * D;          // [kBQ][kPS] P of the tile
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
-  const int n_qt = (s_len + kBQ - 1) / kBQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kBQ;   // last query tiles first
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  T* ob = o + b * os.b + h * os.h;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int row = e / D;
-    const int dd = e - row * D;
-    const int qpos = q0 + row;
-    qt_s[dd * kQS + row] = qpos < s_len ? to_f32(qb[qpos * qs.s + dd]) : 0.0f;
-  }
-
-  float m[4], l[4], acc[4][4 * NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[r][c] = 0.0f;
-  }
-
-  int n_kt = (sk_len + kBK - 1) / kBK;
-  if (CAUSAL) {
-    const int last_q = min(q0 + kBQ, s_len) - 1;    // the block's last real row
-    n_kt = min(n_kt, last_q / kBK + 1);
-  }
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();   // Q^T is staged; the last tile's K^T, V, P are read
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int row = e / D;
-      const int dd = e - row * D;
-      const int kpos = k0 + row;
-      const bool ok = kpos < sk_len;
-      kt_s[dd * kKS + row] = ok ? to_f32(kb[kpos * ks.s + dd]) : 0.0f;
-      v_s[row * D + dd] = ok ? to_f32(vb[kpos * vs.s + dd]) : 0.0f;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sc[r][c] = 0.0f;
-    }
-#pragma unroll 8
-    for (int dd = 0; dd < D; ++dd) {
-      const float4 qv = *reinterpret_cast<const float4*>(qt_s + dd * kQS + 4 * ty);
-      float kv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = kt_s[dd * kKS + tx + 16 * c];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sc[0][c] = fmaf(qv.x, kv[c], sc[0][c]);
-        sc[1][c] = fmaf(qv.y, kv[c], sc[1][c]);
-        sc[2][c] = fmaf(qv.z, kv[c], sc[2][c]);
-        sc[3][c] = fmaf(qv.w, kv[c], sc[3][c]);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = 4 * ty + r;
-      const int qpos = q0 + row;
-      bool vis[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        vis[c] = kpos < sk_len && (!CAUSAL || kpos <= qpos);
-        sc[r][c] = vis[c] ? sc[r][c] * scale : kNegInf;
-        mx = fmaxf(mx, sc[r][c]);
-      }
-      // the 16 threads of a row are lanes 16*(ty&1) .. +15 of one warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = vis[c] ? expf(sc[r][c] - m_new) : 0.0f;
-        sum += p;
-        p_s[row * kPS + tx + 16 * c] = round_to(p, (const T*)nullptr);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[r][c] *= alpha;
-    }
-    __syncthreads();   // P of the whole tile is in shared memory
-
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        pr[r] = *reinterpret_cast<const float4*>(p_s + (4 * ty + r) * kPS + kk);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(v_s + (kk + u) * D + 64 * c + 4 * tx);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float p = comp(pr[r], u);
-            acc[r][4 * c + 0] = fmaf(p, vv.x, acc[r][4 * c + 0]);
-            acc[r][4 * c + 1] = fmaf(p, vv.y, acc[r][4 * c + 1]);
-            acc[r][4 * c + 2] = fmaf(p, vv.z, acc[r][4 * c + 2]);
-            acc[r][4 * c + 3] = fmaf(p, vv.w, acc[r][4 * c + 3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qpos = q0 + 4 * ty + r;
-    if (qpos < s_len) {
-      const float denom = fmaxf(l[r], 1e-30f);
-      T* orow = ob + qpos * os.s;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) store(orow + 64 * c + 4 * tx + e, acc[r][4 * c + e] / denom);
-      }
-    }
-  }
-}
 
 // ---- bf16: tensor cores ---------------------------------------------------
 
@@ -528,30 +377,309 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, const Strid
   return (int)cudaGetLastError();
 }
 
-// ---- host side --------------------------------------------------------------
 
-template <int D, bool CAUSAL>
-int launch_f32(const void* q, const void* k, const void* v, void* o, const Strides* st,
-               int batch, int heads, int s_len, int sk_len, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, float, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---- f32: 3xTF32 on tensor cores ----------------------------------------------
+
+constexpr int kF32BK = 32;   // keys per K/V tile (f32 kernel)
+
+template <int D>
+constexpr size_t tf32_smem_bytes() {   // Q and 2 x K in rows of D + 8, then 2 x V in rows of D + 4
+  return sizeof(float) * ((size_t)(kMmaBQ + 2 * kF32BK) * (D + 8) + 2 * (size_t)kF32BK * (D + 4));
+}
+
+// 4-byte asynchronous copy global -> shared; src_bytes = 0 fills zeros
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+
+// x as two TF32 operands: big = x cut to TF32's 10 mantissa bits (toward
+// zero), small = x - big (exact in f32), whose low 13 bits the tensor core
+// ignores.  |x - big - tf32(small)| <= 2^-20 |x|.  cvt.rna.tf32.f32 for both
+// (2^-22) is a sequence of instructions on sm_90a, not one, and cost 35% of
+// the kernel's time at phi4-mini's heads (11.06 against 8.17 ms, same card).
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c += a . b on one m16n8k8 tile: tf32 inputs, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32: a_small.b_big and a_big.b_small first, then
+// a_big.b_big; b is split here
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&a_big)[4],
+                                           const unsigned (&a_small)[4], float b0, float b1) {
+  unsigned b0_big, b0_small, b1_big, b1_small;
+  split_tf32(b0, b0_big, b0_small);
+  split_tf32(b1, b1_big, b1_small);
+  mma_tf32(c, a_small, b0_big, b1_big);
+  mma_tf32(c, a_big, b0_small, b1_small);
+  mma_tf32(c, a_big, b0_big, b1_big);
+}
+
+// Copy rows row0 .. row0+ROWS-1 of a (rows, D) f32 view with row stride
+// `rs` into a [ROWS][LD] tile with cp.async, 16 bytes a copy when VEC, else
+// 4; rows at or past n_rows are zeros.
+template <int D, int LD, int ROWS, bool VEC>
+__device__ __forceinline__ void load_f32_tile(float* dst, const float* src, long long rs,
+                                              int row0, int n_rows) {
+  constexpr int W = VEC ? 4 : 1;   // floats per copy
+  constexpr int CPR = D / W;       // copies per row
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * CPR; e += kMmaThreads) {
+    const int r = e / CPR;
+    const int cc = e - r * CPR;
+    const int pos = row0 + r;
+    const bool ok = pos < n_rows;
+    const float* s = ok ? src + pos * rs + cc * W : src;
+    const unsigned d = smem_addr(dst + r * LD + cc * W);
+    if constexpr (VEC) {
+      cp_async16(d, s, ok);
+    } else {
+      cp_async4(d, s, ok);
+    }
+  }
+}
+
+// Block and warp walk as flash_fwd_mma_kernel: kMmaWarps warps, warp w owns
+// query rows q0 + 16w .. q0 + 16w + 15; lane = 4 * g + t holds rows g and
+// g + 8 of the warp's 16 and, in every n8 tile of scores or output, columns
+// 2t and 2t + 1.  VEC: every row of q, k, v, o starts on 16 bytes.
+template <int D, bool CAUSAL, bool VEC>
+__global__ void __launch_bounds__(kMmaThreads, 1) flash_fwd_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os, int heads, int s_len,
+    int sk_len, float scale_log2) {
+  constexpr int LDK = D + 8;        // Q and K row stride: 8-byte fragment reads on 32 banks
+  constexpr int LDV = D + 4;        // V row stride: scalar reads of keys 2t, 2t + 1 on 32 banks
+  constexpr int KSTEPS = D / 8;     // k8 steps of Q.K^T
+  constexpr int NO = D / 8;         // n8 tiles of the output
+  constexpr int NS = kF32BK / 8;    // n8 tiles of the scores, k8 steps of P.V
+  extern __shared__ __align__(16) float f32_smem[];
+  float* q_s = f32_smem;                 // [kMmaBQ][LDK]
+  float* k_s = q_s + kMmaBQ * LDK;       // [2][kF32BK][LDK]
+  float* v_s = k_s + 2 * kF32BK * LDK;   // [2][kF32BK][LDV]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int n_qt = (s_len + kMmaBQ - 1) / kMmaBQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kMmaBQ;   // last query tiles first
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  float* ob = o + b * os.b + h * os.h;
+  const int w0 = q0 + 16 * warp;      // the warp's first query row
+  const int row_a = w0 + g;           // the thread's two query rows
+  const int row_b = row_a + 8;
+
+  int n_kt = (sk_len + kF32BK - 1) / kF32BK;
+  if (CAUSAL) {
+    const int last_q = min(q0 + kMmaBQ, s_len) - 1;    // the block's last real row
+    n_kt = min(n_kt, last_q / kF32BK + 1);
+  }
+
+  load_f32_tile<D, LDK, kMmaBQ, VEC>(q_s, qb, qs.s, q0, s_len);
+  load_f32_tile<D, LDK, kF32BK, VEC>(k_s, kb, ks.s, 0, sk_len);
+  load_f32_tile<D, LDV, kF32BK, VEC>(v_s, vb, vs.s, 0, sk_len);
+  cp_async_commit();
+  // the warp's Q rows g and g + 8, f32, read per k8 step (f32 fragments of
+  // all D would take 4 * D / 8 registers beside the accumulators)
+  const float* qa_s = q_s + (16 * warp + g) * LDK + 2 * t;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  }
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.0f, 0.0f};   // this thread's share of the row sums
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    const int k0 = kt * kF32BK;
+    if (kt + 1 < n_kt) {
+      load_f32_tile<D, LDK, kF32BK, VEC>(k_s + (buf ^ 1) * kF32BK * LDK, kb, ks.s, k0 + kF32BK,
+                                         sk_len);
+      load_f32_tile<D, LDV, kF32BK, VEC>(v_s + (buf ^ 1) * kF32BK * LDV, vb, vs.s, k0 + kF32BK,
+                                         sk_len);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // Q and tile kt have landed (this thread's copies)
+    __syncthreads();      // ... and every thread's
+    const float* kt_s = k_s + buf * kF32BK * LDK;
+    const float* vt_s = v_s + buf * kF32BK * LDV;
+    // under `causal` a warp whose rows all precede the tile sees none of it
+    if (!CAUSAL || k0 <= w0 + 15) {
+      // S = Q . K^T: 16 rows x kF32BK keys per warp, 3xTF32.  The three
+      // products go to three accumulators, so each chain of dependent mma
+      // is KSTEPS long, not 3 x KSTEPS; the small terms are added first.
+      float sc[NS][4], sc_sb[NS][4], sc_bs[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = sc_sb[n][e] = sc_bs[n][e] = 0.0f;
+      }
+      // Inside each k8 step column 2t serves as k = t and column 2t + 1 as
+      // k = t + 4, for Q and K alike, so each fragment pair is one 8-byte read
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const float2 qa = *reinterpret_cast<const float2*>(qa_s + 8 * kk);
+        const float2 qr = *reinterpret_cast<const float2*>(qa_s + 8 * LDK + 8 * kk);
+        unsigned qa_big[4], qa_small[4];
+        split_tf32(qa.x, qa_big[0], qa_small[0]);
+        split_tf32(qr.x, qa_big[1], qa_small[1]);
+        split_tf32(qa.y, qa_big[2], qa_small[2]);
+        split_tf32(qr.y, qa_big[3], qa_small[3]);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {   // keys 8n .. 8n + 7 of the tile
+          const float2 kv =
+              *reinterpret_cast<const float2*>(kt_s + (8 * n + g) * LDK + 8 * kk + 2 * t);
+          unsigned k0_big, k0_small, k1_big, k1_small;
+          split_tf32(kv.x, k0_big, k0_small);
+          split_tf32(kv.y, k1_big, k1_small);
+          mma_tf32(sc_sb[n], qa_small, k0_big, k1_big);
+          mma_tf32(sc_bs[n], qa_big, k0_small, k1_small);
+          mma_tf32(sc[n], qa_big, k0_big, k1_big);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] += sc_sb[n][e] + sc_bs[n][e];
+      }
+
+      // online softmax in the log2 domain; element e of a tile is row e >> 1
+      const bool masked = k0 + kF32BK > sk_len || (CAUSAL && k0 + kF32BK - 1 > w0);
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s = sc[n][e] * scale_log2;
+          if (masked) {
+            const int key = k0 + 8 * n + 2 * t + (e & 1);
+            const bool vis = key < sk_len && (!CAUSAL || key <= (e < 2 ? row_a : row_b));
+            s = vis ? s : -INFINITY;
+          }
+          sc[n][e] = s;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(m_run[r] - mx[r]);
+        m_run[r] = mx[r];
+        l_run[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float s = sc[n][e];
+          const float p = (masked && s == -INFINITY) ? 0.0f : exp2f(s - mx[e >> 1]);
+          l_run[e >> 1] += p;
+          sc[n][e] = p;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+
+      // O += P . V in 3xTF32, P from registers: within k8 step kk, key
+      // 8kk + 2t serves as k = t and key 8kk + 2t + 1 as k = t + 4
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        unsigned pa_big[4], pa_small[4];
+        split_tf32(sc[kk][0], pa_big[0], pa_small[0]);
+        split_tf32(sc[kk][2], pa_big[1], pa_small[1]);
+        split_tf32(sc[kk][1], pa_big[2], pa_small[2]);
+        split_tf32(sc[kk][3], pa_big[3], pa_small[3]);
+        const float* v0 = vt_s + (8 * kk + 2 * t) * LDV + g;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {   // output columns 8n .. 8n + 7
+          mma_3xtf32(acc[n], pa_big, pa_small, v0[8 * n], v0[LDV + 8 * n]);
+        }
+      }
+    }
+    __syncthreads();   // the next iteration copies into this buffer
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    const int row = r == 0 ? row_a : row_b;
+    if (row >= s_len) continue;
+    const float denom = fmaxf(l_run[r], 1e-30f);
+    float* orow = ob + row * os.s;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const float o0 = acc[n][2 * r] / denom;
+      const float o1 = acc[n][2 * r + 1] / denom;
+      if constexpr (VEC) {
+        *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) = make_float2(o0, o1);
+      } else {
+        orow[8 * n + 2 * t] = o0;
+        orow[8 * n + 2 * t + 1] = o1;
+      }
+    }
+  }
+}
+
+template <int D, bool CAUSAL, bool VEC>
+int launch_tf32x3(const void* q, const void* k, const void* v, void* o, const Strides* st,
+                  int batch, int heads, int s_len, int sk_len, float scale_log2,
+                  cudaStream_t stream) {
+  constexpr size_t smem = tf32_smem_bytes<D>();
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_tf32x3_kernel<D, CAUSAL, VEC>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)batch * (unsigned)heads, (unsigned)((s_len + kBQ - 1) / kBQ));
-  flash_fwd_kernel<D, float, CAUSAL><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((unsigned)batch * (unsigned)heads, (unsigned)((s_len + kMmaBQ - 1) / kMmaBQ));
+  flash_fwd_tf32x3_kernel<D, CAUSAL, VEC><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), st[0], st[1], st[2], st[3], heads, s_len, sk_len, scale);
+      static_cast<float*>(o), st[0], st[1], st[2], st[3], heads, s_len, sk_len, scale_log2);
   return (int)cudaGetLastError();
 }
 
+// ---- host side --------------------------------------------------------------
+
 template <int D, bool CAUSAL>
-int launch(int is_bf16, const void* q, const void* k, const void* v, void* o, const Strides* st,
-           int batch, int heads, int s_len, int sk_len, double scale, cudaStream_t s) {
+int launch(int is_bf16, bool vec, const void* q, const void* k, const void* v, void* o,
+           const Strides* st, int batch, int heads, int s_len, int sk_len, double scale,
+           cudaStream_t s) {
+  const float scale_log2 = (float)(scale * 1.4426950408889634);
   if (is_bf16) {
-    return launch_mma<D, CAUSAL>(q, k, v, o, st, batch, heads, s_len, sk_len,
-                                 (float)(scale * 1.4426950408889634), s);
+    return launch_mma<D, CAUSAL>(q, k, v, o, st, batch, heads, s_len, sk_len, scale_log2, s);
   }
-  return launch_f32<D, CAUSAL>(q, k, v, o, st, batch, heads, s_len, sk_len, (float)scale, s);
+  if (vec) {
+    return launch_tf32x3<D, CAUSAL, true>(q, k, v, o, st, batch, heads, s_len, sk_len,
+                                          scale_log2, s);
+  }
+  return launch_tf32x3<D, CAUSAL, false>(q, k, v, o, st, batch, heads, s_len, sk_len,
+                                         scale_log2, s);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -562,10 +690,10 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 extern "C" const char* flash_attention_kernel_name(int is_bf16, int head_dim, int causal) {
   if (head_dim != 64 && head_dim != 128) return "none (d must be 64 or 128)";
   static const char* names[2][2][2] = {
-      {{"flash_fwd_kernel<64, float, false> (FP32 FMAs)",
-        "flash_fwd_kernel<64, float, true> (FP32 FMAs)"},
-       {"flash_fwd_kernel<128, float, false> (FP32 FMAs)",
-        "flash_fwd_kernel<128, float, true> (FP32 FMAs)"}},
+      {{"flash_fwd_tf32x3_kernel<64, false, VEC> (3xTF32 mma.sync m16n8k8)",
+        "flash_fwd_tf32x3_kernel<64, true, VEC> (3xTF32 mma.sync m16n8k8)"},
+       {"flash_fwd_tf32x3_kernel<128, false, VEC> (3xTF32 mma.sync m16n8k8)",
+        "flash_fwd_tf32x3_kernel<128, true, VEC> (3xTF32 mma.sync m16n8k8)"}},
       {{"flash_fwd_mma_kernel<64, false> (bf16 mma.sync m16n8k16)",
         "flash_fwd_mma_kernel<64, true> (bf16 mma.sync m16n8k16)"},
        {"flash_fwd_mma_kernel<128, false> (bf16 mma.sync m16n8k16)",
@@ -577,9 +705,10 @@ extern "C" const char* flash_attention_kernel_name(int is_bf16, int head_dim, in
 // (B, H, Sk, d) and o (B, H, S, d) are device pointers to views of the type
 // named by is_bf16 with d contiguous; `strides` holds 12 element strides,
 // (batch, head, row) of q, k, v, o in turn.  o must not overlap the inputs.
-// d is 64 or 128.  bf16 needs every row of q, k, v, o to start on 16 bytes.
-// Launches once on `stream` and does not synchronise.  Returns 0 or a
-// cudaError_t (cudaErrorInvalidValue for a shape it does not take,
+// d is 64 or 128.  bf16 needs every row of q, k, v, o to start on 16 bytes;
+// f32 copies 16 bytes at a time when they do (VEC), else 4.  Launches once
+// on `stream` and does not synchronise.  Returns 0 or a cudaError_t
+// (cudaErrorInvalidValue for a shape it does not take,
 // cudaErrorMisalignedAddress for a bf16 view off 16 bytes, or
 // cudaGetLastError() after the launch).
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* o,
@@ -588,29 +717,28 @@ extern "C" int flash_attention_forward(const void* q, const void* k, const void*
                                        int causal, void* stream) {
   (void)cudaGetLastError();  // attribute only this launch's error
   if (batch <= 0 || heads <= 0 || s_len <= 0 || sk_len <= 0) return (int)cudaErrorInvalidValue;
-  if ((long long)batch * heads > 0x7fffffffLL || (s_len + kBQ - 1) / kBQ > 65535) {
+  if ((long long)batch * heads > 0x7fffffffLL || (s_len + kMmaBQ - 1) / kMmaBQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   Strides st[4];
   for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  if (is_bf16) {
-    // every row starts on 16 bytes: base pointers, and the strides of the
-    // dimensions longer than 1, in multiples of 8 elements
-    const int sizes[12] = {batch, heads, s_len, batch, heads, sk_len,
-                           batch, heads, sk_len, batch, heads, s_len};
-    bool ok = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
-    for (int i = 0; i < 12; ++i) ok = ok && (sizes[i] == 1 || strides[i] % 8 == 0);
-    if (!ok) return (int)cudaErrorMisalignedAddress;
-  }
+  // every row starts on 16 bytes: base pointers, and the strides of the
+  // dimensions longer than 1, in multiples of 16 bytes
+  const int per16 = is_bf16 ? 8 : 4;   // elements per 16 bytes
+  const int sizes[12] = {batch, heads, s_len, batch, heads, sk_len,
+                         batch, heads, sk_len, batch, heads, s_len};
+  bool rows16 = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  for (int i = 0; i < 12; ++i) rows16 = rows16 && (sizes[i] == 1 || strides[i] % per16 == 0);
+  if (is_bf16 && !rows16) return (int)cudaErrorMisalignedAddress;
   const double scale = 1.0 / sqrt((double)head_dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) {
-    return causal ? launch<64, true>(is_bf16, q, k, v, o, st, batch, heads, s_len, sk_len, scale, s)
-                  : launch<64, false>(is_bf16, q, k, v, o, st, batch, heads, s_len, sk_len, scale, s);
+    return causal ? launch<64, true>(is_bf16, rows16, q, k, v, o, st, batch, heads, s_len, sk_len, scale, s)
+                  : launch<64, false>(is_bf16, rows16, q, k, v, o, st, batch, heads, s_len, sk_len, scale, s);
   }
   if (head_dim == 128) {
-    return causal ? launch<128, true>(is_bf16, q, k, v, o, st, batch, heads, s_len, sk_len, scale, s)
-                  : launch<128, false>(is_bf16, q, k, v, o, st, batch, heads, s_len, sk_len, scale, s);
+    return causal ? launch<128, true>(is_bf16, rows16, q, k, v, o, st, batch, heads, s_len, sk_len, scale, s)
+                  : launch<128, false>(is_bf16, rows16, q, k, v, o, st, batch, heads, s_len, sk_len, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

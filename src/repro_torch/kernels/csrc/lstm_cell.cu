@@ -12,7 +12,7 @@
 // promotes bf16 x f32 to f32); c is f32; h' is written in h's type, c' in f32.
 //
 // Bound on an H100 SXM, per launch: about 8*B*H*(In+H) FLOP on the FP32
-// cores (no tensor cores: the f32 bar is 1e-5, which TF32 cannot meet), and
+// cores (no tensor cores: the f32 bar is 1e-5, which plain TF32 cannot meet), and
 // about B*(In+H)*s + B*H*(8+s) + 16*H*(In+H) bytes (s = bytes of x/h).  At
 // the paper's widths (In, H <= 64) and a large batch the operations bound it.
 //

@@ -3,21 +3,29 @@
 Counterpart of ``repro/kernels/flash_attention.py::flash_attention_pallas``
 (K4): attention with an online softmax over K/V tiles, causal or not,
 written by hand for Hopper in ``csrc/flash_attention.cu`` (see its header
-for the design).  Its bound on an H100 is 4·d FLOP per visible (query, key)
-pair, at 989 TFLOP/s for bf16 (tensor cores) and 67 TFLOP/s for f32 (FP32
-cores: the f32 bar of 2e-3 rules out TF32), against q, k, v and o once at
-3.35 TB/s; at phi4-mini-3.8b's heads the operations bound it.  As in the
-reference it is reached only through ``ops.flash_attention_op``; no model
-layer calls it.
+for the design).  As in the reference it is reached only through
+``ops.flash_attention_op``; no model layer calls it.
 
-The dtype picks the kernel, and neither stands in for the other: bf16 runs
-on the tensor cores (``mma.sync`` m16n8k16, FlashAttention-2 style: bf16 K/V
-tiles double-buffered in shared memory by ``cp.async``, Q fragments and the
-online softmax in registers, P fed to P·V from registers), where the first
-design widened bf16 to f32 and ran both products on FP32 FMAs; f32
-keeps that first FP32 kernel.  :func:`kernel_name` names the one that serves
-a call.  Left for later: ``wgmma`` with TMA loads and warp specialisation
-for bf16, the only way to the tensor cores' full rate.
+The dtype picks the kernel, and neither stands in for the other.  Both run
+on the tensor cores with ``mma.sync``, FlashAttention-2 style: K/V tiles
+double-buffered in shared memory by ``cp.async`` (zero-filled past Sk), Q
+fragments and the online softmax in registers, P fed to P·V from registers.
+bf16 runs m16n8k16 bf16 products.  f32 runs **3xTF32** m16n8k8 products:
+each f32 operand is split into a TF32 "big" part and a TF32 "small"
+remainder and a·b is taken as a_small·b_big + a_big·b_small + a_big·b_big,
+which keeps about 20 bits of each operand.  The f32 limit rules out plain
+(1x) TF32, which keeps 10 mantissa bits, not 3xTF32
+(``tests/test_torch_flash_attention.py`` pins both sides).  The first
+design ran f32 on the FP32 FMAs, with K staged synchronously and P sent
+through shared memory, at 29% of the FP32 cores' 67 TFLOP/s.
+:func:`kernel_name` names the kernel that serves a call and
+:func:`copy_path` the f32 kernel's copy path (16-byte ``cp.async`` where
+every row starts on 16 bytes, else 4-byte).  Its bound on an H100 is 4·d
+FLOP per visible (query, key) pair, at 989 TFLOP/s for bf16, and 3x that
+FLOP at the TF32 tensor cores' 495 TFLOP/s for f32, against q, k, v and o
+once at 3.35 TB/s; at phi4-mini-3.8b's heads the operations bound both.
+Left for later: ``wgmma`` with TMA loads and warp specialisation, the only
+way to the tensor cores' full rate.
 
 Layout (B, H, S, d) for q and o, (B, H, Sk, d) for k and v, as the Pallas
 kernel takes them; f32 or bf16, one dtype for all three.  The kernel reads
@@ -38,7 +46,8 @@ kernel takes any S and Sk (the Pallas kernel needs them divisible by its
 blocks) and d in :data:`HEAD_DIMS`.  In bf16 every row of q, k, v and o
 must start on 16 bytes (the tiles are copied 16 bytes at a time): the data
 pointers, and the strides of every dimension longer than 1 in multiples of
-8 elements; a contiguous tensor, or a transposed (B, S, H, d) one, is.
+8 elements; a contiguous tensor, or a transposed (B, S, H, d) one, is.  f32
+takes any view with d contiguous.
 
 :func:`flash_attention_cuda` launches the kernel on CUDA tensors and raises
 on anything it does not take; :func:`flash_attention_plain` is the same
@@ -92,18 +101,34 @@ def check_attention_args(q, k, v) -> None:
         raise ValueError("attention needs at least one key (Sk = 0)")
 
 
-def check_row_alignment(*tensors) -> None:
-    """Raise unless every row of each bf16 (B, H, rows, d) view starts on 16
-    bytes: its data pointer, and the stride of each dimension longer than 1,
-    a multiple of 16 bytes.  The bf16 kernel copies tiles 16 bytes at a time."""
+def rows_on_16_bytes(*tensors) -> bool:
+    """Whether every row of each (B, H, rows, d) view starts on 16 bytes:
+    its data pointer, and the stride of each dimension longer than 1, a
+    multiple of 16 bytes (the kernel's own test, in ``flash_attention.cu``)."""
     for t in tensors:
         size = t.element_size()
-        bad = [dim for dim in range(t.dim() - 1)
-               if t.shape[dim] > 1 and (t.stride(dim) * size) % 16]
-        if t.data_ptr() % 16 or bad:
+        if t.data_ptr() % 16 or any(t.shape[dim] > 1 and (t.stride(dim) * size) % 16
+                                    for dim in range(t.dim() - 1)):
+            return False
+    return True
+
+
+def check_row_alignment(*tensors) -> None:
+    """Raise unless every row of each bf16 (B, H, rows, d) view starts on 16
+    bytes (:func:`rows_on_16_bytes`).  The bf16 kernel copies tiles 16 bytes
+    at a time."""
+    for t in tensors:
+        if not rows_on_16_bytes(t):
             raise ValueError(
                 f"the bf16 kernel needs every row of q, k, v and o on 16 bytes: a view with "
                 f"data pointer {t.data_ptr():#x} and strides {t.stride()} breaks this")
+
+
+def copy_path(q, k, v, out) -> str:
+    """How the kernel copies K/V tiles for these views: 16-byte ``cp.async``
+    when every row of q, k, v and out starts on 16 bytes (always for bf16,
+    which refuses other views), else 4-byte ``cp.async`` (f32 only)."""
+    return "16-byte cp.async" if rows_on_16_bytes(q, k, v, out) else "4-byte cp.async"
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,7 +5,7 @@ timestep of MVM_X + MVM_H + gates + the element-wise update, as one kernel
 written by hand for Hopper in ``csrc/lstm_cell.cu``.
 
 Design: the launch is a GEMM [x | h] (B x (In+H)) times the four gates'
-weights, on FP32 FMAs (the f32 bar of 1e-5 rules out TF32), with the c'/h'
+weights, on FP32 FMAs (the f32 bar of 1e-5 rules out plain TF32), with the c'/h'
 update fused into its epilogue.  A block owns a tile of batch rows and
 hidden units with all four gates; the contraction runs in chunks of 16
 through double-buffered shared memory (``cp.async`` where rows are 16-byte

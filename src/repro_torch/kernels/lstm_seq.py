@@ -1,17 +1,35 @@
 """Sequence-streaming LSTM layer: the CUDA kernel's launch wrapper and its plain PyTorch version.
 
-Counterpart of ``repro/kernels/lstm_seq.py`` (K2).  One LSTM layer over a
-whole window in one launch, (h, c) kept on chip between timesteps and the
-weights stationary, written by hand for Hopper in ``csrc/lstm_seq.cu`` (see
-its header for the design and bound).  As in the reference it is reached
+Counterpart of ``repro/kernels/lstm_seq.py::lstm_seq_pallas`` (K2).  One
+LSTM layer over a whole window in one launch, (h, c) kept on chip between
+timesteps and the weights stationary, written by hand for Hopper in
+``csrc/lstm_seq.cu`` (see its header).  As in the reference it is reached
 only through ``ops.lstm_seq_op``; no schedule uses it.
+
+Design: each timestep is a small GEMM [x_t | h_{t-1}] times the four gates'
+weights on FP32 FMAs, with the c/h update in its epilogue, as K1 does one
+timestep; a block owns a tile of batch rows with all hidden units and all
+four gates and runs all T steps, so h_t never leaves it.  Each thread keeps
+a register micro-tile of up to 8 rows x 2 units x 4 gates, so one
+shared-memory read of a weight feeds up to 8 FMAs (the first design fed
+every FMA with its own weight load); x_{t+1} is copied in with ``cp.async``
+while step t computes, h_t goes to the other half of a double-buffered
+shared tile, and one barrier separates the steps.  Weights sit in shared
+memory, gate-interleaved per unit, where they fit (:func:`lstm_seq_plan`);
+else each step reads them from L2.  The tile is chosen by shape
+(:func:`lstm_seq_tile`).  The f32 bar (1e-5 over up to 64 compounding
+steps) keeps it off the tensor cores.  Its bound on an H100 is the larger of
+8·T·B·H·(In+H) FLOP at 67 TFLOP/s and its bytes at 3.35 TB/s; at the
+paper's widths the operations bound it.
 
 xs (T, B, In) is f32 or bf16; h0 (B, H) f32 or bf16; c0 (B, H) f32; the
 weights are gate-major f32 (:func:`~repro_torch.kernels.lstm_cell.pack_weights`).
 Returns ys (T, B, H) in xs's dtype, h_T in h0's dtype and c_T in f32.  Each
 step casts h to xs's dtype before MVM_H, as the reference does
 (``lstm_seq.py:51``), so in bf16 the recurrent h is rounded every step —
-unlike K1, which does not round h.
+unlike K1, which does not round h.  Any In is taken and H up to 1024 (the
+block holds a thread for every two hidden units); a wider H is refused
+(``RuntimeError``).
 
 :func:`lstm_seq_cuda` launches the kernel on CUDA tensors and raises on
 anything it does not take; :func:`lstm_seq_plain` is the same function in
@@ -89,6 +107,8 @@ def _lib() -> ctypes.CDLL:
     lib.lstm_seq_forward.restype = ctypes.c_int
     lib.lstm_seq_weights_in_smem.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_size_t)]
     lib.lstm_seq_weights_in_smem.restype = ctypes.c_int
+    lib.lstm_seq_tile.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.lstm_seq_tile.restype = ctypes.c_int
     lib.lstm_seq_error_string.argtypes = [ctypes.c_int]
     lib.lstm_seq_error_string.restype = ctypes.c_char_p
     return lib
@@ -105,6 +125,18 @@ def lstm_seq_plan(batch: int, in_dim: int, hidden: int) -> tuple[bool, int]:
         raise RuntimeError(f"lstm_seq has no launch plan for B={batch}, In={in_dim}, "
                            f"H={hidden}: {lib.lstm_seq_error_string(-rc).decode()}")
     return bool(rc), smem.value
+
+
+def lstm_seq_tile(batch: int, in_dim: int, hidden: int) -> tuple[int, int]:
+    """(rows per block, rows per thread) of a launch of this shape on the
+    current CUDA device — the kernel's own choice, asked of the built library."""
+    lib = _lib()
+    bm, tm = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.lstm_seq_tile(batch, in_dim, hidden, ctypes.byref(bm), ctypes.byref(tm))
+    if rc < 0:
+        raise RuntimeError(f"lstm_seq has no launch plan for B={batch}, In={in_dim}, "
+                           f"H={hidden}: {lib.lstm_seq_error_string(-rc).decode()}")
+    return bm.value, tm.value
 
 
 def lstm_seq_cuda(xs, h0, c0, wx, wh, b, *, pwl: bool = False):

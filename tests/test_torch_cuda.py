@@ -199,6 +199,43 @@ def test_lstm_seq_kernel_matches_plain(cuda, in_dim, hidden, dtype, pwl):
         ts.lstm_seq_cuda(xs.cpu(), h0.cpu(), c0.cpu(), wx.cpu(), wh.cpu(), bias.cpu())
 
 
+# (t_len, b, in_dim, hidden, dtype, seed) -> xs (T,B,In), h0, c0, wx, wh, b
+_seq_inputs = functools.partial(chip_smoke.seq_inputs, torch)
+
+
+def _seq_against_plain(args, pwl):
+    dtype = args[0].dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    ys, (hk, ck) = ts.lstm_seq_cuda(*args, pwl=pwl)
+    torch.cuda.synchronize()
+    yp, (hp, cp) = ts.lstm_seq_plain(*args, pwl=pwl)
+    assert ys.dtype == hk.dtype == dtype and ck.dtype == torch.float32
+    for got, want in ((ys, yp), (hk, hp), (ck, cp)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pwl", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dim,hidden,b,t_len", [(24, 40, 37, 9), (8, 4, 1, 16),
+                                                   (64, 128, 300, 8), (7, 13, 37, 9)])
+def test_lstm_seq_kernel_tile_edges(cuda, in_dim, hidden, b, t_len, dtype, pwl):
+    """K2 where In and H are no multiples of the register tile's 4 k or 2
+    units, B no multiple of the block's rows; (64, 128) reads its weights
+    from L2, (7, 13) takes the plain-load path for x."""
+    _seq_against_plain(_seq_inputs(t_len, b, in_dim, hidden, dtype, seed=in_dim + b), pwl)
+
+
+@pytest.mark.cuda
+def test_lstm_seq_kernel_wide_layer_full_batch(cuda):
+    """K2 at the paper's widest layer (32, 64) and the main path's B=8192,
+    where the tile is 64 rows per block and 8 per thread, weights stationary
+    in shared memory."""
+    assert ts.lstm_seq_tile(8192, 32, 64) == (64, 8)
+    assert ts.lstm_seq_plan(8192, 32, 64)[0]
+    _seq_against_plain(_seq_inputs(16, 8192, 32, 64, torch.float32, seed=64), False)
+
+
 @pytest.mark.cuda
 def test_lstm_seq_refused_launch_raises(cuda):
     """A hidden width past one thread per unit has no launch plan: it raises."""
@@ -368,11 +405,75 @@ def test_flash_attention_bf16_transposed_views(cuda, d, causal):
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
 
 
+def _nan_padded_views(tensors, lengths):
+    """Each (B, H, n, d) tensor as a narrowed view of a larger one whose
+    rows past n hold NaN."""
+    views = []
+    for t, n in zip(tensors, lengths):
+        big = torch.full((*t.shape[:2], n + 64, t.shape[3]), float("nan"), dtype=t.dtype,
+                         device=t.device)
+        big[:, :, :n] = t
+        views.append(big[:, :, :n])
+    return views
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_f32_ragged_tiles_are_zero_filled(cuda, d, causal):
+    """f32 (3xTF32) with S and Sk no multiples of the 32-key tile and NaN in
+    the storage past them: rows past Sk must load as zeros."""
+    s, sk = 77, 130
+    q, k, v = _attention_inputs(2, 3, s, sk, d, torch.float32, seed=d + s)
+    want = tf.flash_attention_plain(q, k, v, causal=causal)
+    got = tf.flash_attention_cuda(*_nan_padded_views((q, k, v), (s, sk, sk)), causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_f32_transposed_and_offset_views(cuda, d, causal):
+    """f32 on (B, H, S, d) views of contiguous (B, S, H, d) tensors (the
+    16-byte copy path) and on views 4 bytes off 16 with rows of d + 1 (the
+    4-byte copy path), read and written through their strides."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _attention_inputs(2, 4, 200, 136, d, torch.float32, seed=d))
+    want = tf.flash_attention_plain(q, k, v, causal=causal)
+    out = torch.empty(2, 200, 4, d, device="cuda").transpose(1, 2)
+    assert not q.is_contiguous() and tf.copy_path(q, k, v, out) == "16-byte cp.async"
+    got = tf.flash_attention_cuda(q, k, v, causal=causal, out=out)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    views = [chip_smoke.offset_view(torch, t) for t in (q, k, v, torch.empty_like(q))]
+    assert views[0].data_ptr() % 16 and views[0].stride(2) == d + 1
+    assert tf.copy_path(*views) == "4-byte cp.async"
+    got = tf.flash_attention_cuda(*views[:3], causal=causal, out=views[3])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,sk", [(100, 300), (300, 100)])
+def test_flash_attention_f32_s_differs_from_sk(cuda, s, sk, d, causal):
+    """f32 with S != Sk both ways (top-left causal mask), against the plain
+    version."""
+    q, k, v = _attention_inputs(2, 2, s, sk, d, torch.float32, seed=s + 2 * sk + d)
+    got = tf.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tf.flash_attention_plain(q, k, v, causal=causal),
+                               rtol=2e-3, atol=2e-3)
+
+
 @pytest.mark.cuda
 def test_flash_attention_bf16_refuses_misaligned_views(cuda):
     """A bf16 view whose rows are off 16 bytes is refused with an error,
-    before any launch; the f32 kernel, which loads element by element,
-    takes the same view."""
+    before any launch; the f32 kernel takes the same view through its
+    4-byte copy path."""
     from repro_torch.kernels.ops import reset_launch_counts
 
     q, k, v = _attention_inputs(1, 2, 64, 64, 64, torch.bfloat16, seed=12)

@@ -4,6 +4,7 @@ interpret mode, ``ref_attention`` and ``blocked_attention``, mirroring
 tests/test_kernels.py.  The causal mask is aligned top-left, as the Pallas
 kernel's; the S != Sk cases pin that choice down.  The CUDA kernel itself is
 held to the plain version in tests/test_torch_cuda.py and chip_smoke.py."""
+import math
 import os
 import sys
 
@@ -175,3 +176,54 @@ def test_bf16_row_alignment_check():
             tk.check_row_alignment(q, bad)
     single = torch.zeros(1, 1, 1, 65, dtype=torch.bfloat16)[..., :64]   # strides 65, one row
     tk.check_row_alignment(single)
+
+
+def _tf32(x: torch.Tensor, cut: bool = False) -> torch.Tensor:
+    """x (f32) rounded to TF32 (10 mantissa bits) by integer ops on its bits:
+    to nearest even, or with ``cut`` toward zero (the 13 low bits dropped,
+    as the tensor core reads a TF32 operand and as K4's split takes big)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    if not cut:
+        bits = bits + 0xFFF + ((bits >> 13) & 1)
+    bits = bits & 0xFFFFE000
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int, cut: bool) -> torch.Tensor:
+    """a @ b with TF32 operands and f32 sums: 1 pass is plain TF32 (big.big);
+    3 passes add small.big and big.small first (3xTF32, small = the rest of
+    each operand in TF32)."""
+    a_big, b_big = _tf32(a, cut), _tf32(b, cut)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big, cut), _tf32(b - b_big, cut)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def _attention_tf32(q, k, v, passes: int, cut: bool) -> torch.Tensor:
+    """Causal (top-left) attention of one head with both products in TF32
+    (``passes`` 1 or 3) and the softmax in f32, as K4's f32 kernel runs it."""
+    s, d = q.shape[-2], q.shape[-1]
+    scores = _tf32_matmul(q, k.transpose(-1, -2), passes, cut) * (1.0 / math.sqrt(d))
+    scores.masked_fill_(~torch.ones(s, k.shape[-2], dtype=torch.bool).tril(), -1e30)
+    return _tf32_matmul(torch.softmax(scores, dim=-1), v, passes, cut)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["nearest", "toward_zero"])
+def test_f32_limit_admits_3xtf32_and_refuses_tf32(cut):
+    """Why K4's f32 kernel runs 3xTF32 and not plain TF32: with both products
+    emulated on the CPU, 3xTF32 stays within chip_smoke.py's full-width f32
+    limit (1e-4 |want| + 1e-5) of the plain version, and 1xTF32 does not,
+    whether TF32 rounds to nearest even or toward zero (the kernel's split)."""
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, -1.0 - 2.0 ** -10 - 2.0 ** -12])
+    assert torch.equal(_tf32(x), torch.tensor([1.0, 1.0 + 2.0 ** -9, -1.0 - 2.0 ** -10]))
+    assert torch.equal(_tf32(x, cut=True), torch.tensor([1.0, 1.0 + 2.0 ** -10, -1.0 - 2.0 ** -10]))
+    q, k, v = (torch.from_numpy(a[:, :, 0]).transpose(0, 1)
+               for a in _case(1, 512, 512, 1, 128, seed=31))   # (1, S, d) each
+    want = tk.flash_attention_plain(q[None], k[None], v[None], causal=True)[0]
+    three = _attention_tf32(q, k, v, passes=3, cut=cut)
+    share = chip_smoke.check_wide(torch, three, want, torch.float32)["limit_share"]
+    assert share < 0.5
+    with pytest.raises(AssertionError, match="of the limit"):
+        chip_smoke.check_wide(torch, _attention_tf32(q, k, v, passes=1, cut=cut), want,
+                              torch.float32)

@@ -17,6 +17,7 @@ from repro_torch.kernels import _build  # noqa: E402
 @pytest.mark.parametrize("kernel,spec", [
     ("lstm_cell", "kTargetBlocks = 128;=>kTargetBlocks = 256;"),
     ("flash_attention", "kMmaWarps = 4;=>kMmaWarps = 8;"),
+    ("lstm_seq", "kTargetThreads = 256;=>kTargetThreads = 512;"),
 ])
 def test_variant_replaces_one_constant_of_the_committed_source(kernel, spec):
     source = (_build.CSRC / f"{kernel}.cu").read_text()
