@@ -36,10 +36,14 @@ toolkit.  It
    launches against 6 x bucket_T per flush);
 9. holds K3 (the RWKV-6 WKV recurrence) to its plain version at the
    reference sweep, f32 and bf16, chunk chaining, and rwkv6-7b's heads
-   (H=64, hd=64) at train_4k's T=4096, B=32; times it there in f32 beside
+   (H=64, hd=64) at train_4k's T=4096, B=32, there also with decays drawn
+   as the RWKV layer makes them (near 1); times it there in f32 beside
    its bound and the plain version, and alone at B in (8, 16, 32, 64) to
-   show how the grid's size sets its rate; drives its path,
-   ``ops.wkv6_op``, once whole and once as a chained pair (3 launches);
+   show how the grid's size sets its rate, with its tile (rows x columns
+   of S a thread, threads and heads a block, resident blocks per SM) and
+   the share of its FP32 issue floor (three instructions per state
+   element) it reaches; drives its path, ``ops.wkv6_op``, once whole and
+   once as a chained pair (3 launches);
 10. holds K4 (the flash-attention forward, causal mask top-left) to its
    plain version at the reference sweep, causal and not, f32 and bf16, at
    S != Sk both ways, ragged S and Sk, and phi4-mini-3.8b's heads (H=24,
@@ -55,7 +59,7 @@ toolkit.  It
    logs its copy path; drives its path, ``ops.flash_attention_op``, once at
    that shape in bf16.
 
-The build fails if ``ptxas`` reports a spill in K1, K2 or K4.  Any failed
+The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
 without the rest of the repository beside it, it exits non-zero at once.
 The line before the last is ``{"kernels": [...]}`` and the last line is
@@ -81,6 +85,8 @@ PEAK_F32_FLOPS = 67e12      # FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # HBM3
 PEAK_BF16_FLOPS = 989e12    # dense bf16 tensor cores
 PEAK_TF32_FLOPS = 495e12    # dense TF32 tensor cores (K4's f32 path runs 3 TF32 products per product)
+F32_LANES_PER_SM = 128      # FP32 instructions an SM issues per clock, in lanes
+SM_CLOCK_HZ = 1.98e9        # H100 SXM boost clock
 
 F32_TOL = 1e-5              # tests/test_kernels.py bar for f32
 BF16_TOL = 2e-2             # and for bf16
@@ -120,10 +126,9 @@ ATTN_SWEEP = ((128, 64), (256, 64), (256, 128))      # (S, d), tests/test_kernel
 ATTN_EXTRA = ((128, 256, 64), (256, 128, 128), (200, 200, 64), (200, 136, 128))
 # rwkv6-7b (src/repro/configs/rwkv6_7b.py): d_model 4096 in heads of 64, so
 # 64 heads; train_4k's T = 4096 (src/repro/config/core.py); B cut from 256
-# to 32 so that the plain version's check fits beside it.  B*H blocks of hd
-# threads: at B=32 that is 2048 blocks, 2.2 waves of the 7 blocks per SM
-# the kernel's 144 registers allow on 132 SMs; the kernel alone is also
-# timed at RWKV_B_SWEEP
+# to 32 so that the plain version's check fits beside it.  B*H = 2048
+# heads at B=32, each a team of 64 threads (wkv6_tile logs the tile and the
+# resident blocks per SM); the kernel alone is also timed at RWKV_B_SWEEP
 RWKV_B, RWKV_T, RWKV_H, RWKV_HD = 32, 4096, 64, 64
 RWKV_B_SWEEP = (8, 16, 32, 64)
 # phi4-mini-3.8b (src/repro/configs/phi4_mini_3_8b.py): 24 query heads, 8 kv
@@ -132,7 +137,7 @@ RWKV_B_SWEEP = (8, 16, 32, 64)
 PHI_B, PHI_S, PHI_H, PHI_KV_H, PHI_HD = 4, 4096, 24, 8, 128
 
 # kernels whose ptxas report must show no spill
-NO_SPILL = ("lstm_cell", "lstm_seq", "flash_attention")
+NO_SPILL = ("lstm_cell", "lstm_seq", "wkv6", "flash_attention")
 
 GATEWAY_ARCH = "lstm-ae-f64-d6"
 GATEWAY_CAPACITY = 1024
@@ -175,10 +180,20 @@ def k2_bound(t_len: int, b: int, in_dim: int, hidden: int, s: int = 4) -> tuple[
 def k3_bound(b: int, t_len: int, h: int, hd: int, s: int = 4) -> tuple[float, float]:
     """(FLOP, bytes) of one K3 launch: 5*hd^2 FLOP per (b, h, t) (y = r.S +
     (r.(u*k)) v, S <- w*S + k^T v); r, k, v (s bytes each), w, u, s0 read
-    once; y and S_T written once, f32."""
+    once; y and S_T written once, f32.  The bound stays the larger of the
+    two over the card's peaks; the kernel's own floor, its FP32 issue at
+    three instructions per state element and step (:func:`k3_issue_floor_ms`),
+    is not a bound of the function."""
     flops = 5.0 * b * t_len * h * hd * hd
     nbytes = b * t_len * h * hd * (3 * s + 4 + 4) + h * hd * 4 + 2 * b * h * hd * hd * 4
     return flops, float(nbytes)
+
+
+def k3_issue_floor_ms(b: int, t_len: int, h: int, hd: int, sms: int) -> float:
+    """K3's FP32 issue floor: 3 instructions (FFMA y, FMUL k*v, FFMA S) per
+    state element and step over ``sms`` SMs of F32_LANES_PER_SM lanes at
+    SM_CLOCK_HZ, in ms."""
+    return 3.0 * b * t_len * h * hd * hd / (sms * F32_LANES_PER_SM * SM_CLOCK_HZ) * 1e3
 
 
 def k4_bound(b: int, h: int, s_len: int, sk_len: int, d: int, causal: bool,
@@ -209,6 +224,22 @@ def device_ms(torch, fn, iters: int = 50, reps: int = 5) -> float:
         torch.cuda.synchronize()
         samples.append(start.elapsed_time(end) / iters)
     return statistics.median(samples)
+
+
+def clocks_under_load(torch, fn, iters: int) -> dict:
+    """The SM clock (MHz) and power draw (W) that ``nvidia-smi`` reads while
+    ``iters`` queued ``fn()`` calls run on the card."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(iters):
+        fn()
+    time.sleep(0.1)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    torch.cuda.synchronize()
+    mhz, watts = (float(x) for x in out.stdout.splitlines()[0].split(","))
+    return {"sm_mhz": mhz, "power_w": watts}
 
 
 def host_ms(torch, fn, iters: int = 200) -> float:
@@ -588,15 +619,18 @@ def drive_gateway(torch, results, card) -> int:
     return k1
 
 
-def wkv_inputs(torch, b, t_len, h, hd, dtype, seed, zero_state=False):
-    """Drawn as tests/test_kernels.py::test_wkv6_kernel_sweep draws them."""
+def wkv_inputs(torch, b, t_len, h, hd, dtype, seed, zero_state=False, rwkv_decay=False):
+    """Drawn as tests/test_kernels.py::test_wkv6_kernel_sweep draws them; with
+    ``rwkv_decay`` the decays are drawn as the RWKV layer makes them
+    (src/repro/layers/rwkv.py: w = exp(-exp(-6 + ...))), near 1."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
 
     r, k, v = ((randn(b, t_len, h, hd) * 0.3).to(dtype) for _ in range(3))
-    w = torch.sigmoid(randn(b, t_len, h, hd))
+    w_in = randn(b, t_len, h, hd)
+    w = torch.exp(-torch.exp(-6.0 + 0.5 * w_in)) if rwkv_decay else torch.sigmoid(w_in)
     u = randn(h, hd) * 0.1
     s0 = torch.zeros(b, h, hd, hd, device="cuda") if zero_state else randn(b, h, hd, hd) * 0.1
     return r, k, v, w, u, s0
@@ -627,6 +661,18 @@ def check_k3(torch, results) -> None:
                 torch.testing.assert_close(got, want, rtol=tol, atol=tol)
                 err[dtype] = max(err[dtype], float((got - want).abs().max()))
             n += 1
+    # decays drawn as the RWKV layer makes them, near 1, at full width
+    for dtype in (torch.float32, torch.bfloat16):
+        args = wkv_inputs(torch, RWKV_B, RWKV_T, RWKV_H, RWKV_HD, dtype, seed=3000 + n,
+                          rwkv_decay=True)
+        y, s = wkv6_cuda(*args)
+        torch.cuda.synchronize()
+        yp, sp = wkv6_plain(*args)
+        tol = WKV_F32_TOL if dtype == torch.float32 else WKV_BF16_TOL
+        for got, want in ((y, yp), (s, sp)):
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            err[dtype] = max(err[dtype], float((got - want).abs().max()))
+        n += 1
     # chunk chaining: two launches with the state handed through == one launch
     for b, t_len, h, hd in ((2, 32, 2, 16), (RWKV_B, RWKV_T, RWKV_H, RWKV_HD)):
         args = wkv_inputs(torch, b, t_len, h, hd, torch.float32, seed=3100 + n, zero_state=True)
@@ -642,7 +688,8 @@ def check_k3(torch, results) -> None:
     results["k3_max_abs_err_f32"] = err[torch.float32]
     results["k3_max_abs_err_bf16"] = err[torch.bfloat16]
     log(f"[k3] {n} checks passed: the sweep {list(WKV_SWEEP)} (T, hd, H) at B=2 and rwkv6-7b's "
-        f"heads (B={RWKV_B}, T={RWKV_T}, H={RWKV_H}, hd={RWKV_HD}) x (f32, bf16) against the plain "
+        f"heads (B={RWKV_B}, T={RWKV_T}, H={RWKV_H}, hd={RWKV_HD}) x (f32, bf16), there also with "
+        f"the RWKV layer's decays, against the plain "
         f"version, max abs err f32 {err[torch.float32]:.3g} (tol {WKV_F32_TOL}), bf16 "
         f"{err[torch.bfloat16]:.3g} (tol {WKV_BF16_TOL}); two chained launches equal one at "
         f"(2, 32, 2, 16) and at full width")
@@ -650,25 +697,41 @@ def check_k3(torch, results) -> None:
 
 def time_k3(torch, results, card) -> dict:
     """K3 at rwkv6-7b's heads, train_4k's T, f32: alone at each B of
-    RWKV_B_SWEEP beside its bound, then at RWKV_B beside the plain version
-    too (no single PyTorch call computes WKV-6)."""
-    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+    RWKV_B_SWEEP beside its bound and FP32 issue floor, then at RWKV_B
+    beside the plain version too (no single PyTorch call computes WKV-6),
+    with the SM clock and power under load, and with bf16 r, k, v."""
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain, wkv6_tile
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = {name: wkv6_tile(RWKV_HD, dtype) for name, dtype in (("f32", torch.float32),
+                                                                ("bf16", torch.bfloat16))}
+    results["k3_tile"] = tile
+    heads_per_wave = tile["f32"]["blocks_per_sm"] * tile["f32"]["heads_per_block"] * sms
+    for name, t in tile.items():
+        heads_per_sm = t["blocks_per_sm"] * t["heads_per_block"]
+        log(f"[k3 tile] hd={RWKV_HD} {name}: S {t['rows']} x {t['cols']} a thread, "
+            f"{t['threads_per_head']} threads a head, {t['heads_per_block']} heads "
+            f"({t['threads_per_block']} threads, {t['smem_bytes']} B shared) a block, "
+            f"{t['blocks_per_sm']} blocks ({heads_per_sm} heads) resident per SM on {sms} SMs, "
+            f"a wave {heads_per_sm * sms} heads; stages of {t['chunk']} steps, {t['stages']} deep")
     sweep = []
     for b in RWKV_B_SWEEP:
         args = wkv_inputs(torch, b, RWKV_T, RWKV_H, RWKV_HD, torch.float32, seed=3250 + b)
         flops, nbytes = k3_bound(b, RWKV_T, RWKV_H, RWKV_HD)
         ms = device_ms(torch, lambda: wkv6_cuda(*args), iters=5, reps=3)
         bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        sweep.append({"batch": b, "blocks": b * RWKV_H, "kernel_ms": ms, "bound_ms": bound,
+        sweep.append({"batch": b, "heads": b * RWKV_H, "waves": b * RWKV_H / heads_per_wave,
+                      "kernel_ms": ms, "bound_ms": bound,
+                      "issue_floor_ms": k3_issue_floor_ms(b, RWKV_T, RWKV_H, RWKV_HD, sms),
                       "ns_per_step_per_head": ms * 1e6 / (b * RWKV_H * RWKV_T)})
         del args
     results["k3_batch_sweep"] = sweep
-    log(f"[k3 time] B sweep at T={RWKV_T}, H={RWKV_H}, hd={RWKV_HD}, f32 (B*H blocks of "
-        f"{RWKV_HD} threads): " + "; ".join(
-            f"B={r['batch']} ({r['blocks']} blocks) {r['kernel_ms']:.4f} ms, "
+    log(f"[k3 time] B sweep at T={RWKV_T}, H={RWKV_H}, hd={RWKV_HD}, f32: " + "; ".join(
+            f"B={r['batch']} ({r['heads']} heads, {r['waves']:.2f} waves) {r['kernel_ms']:.4f} ms, "
             f"{r['kernel_ms'] / r['bound_ms']:.2f}x its {r['bound_ms']:.4f} ms bound, "
-            f"{r['ns_per_step_per_head']:.4f} ns per (b, h, t)" for r in sweep) + f" [{card}]")
+            f"{r['issue_floor_ms'] / r['kernel_ms']:.2f} of the {r['issue_floor_ms']:.4f} ms "
+            f"FP32 issue floor, {r['ns_per_step_per_head']:.4f} ns per (b, h, t)"
+            for r in sweep) + f" [{card}]")
     args = wkv_inputs(torch, RWKV_B, RWKV_T, RWKV_H, RWKV_HD, torch.float32, seed=3200)
     flops, nbytes = k3_bound(RWKV_B, RWKV_T, RWKV_H, RWKV_HD)
     row = {"batch": RWKV_B, "t": RWKV_T, "heads": RWKV_H, "head_dim": RWKV_HD, "dtype": "f32",
@@ -676,16 +739,28 @@ def time_k3(torch, results, card) -> dict:
            "kernel_ms": device_ms(torch, lambda: wkv6_cuda(*args), iters=10, reps=5),
            "kernel_host_ms": host_ms(torch, lambda: wkv6_cuda(*args), iters=10),
            "plain_ms": device_ms(torch, lambda: wkv6_plain(*args), iters=1, reps=2),
-           "library_ms": None,
+           "library_ms": None, "tile": tile["f32"],
+           "issue_floor_ms": k3_issue_floor_ms(RWKV_B, RWKV_T, RWKV_H, RWKV_HD, sms),
+           "under_load": clocks_under_load(torch, lambda: wkv6_cuda(*args), iters=100),
            "ops_ms": flops / PEAK_F32_FLOPS * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
     row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
     row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+    del args
+    args = wkv_inputs(torch, RWKV_B, RWKV_T, RWKV_H, RWKV_HD, torch.bfloat16, seed=3201)
+    row["kernel_bf16_ms"] = device_ms(torch, lambda: wkv6_cuda(*args), iters=10, reps=5)
+    flops16, bytes16 = k3_bound(RWKV_B, RWKV_T, RWKV_H, RWKV_HD, s=2)
+    row["bound_bf16_ms"] = max(flops16 / PEAK_F32_FLOPS, bytes16 / PEAK_BYTES) * 1e3
     results["k3_time"] = row
     log(f"[k3 time] rwkv6-7b heads, B={RWKV_B}, T={RWKV_T}, H={RWKV_H}, hd={RWKV_HD}, f32: kernel "
         f"{row['kernel_ms']:.4f} ms (device), {row['kernel_host_ms']:.4f} ms per call on the host; "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; {flops:.4g} FLOP -> "
-        f"{row['ops_ms']:.4f} ms, {nbytes:.4g} B -> {row['bytes_ms']:.4f} ms); plain "
-        f"{row['plain_ms']:.2f} ms; no library call [{card}]")
+        f"{row['ops_ms']:.4f} ms, {nbytes:.4g} B -> {row['bytes_ms']:.4f} ms); "
+        f"{row['issue_floor_ms'] / row['kernel_ms']:.2f} of its {row['issue_floor_ms']:.4f} ms FP32 "
+        f"issue floor (3 instructions per state element) at {SM_CLOCK_HZ / 1e6:.0f} MHz, while "
+        f"nvidia-smi read {row['under_load']['sm_mhz']:.0f} MHz and {row['under_load']['power_w']:.1f} W "
+        f"under load; plain {row['plain_ms']:.2f} ms; no "
+        f"library call; bf16 r, k, v {row['kernel_bf16_ms']:.4f} ms (bound "
+        f"{row['bound_bf16_ms']:.4f} ms) [{card}]")
     return row
 
 

@@ -4,6 +4,7 @@
     python3 scripts/kernel_variants.py lstm_cell 'kTargetBlocks = 128;=>kTargetBlocks = 256;'
     python3 scripts/kernel_variants.py flash_attention 'kMmaWarps = 4;=>kMmaWarps = 8;'
     python3 scripts/kernel_variants.py lstm_seq 'kTargetThreads = 256;=>kTargetThreads = 512;'
+    python3 scripts/kernel_variants.py wkv6 'kChunk = 8;=>kChunk = 4;'
 
 Each variant is ``src/repro_torch/kernels/csrc/<kernel>.cu`` with one piece
 of text replaced (``OLD=>NEW``; OLD must occur exactly once).  The script
@@ -20,10 +21,14 @@ reverse, so that the order favours none.  What is timed:
   heads (B=4, H=24, S=Sk=4096, d=128, causal), the shape of
   ``chip_smoke.time_k4``;
 - ``lstm_seq``: one forward of lstm-ae-f64-d6 (6 launches, f32) at B=8192,
-  T=64, the shape of ``chip_smoke.time_k2``.
+  T=64, the shape of ``chip_smoke.time_k2``;
+- ``wkv6``: one f32 and one bf16 launch at rwkv6-7b's heads (B=32,
+  T=4096, H=64, hd=64), the shape of ``chip_smoke.time_k3``, and f32 at B=8.
 
-Device times come from CUDA events (``chip_smoke.device_ms``).  ``--json
-PATH`` also writes every time.  A variant that fails to build or to agree
+Device times come from CUDA events (``chip_smoke.device_ms``).  For each
+build and kernel it also prints the largest loops of the machine code
+(``cuobjdump -sass``): instructions in each loop body and how many of them
+are FP32 (FFMA, FMUL, FADD).  ``--json PATH`` also writes every time.  A variant that fails to build or to agree
 with the plain version stops the script with a non-zero exit.
 """
 from __future__ import annotations
@@ -40,7 +45,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-KERNELS = ("lstm_cell", "lstm_seq", "flash_attention")
+KERNELS = ("lstm_cell", "lstm_seq", "wkv6", "flash_attention")
 
 
 def apply_variant(source: str, spec: str) -> str:
@@ -59,6 +64,36 @@ def ptxas_summary(log: str) -> dict:
     """Registers of every kernel and the non-zero spills in an ``nvcc -Xptxas -v`` log."""
     return {"registers": [int(n) for n in re.findall(r"Used (\d+) registers", log)],
             "spill_bytes": [int(n) for n in re.findall(r"(\d+) bytes spill", log) if n != "0"]}
+
+
+FP32_OPS = ("FFMA", "FMUL", "FADD")
+
+
+def sass_loops(sass: str, top: int = 3) -> dict:
+    """The ``top`` largest loops of each function in ``cuobjdump -sass``
+    output: (first address, instructions in the body, FP32 instructions
+    among them) per backward branch, largest first."""
+    funcs: dict = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\S*)\s*(.*)", line)
+        if m and name:
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(4)))
+    out = {}
+    for name, ins in funcs.items():
+        loops = []
+        for addr, op, rest in ins:
+            b = re.match(r"(0x[0-9a-f]+)", rest) if op == "BRA" else None
+            if b and int(b.group(1), 16) < addr:
+                body = [o for a, o, _ in ins if int(b.group(1), 16) <= a <= addr]
+                loops.append((int(b.group(1), 16), len(body), sum(o in FP32_OPS for o in body)))
+        out[name] = sorted(loops, key=lambda x: -x[1])[:top]
+    return out
 
 
 def measure(torch, cs, kernel: str, card: str) -> dict:
@@ -83,6 +118,19 @@ def measure(torch, cs, kernel: str, card: str) -> dict:
             layers.append(cs.device_ms(torch, lambda: lstm_seq_cuda(*args), iters=10, reps=5))
         return {"forward_ms": sum(layers), "layers_ms": layers,
                 "max_abs_err_f32": res["k2_max_abs_err_f32"]}
+    if kernel == "wkv6":
+        from repro_torch.kernels.wkv6 import wkv6_cuda
+
+        cs.check_k3(torch, res)
+        out = {}
+        for b, dtype, name in ((cs.RWKV_B, torch.float32, "f32"), (cs.RWKV_B, torch.bfloat16, "bf16"),
+                               (8, torch.float32, "f32_b8")):
+            args = cs.wkv_inputs(torch, b, cs.RWKV_T, cs.RWKV_H, cs.RWKV_HD, dtype, seed=3200)
+            out[f"{name}_ms"] = cs.device_ms(torch, lambda: wkv6_cuda(*args), iters=10, reps=5)
+            del args
+        out["max_abs_err_f32"] = res["k3_max_abs_err_f32"]
+        out["max_abs_err_bf16"] = res["k3_max_abs_err_bf16"]
+        return out
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     cs.check_k4(torch, res)
@@ -115,6 +163,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as tf
     from repro_torch.kernels import lstm_cell as tk
     from repro_torch.kernels import lstm_seq as ts
+    from repro_torch.kernels import wkv6 as tw
 
     source = (_build.CSRC / f"{args.kernel}.cu").read_text()
     sources = {f"variant {i + 1}": apply_variant(source, spec) for i, spec in enumerate(args.variants)}
@@ -139,7 +188,7 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
-    wrapper = {"lstm_cell": tk, "lstm_seq": ts, "flash_attention": tf}[args.kernel]
+    wrapper = {"lstm_cell": tk, "lstm_seq": ts, "wkv6": tw, "flash_attention": tf}[args.kernel]
     real_load = _build.load
     results = {"card": card, "kernel": args.kernel,
                "variants": dict(zip(sources, args.variants)),
@@ -147,6 +196,14 @@ def main(argv=None) -> int:
     for name, summary in results["ptxas"].items():
         print(f"[ptxas] {name}: registers {summary['registers']}, spills {summary['spill_bytes'] or 'none'}",
               flush=True)
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    results["sass"] = {}
+    for name, lib in libs.items():
+        text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True).stdout
+        results["sass"][name] = sass_loops(text)
+        for func, loops in results["sass"][name].items():
+            print(f"[sass] {name}: {func}: loops (start, instructions, FP32) {loops}", flush=True)
     order = ["committed", *sources]
     try:
         for name in order + order[::-1]:

@@ -6,14 +6,20 @@ head), with S the (hd, hd) f32 state carried across the sequence::
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
 
-written by hand for Hopper in ``csrc/wkv6.cu``: one block per (b, h) as in
-the Pallas grid, the time loop inside the block, thread j holding column j
-of S in registers, each step's hd-contiguous rows of r, k, w staged in
-shared memory a chunk ahead of the compute.  Its bound on an H100 is the
-larger of 5·hd² FLOP per (b, h, t) at 67 TFLOP/s (FP32 cores) and its bytes
-(r, k, v, w, u, s0 read once, y and S_T written once) at 3.35 TB/s; at
-rwkv6-7b's heads (H=64, hd=64) the bytes bound it.  As in the reference it
-is reached only through ``ops.wkv6_op``; no model layer calls it.
+written by hand for Hopper in ``csrc/wkv6.cu``: each (b, h) is a team of
+threads that runs the whole time loop with S in registers, as the Pallas
+grid keeps it in VMEM.  S is register-tiled (R rows x C columns a thread,
+16 x 4 at hd=64), and the bonus term leaves the inner loop
+(y_t = r_t S + (r_t·(u*k_t)) v_t, the scalar computed when a chunk is
+staged), so each state element costs three FP32 instructions per step; the
+threads that share a column sum their partial y by shuffles.  The streams
+reach a 3-stage shared-memory ring by ``cp.async``, two chunks ahead of the
+compute.  Its bound on an H100 is the larger of 5·hd² FLOP per (b, h, t) at
+67 TFLOP/s (FP32 cores) and its bytes (r, k, v, w, u, s0 read once, y and
+S_T written once) at 3.35 TB/s; at rwkv6-7b's heads (H=64, hd=64) the bytes
+bound it, and the kernel's own floor, three FP32 instructions per state
+element, lies just under them.  As in the reference it is reached only
+through ``ops.wkv6_op``; no model layer calls it.
 
 r, k, v (B, T, H, hd) share a dtype, f32 or bf16; w (B, T, H, hd), u (H, hd)
 and s0 (B, H, hd, hd) are f32.  Returns y (B, T, H, hd) and S_T (B, H, hd,
@@ -78,9 +84,30 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("wkv6")
     lib.wkv6_forward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.wkv6_forward.restype = ctypes.c_int
+    lib.wkv6_tile.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.wkv6_tile.restype = ctypes.c_int
     lib.wkv6_error_string.argtypes = [ctypes.c_int]
     lib.wkv6_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_TILE_KEYS = ("rows", "cols", "threads_per_head", "heads_per_block", "threads_per_block",
+              "smem_bytes", "chunk", "stages", "blocks_per_sm")
+
+
+def wkv6_tile(head_dim: int, dtype=torch.float32) -> dict:
+    """The kernel's tile at ``head_dim`` for r, k, v of ``dtype`` on the
+    current CUDA device, asked of the built library: rows and columns of S
+    per thread, threads per head, heads and threads per block, shared memory
+    per block, timesteps per stage, ring stages, resident blocks per SM."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"wkv6 kernel takes head dims {HEAD_DIMS}, got {head_dim}")
+    lib = _lib()
+    out = (ctypes.c_int * len(_TILE_KEYS))()
+    rc = lib.wkv6_tile(head_dim, int(dtype == torch.bfloat16), out)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_tile failed: {lib.wkv6_error_string(rc).decode()}")
+    return dict(zip(_TILE_KEYS, out))
 
 
 def wkv6_cuda(r, k, v, w, u, s0):
@@ -88,7 +115,9 @@ def wkv6_cuda(r, k, v, w, u, s0):
 
     Returns (y, S_T).  Raises on a CPU tensor, on any shape, dtype or layout
     the kernel does not take (hd outside :data:`HEAD_DIMS`), and when the
-    launch is refused.  Each launch adds one to ``wkv6_cuda.launches``."""
+    launch is refused.  The kernel copies the streams 16 bytes at a time, so
+    a stream whose data does not start on 16 bytes is copied to one that
+    does first.  Each launch adds one to ``wkv6_cuda.launches``."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_cuda needs CUDA tensors, got {r.device}")
     if r.device.index != torch.cuda.current_device():
@@ -102,6 +131,7 @@ def wkv6_cuda(r, k, v, w, u, s0):
     if t_len == 0 or bsz == 0 or heads == 0:
         return y, s0.clone()
     s_out = torch.empty(s0.shape, dtype=torch.float32, device=r.device)
+    r, k, v, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, w))
     lib = _lib()
     rc = lib.wkv6_forward(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), s0.data_ptr(),

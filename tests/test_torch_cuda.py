@@ -311,6 +311,70 @@ def test_wkv6_kernel_matches_plain(cuda, t_len, hd, h, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_len", [1, 7, 8, 9, 25])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_wkv6_kernel_tile_edges(cuda, hd, t_len, dtype):
+    """K3 at T = 1, below, at and past one staging chunk (8 steps) and past
+    the 3-stage ring, with 3 heads, so that the last block of 2 or 4 heads
+    has slots that hold no head."""
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    args = _wkv6_inputs(1, t_len, 3, hd, dtype, seed=100 * hd + t_len)
+    y, s = wkv6_op(*args)
+    torch.cuda.synchronize()
+    yp, sp = tw.wkv6_plain(*args)
+    torch.testing.assert_close(y, yp, rtol=tol, atol=tol)
+    torch.testing.assert_close(s, sp, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_wkv6_kernel_on_rwkv_decays(cuda, hd, dtype):
+    """Decays drawn as the RWKV layer makes them (near 1), over 1000 steps:
+    the state sums hundreds of them."""
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    args = _wkv6_inputs(2, 1000, 4, hd, dtype, seed=hd, rwkv_decay=True)
+    y, s = wkv6_op(*args)
+    torch.cuda.synchronize()
+    yp, sp = tw.wkv6_plain(*args)
+    torch.testing.assert_close(y, yp, rtol=tol, atol=tol)
+    torch.testing.assert_close(s, sp, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_takes_streams_off_16_bytes(cuda, dtype):
+    """Streams whose data start 4 (f32) or 2 (bf16) bytes off 16 give what
+    aligned copies give."""
+    args = _wkv6_inputs(2, 19, 3, 64, dtype, seed=8)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    y, s = wkv6_op(*(shifted(t) for t in args[:4]), *args[4:])
+    y_ref, s_ref = wkv6_op(*args)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=0)
+    torch.testing.assert_close(s, s_ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_wkv6_tile_rule(cuda):
+    """The tile the library reports: 16 x 4 of S a thread at hd=64 in 2
+    heads of 64 threads a block, and blocks resident enough for 8 heads an SM."""
+    got = tw.wkv6_tile(64)
+    assert (got["rows"], got["cols"], got["threads_per_head"], got["heads_per_block"]) == (16, 4, 64, 2)
+    assert got["blocks_per_sm"] * got["heads_per_block"] >= 8
+    for hd in (16, 32):
+        t = tw.wkv6_tile(hd, torch.bfloat16)
+        assert t["rows"] * 4 == hd and t["threads_per_head"] == 32 and t["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
 def test_wkv6_kernel_chains_across_chunks(cuda):
     """Two launches with the state handed through equal one launch."""
     r, k, v, w, u, s0 = _wkv6_inputs(2, 32, 2, 16, torch.float32, seed=11, zero_state=True)
