@@ -16,8 +16,24 @@ toolkit.  It
    scoring requests — and checks that K1 ran 3 x 6 x 64 times, that the
    scores agree with the ``sequential`` and ``wavefront`` schedules on the
    card and with the CPU path, and times each schedule; then the same at a
-   smaller batch for ``lstm-ae-f32-d2``;
+   smaller batch for ``lstm-ae-f32-d2``.  Each engine captures its
+   programs into CUDA graphs (``engine/capture.py``); the fused path is
+   also run eagerly (``EngineConfig(jit=False)``) in the same run, and the
+   two are compared: ms per request from the host and with the input on
+   the card, the K1 launches inside the graph (6 x 64), and the scores
+   (within 1e-5 / 1e-6, and whether bit-equal); at the end of the run
+   (11.) one ``torch.profiler`` pass per request each gives the launch
+   calls the host makes and the device's busy time;
 5. streams a few timesteps and checks them against batch scoring;
+5a. trains: ``AnomalyService("lstm-ae-f64-d6", "fused").fit`` at the
+   ``stream_64`` shape (B=4096, T=64, F=64) for 20 steps on the card (ms
+   per step, the loss of every step; the first step's loss must fall on
+   its batch by the last), after the same fit's first 3 steps were held
+   against the port's CPU training from the same init and batches (loss
+   rtol 1e-5, params atol 1e-5); then
+   calibrates, and checks that the captured engine, captured before the
+   fit, serves the fitted params without a recapture: its scores equal an
+   eager engine's bound to ``svc.params``;
 6. holds K2 (the sequence-streaming LSTM layer) to its plain version at
    every paper layer shape (B in 1, 37, 8192; T=64) and the sweep up to
    (128, 256) at a smaller B*T, f32 and bf16, PWL on and off — shapes whose
@@ -31,9 +47,14 @@ toolkit.  It
 8. drives the gateway: ``AnomalyService("lstm-ae-f64-d6", "fused")`` at full
    width, ``open_gateway(capacity=1024, max_batch=256)``: 2048 logical
    streams churned through the pool (16 sampled streams checked against
-   solo ``stream_step``), then 512 one-shot windows of lengths 8-64 (each
-   score checked against ``score_masked`` of the window alone, and K1's
-   launches against 6 x bucket_T per flush);
+   solo ``stream_step``), then 512 one-shot windows of lengths 8-64, twice
+   (each score checked against an eager engine's ``score_masked`` of the
+   window alone, and K1's launches against 6 x bucket_T per flush).  The
+   pool step and the flushes are captured programs: the churn must capture
+   the pool step once and never again, the first one-shot pass captures
+   one graph per bucket (6 x bucket_T K1 launches inside each) and the
+   second only replays, and the pool step is timed captured and eager (a
+   second gateway on an eager engine);
 9. holds K3 (the RWKV-6 WKV recurrence) to its plain version at the
    reference sweep, f32 and bf16, chunk chaining, and rwkv6-7b's heads
    (H=64, hd=64) at train_4k's T=4096, B=32, there also with decays drawn
@@ -57,7 +78,14 @@ toolkit.  It
    it) and the kernels SDPA ran (one ``torch.profiler`` pass); f32 is also
    checked on views 4 bytes off 16 (the 4-byte copy path), and each check
    logs its copy path; drives its path, ``ops.flash_attention_op``, once at
-   that shape in bf16.
+   that shape in bf16;
+11. profiles one fused request of step 4 per engine, captured and eager
+   (the last phase: its profiler passes follow every capture of the run):
+   the K1 kernels the device ran, by name, must be 6 x 64 in each, and the
+   main path's launch count must be 3 requests x that figure; then splits
+   one fit step of 5a into its parts, each timed alone (the host's batch,
+   its copy to the card, the train step) with one profiler pass over the
+   train step.
 
 The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
@@ -92,6 +120,11 @@ F32_TOL = 1e-5              # tests/test_kernels.py bar for f32
 BF16_TOL = 2e-2             # and for bf16
 SCHEDULE_RTOL = 1e-4        # 64 compounding steps of differently ordered f32 sums
 SCHEDULE_ATOL = 1e-6
+CAPTURE_RTOL = 1e-5         # tests/test_engine.py::test_schedule_equivalence
+CAPTURE_ATOL = 1e-6
+# CUDA API calls (cuda* and cu*) that put work on a stream
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 LIBRARY_RTOL = 1e-3         # cuDNN's LSTM against the plain version, 64 steps
 LIBRARY_ATOL = 1e-4
 SWEEP = ((16, 16), (32, 64), (64, 128), (128, 256))
@@ -99,6 +132,7 @@ RAGGED_B = 37
 
 K1_SOURCE = "src/repro_torch/kernels/csrc/lstm_cell.cu"
 K1_REPLACES = "src/repro/kernels/lstm_cell.py:79"
+K1_KERNEL = "lstm_cell_kernel"   # its __global__ function's name, as the profiler sees it
 K2_SOURCE = "src/repro_torch/kernels/csrc/lstm_seq.cu"
 K2_REPLACES = "src/repro/kernels/lstm_seq.py:86"
 K2_T = 64                   # timesteps per K2 launch at the main path's shape
@@ -138,6 +172,12 @@ PHI_B, PHI_S, PHI_H, PHI_KV_H, PHI_HD = 4, 4096, 24, 8, 128
 
 # kernels whose ptxas report must show no spill
 NO_SPILL = ("lstm_cell", "lstm_seq", "wkv6", "flash_attention")
+
+FIT_ARCH = "lstm-ae-f64-d6"
+FIT_STEPS, FIT_HELD = 20, 3
+# the card's and the CPU's f32 sums run in other orders; over 3 Adam steps
+# (updates of about lr each) they stay far inside these
+FIT_LOSS_RTOL, FIT_PARAM_ATOL = 1e-5, 1e-5
 
 GATEWAY_ARCH = "lstm-ae-f64-d6"
 GATEWAY_CAPACITY = 1024
@@ -497,8 +537,9 @@ def profile_pool_step(torch, gw, windows, card) -> dict:
            "masked_step_device_ms": device_ms(torch, lambda: engine.stream_masked(x_t, state, keep),
                                               iters=20, reps=3)}
     out["outside_masked_step_ms"] = out["step_ms"] - out["masked_step_host_ms"]
-    log(f"[gateway] one pool step with all {cap} slots stepping: {out['step_ms']:.3f} ms "
-        f"(median of 20); the masked step alone with its inputs on the card "
+    how = "eager" if engine._graphs is None else "captured"
+    log(f"[gateway] {how}: one pool step with all {cap} slots stepping: {out['step_ms']:.3f} ms "
+        f"(median of 20); the engine's masked step alone with its inputs on the card "
         f"{out['masked_step_host_ms']:.3f} ms on the host clock, "
         f"{out['masked_step_device_ms']:.3f} ms of device time; the rest (assembly of the "
         f"samples, copy, error readback) {out['outside_masked_step_ms']:.3f} ms [{card}]")
@@ -512,7 +553,7 @@ def drive_gateway(torch, results, card) -> int:
     import numpy as np
 
     from repro_torch.data import TimeseriesConfig, make_batch
-    from repro_torch.engine import AnomalyService
+    from repro_torch.engine import AnomalyService, EngineConfig
     from repro_torch.gateway import drive_stream_churn
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
 
@@ -532,6 +573,10 @@ def drive_gateway(torch, results, card) -> int:
     finals, unserved = drive_stream_churn(gw, windows)
     dt = time.perf_counter() - t0
     s = gw.stats()
+    # the first step captures the pool step; churn must never recapture it
+    if gw.pool.captures != 1:
+        raise AssertionError(f"the pool step was captured {gw.pool.captures} times over the "
+                             f"churn, expected once")
     if set(finals) & set(unserved) or len(finals) + len(unserved) != GATEWAY_STREAMS:
         raise AssertionError(f"streams: {len(finals)} served + {len(unserved)} waiting "
                              f"!= {GATEWAY_STREAMS}")
@@ -542,7 +587,9 @@ def drive_gateway(torch, results, card) -> int:
                      "stream_steps": s["counters"]["pool.stream_steps"],
                      "stream_steps_per_s": s["stream_steps_per_s"],
                      "pool_step_ms_p50": gw.telemetry.histograms["pool_step_ms"].percentile(50),
-                     "kernel_launches": launch_counts()}
+                     "kernel_launches": launch_counts(), "pool_captures": gw.pool.captures,
+                     "recaptures": gw.pool.captures - 1,
+                     "pool_replays": gw.pool._graphs.replays}
     churned = sorted(i for i, (a, e) in spans.items() if a == 0 and e < t_len)
     late = sorted(i for i, (a, _) in spans.items() if a > 0)
     sampled = (churned + late)[:GATEWAY_SAMPLED - 2] + [churned[-1] + 1, GATEWAY_CAPACITY - 1]
@@ -561,9 +608,21 @@ def drive_gateway(torch, results, card) -> int:
         f"{GATEWAY_STREAMS} logical streams ({len(unserved)} still waiting) over T={t_len}: "
         f"{s['stream_steps_per_s']:,.0f} stream-steps/s ({s['counters']['pool.stream_steps']:.0f} "
         f"stream-steps in {dt:.3f} s), pool step p50 {out['stream']['pool_step_ms_p50']:.3f} ms; "
+        f"the pool step captured once, {out['stream']['pool_replays']} replays, "
+        f"{out['stream']['recaptures']} recaptures over the churn; "
         f"{len(sampled)} sampled streams agree with solo stream_step (max abs diff {worst:.3g}) "
         f"[{card}]")
     out["pool_step"] = profile_pool_step(torch, gw, windows, card)
+    # the same pool step on an engine that runs eagerly
+    eager = AnomalyService(GATEWAY_ARCH, schedule=EngineConfig("fused", jit=False),
+                           device="cuda", seed=0)
+    eager.recalibrate(params=svc.params)
+    out["pool_step_eager"] = profile_pool_step(
+        torch, eager.open_gateway(capacity=GATEWAY_CAPACITY, max_batch=GATEWAY_MAX_BATCH),
+        windows, card)
+    log(f"[gateway] pool step with all {GATEWAY_CAPACITY} slots stepping, captured against "
+        f"eager: {out['pool_step']['step_ms']:.3f} against "
+        f"{out['pool_step_eager']['step_ms']:.3f} ms [{card}]")
 
     # --- one-shot: micro-batched scoring of mixed-length windows
     rng = np.random.default_rng(12)
@@ -577,46 +636,73 @@ def drive_gateway(torch, results, card) -> int:
         return real(batch)
 
     gw.engine.score_masked = recorded
-    gw.telemetry.reset()
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    tickets = []
-    for w in requests:
-        tickets.append(gw.submit(w))
-        gw.pump()
-    gw.flush()
-    dt = time.perf_counter() - t0
-    k1 = launch_counts()["lstm_cell"]
-    del gw.engine.score_masked
-    s = gw.stats()
+    graphs = gw.engine._graphs
     depth = len(svc.params["layers"])
-    want = depth * sum(flush_t)
-    if k1 != want or len(flush_t) != s["counters"]["batch.flushes"]:
-        raise AssertionError(f"K1 launched {k1} times over {len(flush_t)} flushes "
-                             f"(telemetry {s['counters']['batch.flushes']}), expected {want}")
+
+    def one_pass() -> dict:
+        """Every request through submit/pump/flush; its flushes' K1 launches,
+        captures and replays."""
+        flush_t.clear()
+        gw.telemetry.reset()
+        captures, replays = graphs.captures, graphs.replays
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tickets = [None] * len(requests)
+        for i, w in enumerate(requests):
+            tickets[i] = gw.submit(w)
+            gw.pump()
+        gw.flush()
+        dt = time.perf_counter() - t0
+        k1 = launch_counts()["lstm_cell"]
+        s = gw.stats()
+        if k1 != depth * sum(flush_t) or len(flush_t) != s["counters"]["batch.flushes"]:
+            raise AssertionError(f"K1 launched {k1} times over {len(flush_t)} flushes "
+                                 f"(telemetry {s['counters']['batch.flushes']}), expected "
+                                 f"{depth * sum(flush_t)}")
+        return {"wall_s": dt, "flushes": len(flush_t), "bucket_t": list(flush_t),
+                "k1_launches": k1, "captures": graphs.captures - captures,
+                "replays": graphs.replays - replays, "tickets": tickets,
+                "requests_per_s": s["requests_per_s"], "batch_fill": s["batch_fill_ratio"],
+                "p50_ms": s["latency_ms"]["p50"], "p95_ms": s["latency_ms"]["p95"],
+                "compute_ms_p50": gw.telemetry.histograms["compute_ms"].percentile(50)}
+
+    # the first pass captures one graph per bucket; the second only replays
+    first, steady = one_pass(), one_pass()
+    del gw.engine.score_masked
+    buckets = sorted(set(steady["bucket_t"]))
+    in_graph = {key[1][0][0][1]: p.launches.get("lstm_cell", 0)
+                for key, p in graphs.programs.items() if key[0] == "score_masked"}
+    if (first["captures"] != len(buckets) or first["captures"] + first["replays"] !=
+            first["flushes"] or steady["captures"] or steady["replays"] != steady["flushes"]
+            or any(in_graph[tb] != depth * tb for tb in buckets)):
+        raise AssertionError(f"flushes over buckets {buckets}: first pass {first['captures']} "
+                             f"captures, {first['replays']} replays; second {steady['captures']} "
+                             f"captures, {steady['replays']} replays; K1 inside {in_graph}")
     worst = 0.0
-    for w, ticket in zip(requests, tickets):
-        direct = float(svc.engine.score_masked({"series": w[None],
-                                                 "lengths": np.array([w.shape[0]])})[0])
-        np.testing.assert_allclose(ticket.score, direct, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
-        worst = max(worst, abs(ticket.score - direct))
-    buckets = sorted(set(flush_t))
-    out["oneshot"] = {"windows": GATEWAY_WINDOWS, "wall_s": dt, "flushes": len(flush_t),
-                      "bucket_t": flush_t, "k1_launches": k1,
-                      "requests_per_s": s["requests_per_s"], "batch_fill": s["batch_fill_ratio"],
-                      "p50_ms": s["latency_ms"]["p50"], "p95_ms": s["latency_ms"]["p95"],
-                      "compute_ms_p50": gw.telemetry.histograms["compute_ms"].percentile(50),
-                      "max_abs_diff_vs_direct": worst}
+    for run in (first, steady):
+        for w, ticket in zip(requests, run.pop("tickets")):
+            # each window alone, on the eager engine (not 57 captures of B=1)
+            direct = float(eager.engine.score_masked({"series": w[None],
+                                                       "lengths": np.array([w.shape[0]])})[0])
+            np.testing.assert_allclose(ticket.score, direct, rtol=SCHEDULE_RTOL,
+                                       atol=SCHEDULE_ATOL)
+            worst = max(worst, abs(ticket.score - direct))
+    out["oneshot"] = {"windows": GATEWAY_WINDOWS, "first_pass": first, **steady,
+                      "k1_in_graph": in_graph, "max_abs_diff_vs_direct": worst}
     results["gateway"] = out
-    log(f"[gateway] {GATEWAY_WINDOWS} one-shot windows (T in 8..{t_len}, buckets {buckets}) in "
-        f"{len(flush_t)} flushes of max_batch={GATEWAY_MAX_BATCH}: {s['requests_per_s']:,.0f} "
-        f"requests/s over {dt:.3f} s, batch fill {s['batch_fill_ratio']:.3f}, p50 "
-        f"{s['latency_ms']['p50']:.2f} ms, p95 {s['latency_ms']['p95']:.2f} ms, flush compute "
-        f"p50 {out['oneshot']['compute_ms_p50']:.2f} ms; K1 launches {k1} = {depth} x sum of "
-        f"bucket_T; every score agrees with score_masked of its window alone (max abs diff "
-        f"{worst:.3g}) [{card}]")
-    return k1
+    for name, run in (("first pass (captures)", first), ("second pass", steady)):
+        log(f"[gateway] {GATEWAY_WINDOWS} one-shot windows (T in 8..{t_len}, buckets {buckets}), "
+            f"{name}: {run['flushes']} flushes of max_batch={GATEWAY_MAX_BATCH}, "
+            f"{run['requests_per_s']:,.0f} requests/s over {run['wall_s']:.3f} s, batch fill "
+            f"{run['batch_fill']:.3f}, p50 {run['p50_ms']:.2f} ms, p95 {run['p95_ms']:.2f} ms, "
+            f"flush compute p50 {run['compute_ms_p50']:.2f} ms; K1 launches {run['k1_launches']} "
+            f"= {depth} x sum of bucket_T, from {run['captures']} captures and {run['replays']} "
+            f"graph replays [{card}]")
+    log(f"[gateway] K1 inside each bucket's graph {in_graph}; every score of both passes agrees "
+        f"with the eager engine's score_masked of its window alone (max abs diff {worst:.3g}) "
+        f"[{card}]")
+    return steady["k1_launches"]
 
 
 def wkv_inputs(torch, b, t_len, h, hd, dtype, seed, zero_state=False, rwkv_decay=False):
@@ -922,7 +1008,7 @@ def device_kernels(torch, fn) -> list[str]:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     names = sorted({e.name for e in prof.events()
@@ -1090,11 +1176,43 @@ def time_k1(torch, b: int, results, card, tag: str = "") -> dict:
     return total
 
 
+def host_launches(torch, fn) -> dict:
+    """The launch calls (kernels, graphs, copies, memsets) the host makes in
+    one ``fn()``, by CUDA API name, and the kernels, copies and memsets the
+    device ran with their summed time (ms), K1's among them by kernel name
+    (those inside a replayed graph too), from one ``torch.profiler``
+    pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls: dict = {}
+    device, k1, busy_us = 0, 0, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device += 1
+            k1 += K1_KERNEL in e.name
+            busy_us += e.time_range.elapsed_us()
+        elif e.name in LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return {"host_calls": calls, "host_total": sum(calls.values()), "device_ops": device,
+            "k1_device_events": k1, "device_busy_ms": busy_us / 1e3}
+
+
+def k1_in_graph(engine, name: str) -> list[int]:
+    """K1 launches recorded in each captured graph of program ``name``."""
+    return [p.launches.get("lstm_cell", 0) for key, p in engine._graphs.programs.items()
+            if key[0] == name]
+
+
 def drive_service(torch, arch: str, batch: int, seq_len: int, requests: int, results, card):
     """Serve ``arch`` on every single-GPU schedule; check the kernel path's
-    launch count and its agreement with the other schedules and the CPU."""
+    launch count and its agreement with the other schedules and the CPU;
+    then the fused path captured against the same path run eagerly."""
     from repro_torch.data import TimeseriesConfig, make_batch
-    from repro_torch.engine import AnomalyService
+    from repro_torch.engine import AnomalyService, EngineConfig
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.utils import params_to_numpy
 
@@ -1109,44 +1227,75 @@ def drive_service(torch, arch: str, batch: int, seq_len: int, requests: int, res
     out = {"arch": arch, "batch": batch, "seq_len": seq_len, "requests": requests,
            "threshold": threshold, "h2d_ms": h2d, "schedules": {}}
     scores = {}
-    for name in ("fused", "sequential", "wavefront"):
-        svc = fused
-        if name != "fused":
+    eager = AnomalyService(arch, schedule=EngineConfig("fused", jit=False), device="cuda", seed=0)
+    services = {"fused": fused, "fused-eager": eager}
+    for name in ("fused", "fused-eager", "sequential", "wavefront"):
+        svc = services.get(name)
+        if svc is None:
             svc = AnomalyService(arch, schedule=name, device="cuda", seed=0)
+        if svc is not fused:
             svc.recalibrate(params=fused.params, threshold=threshold)
-            svc.score(series[0]).cpu()   # warm-up
+            svc.score(series[0]).cpu()   # warm-up (the capture, where it captures)
+        replays = 0 if svc.engine._graphs is None else svc.engine._graphs.replays
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
         scores[name] = [svc.score(s).cpu() for s in series]
         dt = time.perf_counter() - t0
         launches = launch_counts()["lstm_cell"]
-        want = requests * depth * seq_len if name == "fused" else 0
+        want = requests * depth * seq_len if name.startswith("fused") else 0
         if launches != want:
             raise AssertionError(f"{arch} [{name}]: K1 launched {launches} times, expected {want}")
         alerts = sum(int((s > threshold).sum()) for s in scores[name])
         ms = dt / requests * 1e3
         rate = requests * batch * seq_len / dt
-        out["schedules"][name] = {"ms_per_request": ms, "timesteps_per_s": rate,
-                                  "k1_launches": launches, "alerts": alerts}
+        row = out["schedules"][name] = {"ms_per_request": ms, "timesteps_per_s": rate,
+                                        "k1_launches": launches, "alerts": alerts}
+        how = "eager"
+        if svc.engine._graphs is not None:
+            row["replays"] = svc.engine._graphs.replays - replays
+            row["k1_in_graph"] = k1_in_graph(svc.engine, "score")
+            if row["replays"] != requests:
+                raise AssertionError(f"{arch} [{name}]: {row['replays']} graph replays for "
+                                     f"{requests} requests")
+            how = f"{row['replays']} graph replays, K1 launches inside the graph {row['k1_in_graph']}"
         log(f"[serve] {arch} [{name}] B={batch} T={seq_len}: {requests} requests, "
-            f"{ms:.3f} ms/request, {rate:,.0f} timesteps/s, K1 launches {launches}, "
+            f"{ms:.3f} ms/request, {rate:,.0f} timesteps/s, K1 launches {launches} ({how}), "
             f"alerts={alerts} [{card}]")
         if name == "fused":
             out["k1_launches"] = launches
-    # the same requests with the input already on the card: the request
-    # time without its host-to-device copy (outside the counted run)
+    # the fused path captured against eager: the same requests with the
+    # input already on the card (outside the counted run)
     on_card = [s.to("cuda") for s in series]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for s in on_card:
-        fused.score(s).cpu()
-    out["fused_ms_per_request_input_on_card"] = (time.perf_counter() - t0) / requests * 1e3
-    log(f"[serve] {arch} [fused] with the input already on the card: "
-        f"{out['fused_ms_per_request_input_on_card']:.3f} ms/request [{card}]")
+    for name in ("fused", "fused-eager"):
+        svc = services[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in on_card:
+            svc.score(s).cpu()
+        row = out["schedules"][name]
+        row["ms_per_request_input_on_card"] = (time.perf_counter() - t0) / requests * 1e3
+        log(f"[serve] {arch} [{name}] with the input already on the card: "
+            f"{row['ms_per_request_input_on_card']:.3f} ms/request [{card}]")
+    out["fused_ms_per_request_input_on_card"] = out["schedules"]["fused"][
+        "ms_per_request_input_on_card"]
+    graph_k1 = out["schedules"]["fused"]["k1_in_graph"]
+    if graph_k1 != [depth * seq_len]:
+        raise AssertionError(f"{arch}: the fused score graphs hold {graph_k1} K1 launches, "
+                             f"expected one graph of {depth * seq_len}")
     for name in ("sequential", "wavefront"):
         for got, want in zip(scores["fused"], scores[name]):
             torch.testing.assert_close(got, want, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
+    for got, want in zip(scores["fused"], scores["fused-eager"]):
+        torch.testing.assert_close(got, want, rtol=CAPTURE_RTOL, atol=CAPTURE_ATOL)
+    out["captured_vs_eager"] = {
+        "max_abs_diff": max(float((a - b).abs().max())
+                            for a, b in zip(scores["fused"], scores["fused-eager"])),
+        "bit_equal": all(torch.equal(a, b) for a, b in zip(scores["fused"], scores["fused-eager"]))}
+    log(f"[serve] {arch} [fused]: captured and eager scores agree (max abs diff "
+        f"{out['captured_vs_eager']['max_abs_diff']:.3g}; rtol {CAPTURE_RTOL}, atol "
+        f"{CAPTURE_ATOL}), bit-equal: {out['captured_vs_eager']['bit_equal']}; {graph_k1[0]} K1 "
+        f"launches inside the one score graph [{card}]")
     rows = min(batch, 256)
     cpu = AnomalyService(arch, schedule="fused", device="cpu", seed=0)
     cpu.recalibrate(params=params_to_numpy(fused.params))
@@ -1161,7 +1310,175 @@ def drive_service(torch, arch: str, batch: int, seq_len: int, requests: int, res
         f"{out['max_abs_score_diff_vs_cpu']:.3g}); rtol {SCHEDULE_RTOL}, atol {SCHEDULE_ATOL}; "
         f"host-to-device copy of one request {h2d:.3f} ms")
     results.setdefault("serve", []).append(out)
-    return fused, series[0]
+    return fused, eager, series[0]
+
+
+def compare_launches(torch, arch, fused, eager, request, out, card) -> None:
+    """The launch calls the host makes for one fused request with the input
+    on the card, captured against eager, and the [capture] summary.  Run
+    after every other phase: its profiler passes come last."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    want = len(fused.cfg.lstm_ae.layer_sizes()) * out["seq_len"]
+    for name, svc in (("fused", fused), ("fused-eager", eager)):
+        reset_launch_counts()
+        lp = host_launches(torch, lambda: svc.score(request).cpu())
+        lp["k1_counted_launches"] = launch_counts()["lstm_cell"]
+        if lp["k1_device_events"] != want or lp["k1_counted_launches"] != want:
+            raise AssertionError(
+                f"{arch} [{name}]: one request ran {lp['k1_device_events']} K1 kernels on the "
+                f"device, and the launch count says {lp['k1_counted_launches']}; expected {want}")
+        out["schedules"][name]["launches_per_request"] = lp
+        row = out["schedules"][name]
+        lp["device_busy_share"] = lp["device_busy_ms"] / row["ms_per_request_input_on_card"]
+        log(f"[serve] {arch} [{name}] one request with the input on the card: the host made "
+            f"{lp['host_total']} launch calls {lp['host_calls']}, the device ran "
+            f"{lp['device_ops']} kernels/copies, {lp['k1_device_events']} of them K1 (profiler "
+            f"events; the launch count says {lp['k1_counted_launches']}), busy "
+            f"{lp['device_busy_ms']:.3f} ms: {lp['device_busy_share']:.3f} of the "
+            f"{row['ms_per_request_input_on_card']:.3f} ms request (idle "
+            f"{1 - lp['device_busy_share']:.3f}) [{card}]")
+    cap, eag = out["schedules"]["fused"], out["schedules"]["fused-eager"]
+    log(f"[capture] {arch} [fused] B={out['batch']} T={out['seq_len']}, captured against eager: "
+        f"{cap['ms_per_request']:.3f} against {eag['ms_per_request']:.3f} ms/request from the "
+        f"host, {cap['ms_per_request_input_on_card']:.3f} against "
+        f"{eag['ms_per_request_input_on_card']:.3f} ms/request with the input on the card; "
+        f"{cap['launches_per_request']['host_total']} against "
+        f"{eag['launches_per_request']['host_total']} host launch calls per request; "
+        f"{cap['k1_in_graph'][0]} K1 launches inside one graph; scores bit-equal: "
+        f"{out['captured_vs_eager']['bit_equal']} [{card}]")
+
+
+def drive_fit(torch, results, card) -> None:
+    """``AnomalyService.fit`` at full width on the card: its first FIT_HELD
+    steps against the same fit on the CPU, then FIT_STEPS steps with the
+    loss of every step; calibrate, and the captured engine (captured before
+    the fit) against an eager one bound to the fitted params."""
+    import contextlib
+    import io
+
+    from repro_torch.config import LSTMAE_SHAPES, TrainConfig
+    from repro_torch.data import TimeseriesConfig, make_batch
+    from repro_torch.engine import AnomalyService, EngineConfig, build_engine
+    from repro_torch.utils import tree_leaves
+
+    shape = next(s for s in LSTMAE_SHAPES if s.name == "stream_64")   # B=4096, T=64
+    svc = AnomalyService(FIT_ARCH, schedule="fused", device="cuda", seed=0)
+    dc = TimeseriesConfig(features=svc.features, seq_len=shape.seq_len, batch=shape.global_batch)
+    # fit's default for FIT_STEPS steps, also for the held steps
+    tc = TrainConfig(learning_rate=5e-3, warmup_steps=min(10, FIT_STEPS), total_steps=FIT_STEPS)
+    # the first step's batch: its mean score is that step's loss, the MSE
+    # over the batch, so scoring it again after the fit shows the loss fall
+    # on the same data (successive steps' losses differ by batch as well)
+    probe = make_batch(dc, 0)[0]
+    before = svc.score(probe)                  # the capture, with the seeded init
+    compiles = svc.engine.profile_info()["compiles"]
+
+    held = {}
+    for dev in ("cuda", "cpu"):
+        one = AnomalyService(FIT_ARCH, schedule="fused", device=dev, seed=0)
+        t0 = time.perf_counter()
+        metrics = one.fit(dc, FIT_HELD, train_cfg=tc)
+        held[dev] = (one.params, metrics, time.perf_counter() - t0)
+    (gp, gm, gs), (cp, cm, cs) = held["cuda"], held["cpu"]
+    for k in cm:
+        if not abs(gm[k] - cm[k]) <= FIT_LOSS_RTOL * abs(cm[k]):
+            raise AssertionError(f"fit step {FIT_HELD}: {k} {gm[k]} on the card, {cm[k]} on the CPU")
+    param_err = max(float((g.cpu() - c).abs().max()) for g, c in zip(tree_leaves(gp), tree_leaves(cp)))
+    if not param_err <= FIT_PARAM_ATOL:
+        raise AssertionError(f"params after {FIT_HELD} fit steps: card and CPU differ by {param_err}")
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        metrics = svc.fit(dc, FIT_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses = [float(ln.split("mse=")[1]) for ln in buf.getvalue().splitlines()]
+    threshold = svc.calibrate(dc)
+    after = svc.score(probe)
+    first_loss, refit_loss = float(before.mean()), float(after.mean())
+    if len(losses) != FIT_STEPS or not refit_loss < first_loss:
+        raise AssertionError(f"fit: the first step's loss {first_loss} did not fall on its batch "
+                             f"({refit_loss} after {FIT_STEPS} steps); per step {losses}")
+    eager = build_engine(svc.cfg, EngineConfig("fused", jit=False), params=svc.params,
+                         device="cuda")
+    want = eager.score({"series": probe})
+    torch.testing.assert_close(after, want, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
+    recaptures = svc.engine.profile_info()["compiles"] - compiles
+    if recaptures or not float((after - before).abs().max()) > 0:
+        raise AssertionError(f"after fit: {recaptures} recaptures; scores changed "
+                             f"{float((after - before).abs().max())}")
+    out = {"arch": FIT_ARCH, "batch": shape.global_batch, "seq_len": shape.seq_len,
+           "steps": FIT_STEPS, "ms_per_step": dt / FIT_STEPS * 1e3, "losses": losses,
+           "first_step_loss": first_loss, "first_batch_loss_after_fit": refit_loss,
+           "final": metrics, "threshold": threshold,
+           "held": {"steps": FIT_HELD, "card": gm, "cpu": cm, "param_max_abs_diff": param_err,
+                    "card_s": gs, "cpu_s": cs},
+           "captured_vs_eager_max_abs_diff": float((after - want).abs().max()),
+           "recaptures_after_fit": recaptures}
+    results["fit"] = out
+    log(f"[fit] {FIT_ARCH} [fused] at stream_64 (B={shape.global_batch}, T={shape.seq_len}): "
+        f"the first {FIT_HELD} steps on the card and on the CPU agree (loss {gm['loss']:.6f} / "
+        f"{cm['loss']:.6f}, rtol {FIT_LOSS_RTOL}; params max abs diff {param_err:.3g}, atol "
+        f"{FIT_PARAM_ATOL}; {gs:.2f} s on the card, {cs:.2f} s on the CPU) [{card}]")
+    log(f"[fit] {FIT_STEPS} steps on the card: {out['ms_per_step']:.1f} ms per step; loss "
+        f"{first_loss:.6f} at the first step, {refit_loss:.6f} on that step's batch after the "
+        f"last; each step's own loss {losses[0]:.4f} first, {metrics['loss']:.6f} last (every "
+        f"step: {losses}); threshold {threshold:.4f}; the engine "
+        f"captured before the fit serves the fitted params without a recapture, its scores equal "
+        f"an eager engine's (max abs diff {out['captured_vs_eager_max_abs_diff']:.3g}; rtol "
+        f"{SCHEDULE_RTOL}, atol {SCHEDULE_ATOL}) [{card}]")
+
+
+def split_fit_step(torch, results, card) -> None:
+    """Where one step of the timed fit spends its wall time, each part
+    timed alone on the fit's shape and fitted params: the host's batch
+    (``make_batch``), its copy to the card, and the train step on the card;
+    then the device's busy time and kernel count in one step, from one
+    ``torch.profiler`` pass.  Run last, with the other profiler passes."""
+    import functools
+    import types
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import TimeseriesConfig, make_batch
+    from repro_torch.engine import AnomalyService
+    from repro_torch.models.lstm_ae import train_loss
+    from repro_torch.training import build_train_step, init_train_state
+
+    fit = results["fit"]
+    svc = AnomalyService(FIT_ARCH, schedule="fused", device="cuda", seed=0)
+    dc = TimeseriesConfig(features=svc.features, seq_len=fit["seq_len"], batch=fit["batch"])
+    tc = TrainConfig(learning_rate=5e-3, warmup_steps=min(10, FIT_STEPS), total_steps=FIT_STEPS)
+    t0 = time.perf_counter()
+    for i in range(3):
+        series = make_batch(dc, i)[0]
+    batch_ms = (time.perf_counter() - t0) / 3 * 1e3
+    copy_ms = host_ms(torch, lambda: series.to("cuda"), iters=3)
+    api = types.SimpleNamespace(loss=functools.partial(train_loss, cfg=svc.cfg))
+    step = build_train_step(api, tc)
+    state = init_train_state(svc.params, tc)
+    batch = {"series": series.to("cuda")}
+
+    def one_step():
+        nonlocal state
+        state, metrics = step(state, batch)
+        return float(metrics["loss"])
+
+    step_ms = host_ms(torch, one_step, iters=3)
+    lp = host_launches(torch, one_step)
+    split = {"make_batch_ms": batch_ms, "copy_ms": copy_ms, "train_step_ms": step_ms,
+             "sum_ms": batch_ms + copy_ms + step_ms, "fit_ms_per_step": fit["ms_per_step"],
+             "step_device_busy_ms": lp["device_busy_ms"], "step_device_ops": lp["device_ops"],
+             "step_host_launch_calls": lp["host_total"]}
+    fit["split"] = split
+    log(f"[fit] one fit step of {fit['ms_per_step']:.1f} ms, its parts timed alone: "
+        f"make_batch on the host {batch_ms:.1f} ms, its copy to the card {copy_ms:.1f} ms, the "
+        f"train step {step_ms:.1f} ms (sum {split['sum_ms']:.1f} ms); in one train step the "
+        f"host made {lp['host_total']} launch calls and the device ran {lp['device_ops']} "
+        f"kernels/copies, busy {lp['device_busy_ms']:.1f} ms of its {step_ms:.1f} ms (idle "
+        f"{1 - lp['device_busy_ms'] / step_ms:.3f}) [{card}]")
 
 
 def check_streaming(torch, svc, series, results) -> None:
@@ -1224,11 +1541,12 @@ def main(argv=None) -> int:
     k1 = time_k1(torch, serve.global_batch, results, card)
     time_k1(torch, GATEWAY_MAX_BATCH, results, card, tag=f"_b{GATEWAY_MAX_BATCH}")
 
-    svc, first = drive_service(torch, "lstm-ae-f64-d6", serve.global_batch, serve.seq_len, 3,
-                               results, card)
+    svc, eager, first = drive_service(torch, "lstm-ae-f64-d6", serve.global_batch,
+                                      serve.seq_len, 3, results, card)
     main_launches = results["serve"][0]["k1_launches"]
-    drive_service(torch, "lstm-ae-f32-d2", 1024, 64, 3, results, card)
+    small = drive_service(torch, "lstm-ae-f32-d2", 1024, 64, 3, results, card)
     check_streaming(torch, svc, first, results)
+    drive_fit(torch, results, card)
 
     check_k2(torch, results)
     k2 = time_k2(torch, serve.global_batch, results["k1_layers"], results, card)
@@ -1241,6 +1559,16 @@ def main(argv=None) -> int:
     check_k4(torch, results)
     k4 = time_k4(torch, results, card)
     k4_launches = drive_k4_path(torch, results, card)
+    for out, (fused, eag, request) in zip(results["serve"], ((svc, eager, first), small)):
+        compare_launches(torch, out["arch"], fused, eag, request.to("cuda"), out, card)
+    # the main path's count (captured launches x replays) against the K1
+    # kernels the profiler saw the device run for one replayed request
+    split_fit_step(torch, results, card)
+    main = results["serve"][0]
+    measured = main["schedules"]["fused"]["launches_per_request"]["k1_device_events"]
+    if main_launches != main["requests"] * measured:
+        raise AssertionError(f"the main path counted {main_launches} K1 launches over "
+                             f"{main['requests']} requests; the device ran {measured} per request")
 
     kernels = {"kernels": [{
         "name": "lstm_cell",
@@ -1294,7 +1622,9 @@ def main(argv=None) -> int:
     results["kernels"] = kernels["kernels"]
     results["total_s"] = time.perf_counter() - t_start
     log(f"[done] {results['total_s']:.1f} s; lstm_cell: times per timestep of lstm-ae-f64-d6 at "
-        f"B={serve.global_batch} (6 launches), launches from the fused serving path's 3 requests; "
+        f"B={serve.global_batch} (6 launches), launches from the fused serving path's 3 requests "
+        f"(3 replays of one captured graph; {measured} K1 kernels per replay on the device, from "
+        f"the profiler); "
         f"lstm_seq: times per forward of lstm-ae-f64-d6 at B={serve.global_batch}, T={K2_T} "
         f"(6 launches), launches from its lstm_seq_op path; wkv6: f32 at B={RWKV_B}, T={RWKV_T}, "
         f"H={RWKV_H}, hd={RWKV_HD}, launches from its wkv6_op path (whole + chained pair); "

@@ -1,4 +1,10 @@
-from repro_torch.config.core import LSTMAE_SHAPES, LSTMAEConfig, ModelConfig, ShapeConfig
+from repro_torch.config.core import (
+    LSTMAE_SHAPES,
+    LSTMAEConfig,
+    ModelConfig,
+    ShapeConfig,
+    TrainConfig,
+)
 from repro_torch.config.registry import REGISTRY, get_config, list_archs, reduced_config
 
 __all__ = [
@@ -7,6 +13,7 @@ __all__ = [
     "ModelConfig",
     "REGISTRY",
     "ShapeConfig",
+    "TrainConfig",
     "get_config",
     "list_archs",
     "reduced_config",

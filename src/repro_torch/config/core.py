@@ -1,7 +1,7 @@
 """Config system of the port: the paper's LSTM-AE family as frozen dataclasses.
 
 A copy of the parts of the JAX package's ``repro/config/core.py`` that the
-LSTM-AE slice reads.  The port imports nothing of that package, so the
+LSTM-AE slice reads, and its ``TrainConfig``.  The port imports nothing of that package, so the
 copy is held to it by ``tests/test_torch_*.py``.
 """
 from __future__ import annotations
@@ -63,3 +63,19 @@ LSTMAE_SHAPES = tuple(
     ShapeConfig(f"stream_{t}", seq_len=t, global_batch=4096, kind="train")
     for t in (16, 64)
 ) + (ShapeConfig("serve_64", seq_len=64, global_batch=8192, kind="prefill"),)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    remat: str = "layer"        # none | layer (checkpoint each block)
+    loss_chunk: int = 2048      # chunked xent: tokens per logits chunk
+    grad_compression: str = "none"  # none | int8_ef
+    microbatch: int = 1         # gradient accumulation steps

@@ -1,3 +1,3 @@
-from repro_torch.data.timeseries import TimeseriesConfig, make_batch
+from repro_torch.data.timeseries import TimeseriesConfig, TimeseriesIterator, make_batch
 
-__all__ = ["TimeseriesConfig", "make_batch"]
+__all__ = ["TimeseriesConfig", "TimeseriesIterator", "make_batch"]

@@ -64,3 +64,27 @@ def make_batch(cfg: TimeseriesConfig, index: int) -> tuple[torch.Tensor, torch.T
     if labels.any():
         x = _inject_anomalies(rng, x, labels)
     return torch.from_numpy(x), torch.from_numpy(labels)
+
+
+@dataclass
+class TimeseriesIterator:
+    """Checkpointable iterator: state == (cfg, next_index)."""
+    cfg: TimeseriesConfig
+    index: int = 0
+
+    def __next__(self) -> tuple[torch.Tensor, torch.Tensor]:
+        batch = make_batch(self.cfg, self.index)
+        self.index += 1
+        return batch
+
+    def __iter__(self) -> "TimeseriesIterator":
+        return self
+
+    def state_dict(self) -> dict:
+        return {"index": self.index, "seed": self.cfg.seed}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state["seed"] != self.cfg.seed:
+            raise ValueError(f"seed mismatch on restore: state has seed {state['seed']}, "
+                             f"this iterator {self.cfg.seed}")
+        self.index = int(state["index"])

@@ -11,7 +11,11 @@ config and parameters to a *named* execution schedule from the registry in
     est    = engine.latency_model(T)      # Eq-1 accounting for this schedule
 
 Inputs may be CPU tensors or numpy arrays; they are moved to the engine's
-device, and results stay there.  The engine carries a
+device, and results stay there.  On a CUDA device with
+``EngineConfig.jit`` (the default) every program is captured into one CUDA
+graph per input signature at its first call and replayed after
+(``engine/capture.py``), the counterpart of the reference's ``jax.jit``; on
+the CPU, or with ``jit=False``, programs run eagerly.  The engine carries a
 :class:`~repro_torch.engine.placement.Placement`; only the single
 placement exists until the multi-GPU slice.
 """
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -28,10 +33,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config.core import ModelConfig
 from repro_torch.core.latency import PAPER_RH_M, LatencyEstimate, fpga_latency_ms
+from repro_torch.engine.capture import GraphCache, signature
 from repro_torch.engine.placement import Placement
 from repro_torch.engine.schedules import Schedule, resolve_schedule
 from repro_torch.models.lstm_ae import decode_step, init_stream_state
-from repro_torch.utils import Params, params_from_numpy
+from repro_torch.utils import Params, tree_map
 
 
 @dataclass(frozen=True)
@@ -43,11 +49,15 @@ class EngineConfig:
     ``n_stages``  pipeline stages (pipelined; one GPU runs one stage)
     ``placement`` device placement (only ``Placement.single()`` until the
                   multi-GPU slice)
+    ``jit``       on a CUDA device, capture each program into a CUDA graph
+                  per input signature (the reference's ``jax.jit``); the
+                  CPU always runs eagerly
     """
     schedule: str = "wavefront"
     pwl: bool = False
     n_stages: Optional[int] = None
     placement: Placement = Placement.single()
+    jit: bool = True
 
 
 def _as_engine_cfg(schedule: Union[str, EngineConfig]) -> EngineConfig:
@@ -76,12 +86,23 @@ class Engine:
         self.schedule: Schedule = resolve_schedule(
             self.engine_cfg.schedule, cfg, self.engine_cfg
         )
+        # the engine's captured programs, and every cache that captured a
+        # program over its weights (its own and its pools'; a pool's graph
+        # dies with the pool): a bind that allocates new weights drops them
+        self._graphs: Optional[GraphCache] = None
+        self._caches: "weakref.WeakSet[GraphCache]" = weakref.WeakSet()
+        if self.device.type == "cuda" and self.engine_cfg.jit:
+            self._graphs = self.new_graph_cache()
+        # eagerly, the (program, signature) pairs run so far; captured, the
+        # caches' own programs say which calls capture
+        self._seen: set = set()
+        self.profile: dict = {"compiles": 0, "compile_ms": 0.0, "per_program": {}}
         self.params = None
+        # what the programs read: the bound params themselves when eager,
+        # the engine's own copy of them when captured (see bind)
+        self._weights = None
         if params is not None:
             self.bind(params)
-        # first call per (program, shape): its wall time, see profile_info
-        self._seen_shapes: set = set()
-        self.profile: dict = {"compiles": 0, "compile_ms": 0.0, "per_program": {}}
 
     # -- placement ---------------------------------------------------------
 
@@ -100,33 +121,64 @@ class Engine:
 
     # -- profiling ---------------------------------------------------------
 
-    def _run_profiled(self, name: str, fn, shape: tuple, *args):
-        """Call ``fn(*args)``; on the first call per (program, shape) record
-        its host wall time under ``name``.  Later calls cost one set lookup."""
-        key = (name, shape)
-        if key in self._seen_shapes:
-            return fn(*args)
+    def new_graph_cache(self) -> Optional[GraphCache]:
+        """A cache for programs captured over this engine's params (None
+        when the engine runs eagerly); :meth:`bind` drops its programs
+        whenever it allocates new param tensors."""
+        if self.device.type != "cuda" or not self.engine_cfg.jit:
+            return None
+        cache = GraphCache(self.device)
+        self._caches.add(cache)
+        return cache
+
+    def run_program(self, name: str, fn, args: tuple, graphs: Optional[GraphCache] = None):
+        """``fn(*args)`` as program ``name``: eagerly on device tensors, or
+        through ``graphs`` (default: the engine's own cache) captured at
+        its first call per signature and replayed after.  ``args`` hold
+        tensors or arrays (containers of them too).  Each capture (eagerly:
+        the first call per (program, signature)) is timed into the
+        profile; later calls cost one lookup."""
+        graphs = graphs or self._graphs
+        if graphs is None:
+            args = tree_map(self._on_device, args)
+            key = (name, signature(args))
+            if key in self._seen:
+                return fn(*args)
+        else:
+            # host data stays on the host: the static copy moves it
+            args = tree_map(lambda a: a if isinstance(a, torch.Tensor)
+                            else torch.as_tensor(np.asarray(a)), args)
+            key = (name, signature(args))
+            if key in graphs.programs:
+                return graphs.run(key, fn, args)
         t0 = time.perf_counter()
-        out = fn(*args)
+        if graphs is None:
+            out = fn(*args)
+            self._seen.add(key)
+        else:
+            out = graphs.run(key, fn, args)
         ms = (time.perf_counter() - t0) * 1e3
-        self._seen_shapes.add(key)
         self.profile["compiles"] += 1
         self.profile["compile_ms"] += ms
         per = self.profile["per_program"].setdefault(
             name, {"compiles": 0, "compile_ms": 0.0, "shapes": []})
         per["compiles"] += 1
         per["compile_ms"] += ms
-        per["shapes"].append(list(shape))
+        per["shapes"].append(list(args[0].shape))
         return out
 
     def profile_info(self) -> dict:
         """First-call profile in the schema of ``repro.engine.Engine.profile_info``.
 
-        The port compiles no programs, so "compiles" counts first calls per
-        (program, shape) and "compile_ms" is their host wall time: the
-        kernel build and load (first launch in the process), the caching
-        allocator's warm-up and the enqueue.  Device work still in flight
-        when the call returns is not in it."""
+        "compiles" counts first calls per (program, input signature) and
+        "compile_ms" their host wall time.  On a CUDA device with ``jit``
+        each is a capture: the warm-up run (the kernel build and load on
+        the first launch in the process, the caching allocator's warm-up)
+        and the CUDA graph's capture; each pool captures its own step, and
+        a bind that drops the graphs makes the next call capture, and
+        count, anew.  Eagerly (the CPU, or
+        ``jit=False``) it is the first run's enqueue; device work still in
+        flight when the call returns is not in it."""
         return {
             "schedule": self.schedule.tag,
             "compiles": self.profile["compiles"],
@@ -144,15 +196,38 @@ class Engine:
     # -- binding ----------------------------------------------------------
 
     def bind(self, params: Params) -> "Engine":
-        """Bind parameters (tensors or numpy arrays), moved to the engine's
-        device; returns self."""
-        self.params = params_from_numpy(params, self.device)
+        """Bind parameters (tensors or numpy arrays) on the engine's device;
+        returns self.  Nothing is cast, and the engine never writes into
+        ``params``: ``self.params`` holds the caller's tensors (moved to the
+        device where they are not on it), as the reference binds by
+        reference.
+
+        Eagerly the programs read ``self.params``.  Captured programs read
+        the engine's own copy of them by address: params of the same
+        containers, shapes and dtypes as the bound ones are copied into that
+        copy in place, so the graphs serve them and none is recaptured (the
+        reference's "compiled executors are reused").  Otherwise the engine
+        makes a new copy and drops every captured program, to be captured
+        anew at its next call.  Changing bound tensors in place reaches a
+        captured engine only through the next bind."""
+        self.params = tree_map(
+            lambda a: (a.detach() if isinstance(a, torch.Tensor)
+                       else torch.from_numpy(np.array(a))).to(self.device), params)
+        if self._graphs is None:
+            self._weights = self.params
+        elif self._weights is not None and _layout(self.params) == _layout(self._weights):
+            with torch.no_grad():
+                tree_map(lambda dst, src: dst.copy_(src), self._weights, self.params)
+        else:
+            self._weights = tree_map(lambda t: t.clone(), self.params)
+            for cache in list(self._caches):
+                cache.clear()
         return self
 
     def _require_params(self) -> Params:
-        if self.params is None:
+        if self._weights is None:
             raise ValueError("engine has no bound params; call bind(params)")
-        return self.params
+        return self._weights
 
     def _on_device(self, a) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):
@@ -161,8 +236,11 @@ class Engine:
 
     # -- batch surface ----------------------------------------------------
 
+    # The programs below take device tensors (run_program moves the
+    # caller's data there) and run eagerly or under capture alike.
+
     def _forward(self, series: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        xs = self._on_device(series).transpose(0, 1)                 # (T, B, F)
+        xs = series.transpose(0, 1)                                   # (T, B, F)
         return xs, self.schedule.forward(self._require_params(), xs)
 
     def _reconstruct(self, series) -> torch.Tensor:
@@ -175,7 +253,7 @@ class Engine:
 
     def _score_masked(self, series, lengths) -> torch.Tensor:
         xs, recon = self._forward(series)
-        lengths = self._on_device(lengths).to(torch.int64)
+        lengths = lengths.to(torch.int64)
         sq = torch.mean(torch.square(recon.float() - xs.float()), dim=2)   # (T, B)
         valid = torch.arange(sq.shape[0], device=self.device)[:, None] < lengths[None, :]
         denom = torch.clamp(lengths, min=1).float()
@@ -183,23 +261,20 @@ class Engine:
 
     def reconstruct(self, batch: dict) -> torch.Tensor:
         """batch {"series": (B, T, F)} -> reconstruction (B, T, F)."""
-        series = batch["series"]
-        return self._run_profiled("reconstruct", self._reconstruct, tuple(series.shape), series)
+        return self.run_program("reconstruct", self._reconstruct, (batch["series"],))
 
     def score(self, batch: dict) -> torch.Tensor:
         """batch {"series": (B, T, F)} -> per-sequence reconstruction MSE (B,)
         — the anomaly score of the paper's application."""
-        series = batch["series"]
-        return self._run_profiled("score", self._score, tuple(series.shape), series)
+        return self.run_program("score", self._score, (batch["series"],))
 
     def score_masked(self, batch: dict) -> torch.Tensor:
         """batch {"series": (B, T, F), "lengths": (B,) int} -> per-sequence
         MSE over each row's first ``lengths[i]`` timesteps.  The stack is
         causal, so end-padding does not perturb the valid timesteps — the
         gateway's bucketed-scoring primitive."""
-        series = batch["series"]
-        return self._run_profiled("score_masked", self._score_masked, tuple(series.shape),
-                                  series, batch["lengths"])
+        return self.run_program("score_masked", self._score_masked,
+                                (batch["series"], batch["lengths"]))
 
     # -- streaming surface ------------------------------------------------
 
@@ -208,14 +283,14 @@ class Engine:
         return init_stream_state(self.cfg, batch, dtype, device=self.device)
 
     def _stream_step(self, x_t, state: Params) -> tuple[torch.Tensor, Params]:
-        return decode_step(self._require_params(), self._on_device(x_t), state, None,
+        return decode_step(self._require_params(), x_t, state, None,
                            self.cfg, pwl=self.engine_cfg.pwl)
 
     def _masked_stream_step(self, x_t, state: Params, mask) -> tuple[torch.Tensor, Params]:
         # rows are independent through the cell, so a masked step equals
         # stepping each selected row alone
         y_t, new_state = self._stream_step(x_t, state)
-        keep = self._on_device(mask).to(torch.bool)[:, None]
+        keep = mask.to(torch.bool)[:, None]
         merged = {k: tuple(torch.where(keep, new, old) for new, old in zip(new_state[k], state[k]))
                   for k in ("h", "c")}
         return y_t, merged
@@ -224,14 +299,13 @@ class Engine:
         """One streaming timestep x_t (B, F) -> (reconstruction (B, F), state).
         A single timestep admits no temporal parallelism, so every schedule
         streams through the same cell loop."""
-        return self._run_profiled("step", self._stream_step, tuple(x_t.shape), x_t, state)
+        return self.run_program("step", self._stream_step, (x_t, state))
 
     def stream_masked(self, x_t, state: Params, mask) -> tuple[torch.Tensor, Params]:
         """Pooled step: x_t (B, F), mask (B,) bool -> (y_t (B, F), state)
         where only masked rows' (h, c) advance (others carry unchanged).
         The gateway's session pool steps all its slots through this."""
-        return self._run_profiled("mstep", self._masked_stream_step, tuple(x_t.shape),
-                                  x_t, state, mask)
+        return self.run_program("mstep", self._masked_stream_step, (x_t, state, mask))
 
     # -- analytics --------------------------------------------------------
 
@@ -250,6 +324,10 @@ class Engine:
     def __repr__(self) -> str:
         return (f"Engine({self.cfg.name}, schedule={self.schedule.tag}, "
                 f"device={self.device}, bound={self.params is not None})")
+
+
+def _layout(tree: Params) -> Params:
+    return tree_map(lambda t: (tuple(t.shape), t.dtype), tree)
 
 
 def build_engine(model: ModelConfig, schedule: Union[str, EngineConfig] = "wavefront",

@@ -1,0 +1,130 @@
+"""Captured programs: one CUDA graph per (program, input signature).
+
+The port's counterpart of the reference's ``jax.jit`` (it has no JAX
+counterpart of its own).  Where the reference compiles an engine program
+once per input shape, the port captures it once into a
+``torch.cuda.CUDAGraph`` and replays it: the host then issues one graph
+launch per call instead of one launch per kernel (384 K1 launches per
+lstm-ae-f64-d6 request under the ``fused`` schedule).
+
+A :class:`CapturedProgram` is made on the first call at a signature:
+
+1. static copies of the tensor arguments are allocated on the device and
+   the call's arguments copied in;
+2. ``fn`` runs once on a side stream over them (the warm-up: cuBLAS
+   workspaces, the kernels' library load) — its result is the first
+   call's result, so the first call launches each kernel once, as every
+   later call does;
+3. ``fn`` is captured over the same static tensors on that stream.
+
+Each later call copies its arguments into the static tensors (a host
+array or CPU tensor with a pageable, blocking copy: the host buffer may be
+reused once the call returns), replays the graph, counts the kernels
+recorded in it as launched (``kernels.ops.add_launches``) and returns
+clones of the graph's outputs, so a later call never overwrites a tensor
+an earlier one returned.  ``fn`` may also update tensors it closes over in
+place and return None (the session pool's step).
+
+Nothing falls back: a capture that fails, or a kernel that refuses its
+launch while it is captured, raises.  Replays are not re-entrant: two
+threads must not call one cache at once (the static tensors are shared).
+Graphs read whatever they closed over by address, so the engine keeps its
+own copy of the bound params for them, copies new params into it in place
+and drops its caches when it must allocate a new one (``Engine.bind``).
+"""
+from __future__ import annotations
+
+from typing import Callable, Hashable
+
+import torch
+
+from repro_torch.kernels.ops import add_launches, captured_counts
+from repro_torch.utils import Params, tree_map
+
+
+def _leaves(tree: Params) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def signature(args: tuple) -> tuple:
+    """The shapes and dtypes of the tensors in ``args``, in order (their
+    values and devices aside): a program is captured once per signature."""
+    return tuple((tuple(t.shape), t.dtype) for t in _leaves(args))
+
+
+def _clone(tree):
+    return None if tree is None else tree_map(lambda t: t.clone(), tree)
+
+
+class CapturedProgram:
+    """``fn`` captured once over static copies of its tensor arguments."""
+
+    def __init__(self, fn: Callable, args: tuple, device: torch.device,
+                 stream: torch.cuda.Stream):
+        static = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device), args)
+        self._inputs = _leaves(static)
+        self._copy_in(args)
+        # the warm-up allocates on the side stream: with the device idle,
+        # no block it reuses is still read by work queued elsewhere
+        torch.cuda.synchronize(device)
+        with torch.cuda.stream(stream):
+            self.first = fn(*static)
+        current = torch.cuda.current_stream(device)
+        current.wait_stream(stream)
+        before = captured_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.out = fn(*static)
+        finally:
+            torch.cuda.set_stream(current)   # also when capture_end raised
+        after = captured_counts()
+        # kernels of the port recorded in the graph, launched at each replay
+        self.launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        self.replays = 0
+
+    def _copy_in(self, args: tuple) -> None:
+        for dst, src in zip(self._inputs, _leaves(args)):
+            if src is not dst:
+                dst.copy_(src)
+
+    def __call__(self, args: tuple):
+        self._copy_in(args)
+        self.graph.replay()
+        add_launches(self.launches)
+        self.replays += 1
+        return _clone(self.out)
+
+
+class GraphCache:
+    """The captured programs of one owner, by key: ``run(key, fn, args)``
+    captures ``fn`` at its first key and replays it after."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.programs: dict[Hashable, CapturedProgram] = {}
+        self.captures = 0        # programs captured, recaptures included
+        self._stream = torch.cuda.Stream(device)
+
+    def run(self, key: Hashable, fn: Callable, args: tuple):
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = CapturedProgram(fn, args, self.device, self._stream)
+            self.programs[key] = prog
+            self.captures += 1
+            out, prog.first = prog.first, None   # the caller owns it now
+            return out
+        return prog(args)
+
+    @property
+    def replays(self) -> int:
+        return sum(p.replays for p in self.programs.values())
+
+    def clear(self) -> None:
+        """Drop every captured program (the next call at each key recaptures),
+        once the device has finished any replay still reading them."""
+        if self.programs:
+            torch.cuda.synchronize(self.device)
+        self.programs.clear()

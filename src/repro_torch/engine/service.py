@@ -1,14 +1,16 @@
 """AnomalyService: the paper's deployment scenario as one object.
 
-calibrate (threshold on a benign split) -> score / detect (batched windows)
--> stream (per-timestep state + running errors) -> ``open_gateway`` (the
-session pool and micro-batcher of ``repro_torch.gateway``), on a named
-execution schedule and one device.  Counterpart of
-``repro/engine/service.py``; ``fit`` waits for the training slice, so
-weights come from the seeded init or through ``recalibrate(params=...)``.
+fit (train on benign windows) -> calibrate (threshold on a benign split)
+-> score / detect (batched windows) -> stream (per-timestep state +
+running errors) -> ``open_gateway`` (the session pool and micro-batcher of
+``repro_torch.gateway``), on a named execution schedule and one device.
+Counterpart of ``repro/engine/service.py``.  Weights come from the seeded
+init, from ``fit``, or through ``recalibrate(params=...)``.
 """
 from __future__ import annotations
 
+import functools
+import types
 import weakref
 from dataclasses import dataclass
 from typing import Optional, Union
@@ -16,13 +18,14 @@ from typing import Optional, Union
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.config.core import ModelConfig
+from repro_torch.config.core import ModelConfig, TrainConfig
 from repro_torch.config.registry import get_config
 from repro_torch.core.anomaly import DetectionReport, calibrate_threshold, evaluate_detection
 from repro_torch.core.latency import LatencyEstimate
 from repro_torch.core.lstm import init_lstm_ae
 from repro_torch.data.timeseries import TimeseriesConfig, make_batch
 from repro_torch.engine.base import Engine, EngineConfig, build_engine
+from repro_torch.models.lstm_ae import train_loss
 from repro_torch.utils import Params
 
 _UNSET = object()  # distinguishes "not given" from an explicit None
@@ -84,6 +87,44 @@ class AnomalyService:
     @property
     def features(self) -> int:
         return self.cfg.lstm_ae.input_features
+
+    # -- fit --------------------------------------------------------------
+
+    def fit(
+        self,
+        data_cfg: TimeseriesConfig,
+        steps: int,
+        train_cfg: Optional[TrainConfig] = None,
+        log_every: int = 0,
+    ) -> dict:
+        """Train on benign windows drawn from ``data_cfg``; binds the fitted
+        params onto the engine and every open gateway.  Returns the final
+        metrics as floats (empty when ``steps == 0`` — the service then
+        scores with its init params).
+
+        Training starts from the seeded init (this service's seed, drawn
+        anew, as the reference re-inits from ``PRNGKey(seed)``) and runs
+        eagerly on the service's device, autograd over plain ops in f32
+        (TF32 stays as the caller set it; PyTorch's default is off)."""
+        if steps <= 0:
+            return {}
+        from repro_torch.training import build_train_step, init_train_state
+
+        tc = train_cfg or TrainConfig(
+            learning_rate=5e-3, warmup_steps=min(10, steps), total_steps=steps
+        )
+        gen = torch.Generator().manual_seed(self.seed)
+        state = init_train_state(init_lstm_ae(gen, self.cfg, self.device), tc)
+        api = types.SimpleNamespace(loss=functools.partial(train_loss, cfg=self.cfg))
+        step = build_train_step(api, tc)
+        metrics: dict = {}
+        for i in range(steps):
+            series, _ = make_batch(data_cfg, i)
+            state, metrics = step(state, {"series": series.to(self.device)})
+            if log_every and (i % log_every == 0 or i == steps - 1):
+                print(f"step {i:4d}  mse={float(metrics['loss']):.4f}")
+        self._bind(state.params)
+        return {k: float(v) for k, v in metrics.items()}
 
     # -- calibrate --------------------------------------------------------
 

@@ -7,7 +7,14 @@ streams are resident.  Admission and eviction touch host-side slot maps and
 zero the slot's rows in place, so churn costs no new shapes.
 
 The masked step is the engine's plain-PyTorch cell loop, as in the JAX
-package, where ``_masked_stream_step`` runs outside any kernel.
+package, where ``_masked_stream_step`` runs outside any kernel.  The whole
+pool step — the masked cell step, the squared errors and the step counts —
+is one engine program (``"mstep"``, :meth:`SessionPool._advance`), which
+the reference jits as ``_pool_step``; on a capturing engine it is one CUDA
+graph per pool, in this pool's own graph cache.  It updates the pool's
+block in place, so the block is never a graph's output buffer, and the
+rows that admission, eviction and restore write between steps are read by
+the next replay.  Churn changes no shape, so it never recaptures.
 
 Semantics contract (held to the JAX gateway in tests/test_torch_gateway.py):
 a stream admitted to a slot and stepped through any interleaving of pool
@@ -76,6 +83,8 @@ class SessionPool:
         self._state = engine.init_stream_state(self._block)
         self._sq_sum = torch.zeros((self._block,), dtype=torch.float32, device=dev)
         self._steps = torch.zeros((self._block,), dtype=torch.int32, device=dev)
+        # the pool step's CUDA graph (None when the engine runs eagerly)
+        self._graphs = engine.new_graph_cache()
         self._slot_of: dict[Hashable, int] = {}
         # descending, so pop() hands out the lowest free slot first
         self._free = list(range(capacity - 1, -1, -1))
@@ -134,7 +143,9 @@ class SessionPool:
             ) from None
 
     def _zero(self, slot: int) -> None:
-        # in place: the block's tensors belong to the pool alone
+        # in place: the block's tensors belong to the pool alone.  One row
+        # per admit, so it stays eager, as does restore's row load (the
+        # reference jits them as _clear_slot and _load_slot)
         for key in _STATE_KEYS:
             for leaf in self._state[key]:
                 leaf[slot] = 0.0
@@ -165,13 +176,7 @@ class SessionPool:
                 )
             x[slot] = sample
             mask[slot] = True
-        dev = self.engine.device
-        x_t = torch.from_numpy(x).to(dev)
-        keep = torch.from_numpy(mask).to(dev)
-        y_t, self._state = self.engine.stream_masked(x_t, self._state, keep)
-        sq = torch.mean(torch.square(y_t.float() - x_t), dim=-1)
-        self._sq_sum = self._sq_sum + torch.where(keep, sq, 0.0)
-        self._steps = self._steps + keep.to(torch.int32)
+        self.engine.run_program("mstep", self._advance, (x, mask), graphs=self._graphs)
         self.telemetry.record_pool_step(len(slots), self.capacity)
         errs = self.errors().cpu().numpy()
         # the readback waited for the device, so this wall time covers the
@@ -180,6 +185,22 @@ class SessionPool:
             "pool_step_ms", (self.telemetry.now() - t0) * 1e3
         )
         return {sid: float(errs[slot]) for sid, slot in zip(inputs, slots)}
+
+    def _advance(self, x_t: torch.Tensor, keep: torch.Tensor) -> None:
+        """The pool step, in place: every slot's (h, c) one masked
+        timestep; the stepped slots' squared errors and step counts."""
+        y_t, state = self.engine._masked_stream_step(x_t, self._state, keep)
+        for key in _STATE_KEYS:
+            for leaf, new in zip(self._state[key], state[key]):
+                leaf.copy_(new)
+        sq = torch.mean(torch.square(y_t.float() - x_t), dim=-1)
+        self._sq_sum += torch.where(keep, sq, 0.0)
+        self._steps += keep.to(torch.int32)
+
+    @property
+    def captures(self) -> int:
+        """Captures of the pool step (0 when the engine runs eagerly)."""
+        return 0 if self._graphs is None else self._graphs.captures
 
     # -- durability export / restore --------------------------------------
     #

@@ -12,7 +12,8 @@ placement (``max_batch`` itself on one GPU) — so the set of shapes is
 bounded by the ladder; padding lanes are masked out of the scores (LSTM
 causality makes end-padding exact, see ``Engine.score_masked``).  Under
 the ``fused`` schedule each flush launches K1 6 x bucket_T times for a
-six-layer model.
+six-layer model; a capturing engine captures each such shape once and
+replays one CUDA graph per flush.
 
 Backpressure: ``submit`` raises :class:`GatewayOverloadedError` once
 ``max_queue`` requests are pending (admission control, not silent
@@ -176,11 +177,16 @@ class MicroBatcher:
         # window with zero allocation on the hot path.  Safe to reuse
         # because every flush has finished reading its buffer before the
         # next one writes it: Engine.score_masked moves the buffer to the
-        # GPU with a pageable, blocking host-to-device copy (torch's
-        # as_tensor(..., device=...)), which returns only once the host
+        # GPU with a pageable, blocking host-to-device copy (eagerly
+        # torch's as_tensor(..., device=...); captured, the copy_ into the
+        # program's static input), which returns only once the host
         # buffer may be reused — on the CPU the engine reads it in place,
         # synchronously — and the scores' .cpu() ends the flush besides.
         # A pinned buffer copied with non_blocking=True would race.
+        # Each (lanes, bucket_T, F) is one captured program on a capturing
+        # engine.  Its replay is not re-entrant (one static input per
+        # shape): flushes must not run from two threads at once, which a
+        # threaded transport (ROADMAP.md, queue 1, item 7) has to ensure.
         self._pad: dict[int, tuple[np.ndarray, np.ndarray]] = {}
 
     @property

@@ -10,3 +10,16 @@
 The kernels are built and loaded inside the calls that launch them, never
 at import, so the package imports where there is no CUDA toolkit.
 """
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``; while
+    the current stream is being captured into a CUDA graph the launch is
+    only recorded, so it goes to ``wrapper.captured`` instead, and each
+    replay of the graph adds it to ``launches`` (``engine/capture.py``)."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1

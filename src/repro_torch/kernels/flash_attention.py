@@ -61,7 +61,7 @@ import functools
 import math
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 128)
@@ -163,7 +163,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     any shape, dtype or layout the kernel does not take (d outside
     :data:`HEAD_DIMS`, a bf16 row off 16 bytes), and when the launch is
     refused.  Each launch adds one
-    to ``flash_attention_cuda.launches``."""
+    to ``flash_attention_cuda.launches`` (``.captured``
+    while a CUDA graph is being captured; :func:`~repro_torch.kernels.count_launch`)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
     if q.device.index != torch.cuda.current_device():
@@ -200,8 +201,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
             f"flash_attention kernel launch failed: "
             f"{lib.flash_attention_error_string(rc).decode()} "
             f"(B={bsz}, H={heads}, S={s}, Sk={sk}, d={d}, dtype={q.dtype}, causal={causal})")
-    flash_attention_cuda.launches += 1
+    count_launch(flash_attention_cuda)
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.captured = 0   # recorded into CUDA graphs, see count_launch

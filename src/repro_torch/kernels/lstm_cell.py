@@ -17,9 +17,10 @@ The tile is chosen by shape (:func:`lstm_cell_tile`): large batches take
 64-row tiles, small ones (the gateway's flushes, B = 1) spread over
 hidden-unit blocks.  Its bound on an H100 is the larger of 8·B·H·(In+H)
 FLOP at 67 TFLOP/s and its bytes at 3.35 TB/s; at the paper's widths the
-operations bound it.  Left for later: a CUDA graph over the serving path's
-per-(layer, timestep) launches, which leave the host, not the kernel, the
-bottleneck there.
+operations bound it.  The engine captures the serving path's
+per-(layer, timestep) launches into one CUDA graph per shape
+(``engine/capture.py``), so the host issues one graph launch per request,
+not one launch per cell step.
 
 Weights are gate-major: wx (4, In, H), wh (4, H, H), b (4, H), f32
 (:func:`pack_weights` converts the core layout).  x and h are f32 or bf16;
@@ -40,7 +41,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -146,7 +147,8 @@ def lstm_cell_cuda(x, h, c, wx, wh, b, *, pwl: bool = False,
 
     Returns (h', c').  Raises on a CPU tensor, on any shape, dtype, layout or
     aliasing the kernel does not take, and when the launch is refused.
-    Each launch adds one to ``lstm_cell_cuda.launches``."""
+    Each launch adds one to ``lstm_cell_cuda.launches`` (``.captured``
+    while a CUDA graph is being captured; :func:`~repro_torch.kernels.count_launch`)."""
     if x.device.type != "cuda":
         raise ValueError(f"lstm_cell_cuda needs CUDA tensors, got {x.device}")
     if x.device.index != torch.cuda.current_device():
@@ -166,8 +168,9 @@ def lstm_cell_cuda(x, h, c, wx, wh, b, *, pwl: bool = False,
         raise RuntimeError(
             f"lstm_cell kernel launch failed: {lib.lstm_cell_error_string(rc).decode()} "
             f"(B={bsz}, In={in_dim}, H={h.shape[1]}, dtype={x.dtype})")
-    lstm_cell_cuda.launches += 1
+    count_launch(lstm_cell_cuda)
     return h_out, c_out
 
 
 lstm_cell_cuda.launches = 0
+lstm_cell_cuda.captured = 0   # recorded into CUDA graphs, see count_launch

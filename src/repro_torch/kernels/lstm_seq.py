@@ -42,7 +42,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -144,7 +144,8 @@ def lstm_seq_cuda(xs, h0, c0, wx, wh, b, *, pwl: bool = False):
 
     Returns (ys, (h_T, c_T)).  Raises on a CPU tensor, on any shape, dtype
     or layout the kernel does not take, and when the launch is refused.
-    Each launch adds one to ``lstm_seq_cuda.launches``."""
+    Each launch adds one to ``lstm_seq_cuda.launches`` (``.captured``
+    while a CUDA graph is being captured; :func:`~repro_torch.kernels.count_launch`)."""
     if xs.device.type != "cuda":
         raise ValueError(f"lstm_seq_cuda needs CUDA tensors, got {xs.device}")
     if xs.device.index != torch.cuda.current_device():
@@ -172,8 +173,9 @@ def lstm_seq_cuda(xs, h0, c0, wx, wh, b, *, pwl: bool = False):
         raise RuntimeError(
             f"lstm_seq kernel launch failed: {lib.lstm_seq_error_string(rc).decode()} "
             f"(T={t_len}, B={bsz}, In={in_dim}, H={hidden}, dtype={xs.dtype})")
-    lstm_seq_cuda.launches += 1
+    count_launch(lstm_seq_cuda)
     return ys, (h_t.to(h0.dtype), c_t)
 
 
 lstm_seq_cuda.launches = 0
+lstm_seq_cuda.captured = 0   # recorded into CUDA graphs, see count_launch

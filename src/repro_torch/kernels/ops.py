@@ -120,14 +120,27 @@ def flash_attention_op(q, k, v, *, causal: bool = True):
     return flash_attention_plain(qt, kt, vt, causal=causal).transpose(1, 2).contiguous()
 
 
+_WRAPPERS = {"lstm_cell": lstm_cell_cuda, "lstm_seq": lstm_seq_cuda, "wkv6": wkv6_cuda,
+             "flash_attention": flash_attention_cuda}
+
+
 def launch_counts() -> dict[str, int]:
-    """Kernel launches so far, by kernel (plain-version calls are not counted)."""
-    return {"lstm_cell": lstm_cell_cuda.launches, "lstm_seq": lstm_seq_cuda.launches,
-            "wkv6": wkv6_cuda.launches, "flash_attention": flash_attention_cuda.launches}
+    """Kernel launches so far, by kernel (plain-version calls are not
+    counted; a CUDA graph's launches count at each replay)."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    lstm_cell_cuda.launches = 0
-    lstm_seq_cuda.launches = 0
-    wkv6_cuda.launches = 0
-    flash_attention_cuda.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
+
+
+def captured_counts() -> dict[str, int]:
+    """Kernel launches recorded into CUDA graphs so far, by kernel."""
+    return {name: fn.captured for name, fn in _WRAPPERS.items()}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count the kernel launches of one CUDA graph replay."""
+    for name, n in counts.items():
+        _WRAPPERS[name].launches += n

@@ -37,7 +37,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64)
@@ -117,7 +117,8 @@ def wkv6_cuda(r, k, v, w, u, s0):
     the kernel does not take (hd outside :data:`HEAD_DIMS`), and when the
     launch is refused.  The kernel copies the streams 16 bytes at a time, so
     a stream whose data does not start on 16 bytes is copied to one that
-    does first.  Each launch adds one to ``wkv6_cuda.launches``."""
+    does first.  Each launch adds one to ``wkv6_cuda.launches`` (``.captured``
+    while a CUDA graph is being captured; :func:`~repro_torch.kernels.count_launch`)."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_cuda needs CUDA tensors, got {r.device}")
     if r.device.index != torch.cuda.current_device():
@@ -142,8 +143,9 @@ def wkv6_cuda(r, k, v, w, u, s0):
         raise RuntimeError(
             f"wkv6 kernel launch failed: {lib.wkv6_error_string(rc).decode()} "
             f"(B={bsz}, T={t_len}, H={heads}, hd={hd}, dtype={r.dtype})")
-    wkv6_cuda.launches += 1
+    count_launch(wkv6_cuda)
     return y, s_out
 
 
 wkv6_cuda.launches = 0
+wkv6_cuda.captured = 0   # recorded into CUDA graphs, see count_launch

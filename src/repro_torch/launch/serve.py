@@ -11,9 +11,13 @@ Modes, as in the reference launcher:
   stream (``--max-batch`` / ``--max-wait-ms``), printing the ``[gateway]``
   lines and its telemetry.
 
+With ``--train-steps N`` either mode first fits the service for N steps
+on benign windows (``AnomalyService.fit``, batch 64 at ``--seq-len``),
+calibrates its threshold on them and prints the ``fitted`` line.
+
 The device defaults to the GPU and never falls back to the CPU:
-``--device cpu`` asks for it.  The socket transport, worker processes and
-training are not ported yet; their flags exit with an error that names the
+``--device cpu`` asks for it.  The socket transport and worker processes
+are not ported yet; their flags exit with an error that names the
 ``ROADMAP.md`` item that will port them.
 """
 from __future__ import annotations
@@ -33,12 +37,24 @@ from repro_torch.engine import AnomalyService, available_schedules
 NOT_PORTED = {
     "http": "ROADMAP.md, queue 1, item 7 (transport)",
     "workers": "ROADMAP.md, queue 1, item 8 (durability and multi-process)",
-    "train_steps": "ROADMAP.md, queue 1, item 5 (fit: AdamW and the train step)",
 }
+
+
+def fit_and_calibrate(svc, args) -> dict:
+    """Fit ``svc`` for ``--train-steps`` steps on benign windows, then
+    calibrate its threshold on them; returns the final train metrics."""
+    fit_cfg = TimeseriesConfig(features=svc.features, seq_len=args.seq_len, batch=64)
+    metrics = svc.fit(fit_cfg, args.train_steps)
+    svc.calibrate(fit_cfg)
+    return metrics
 
 
 def serve_lstm_ae(cfg, args) -> None:
     svc = AnomalyService(cfg, schedule=args.schedule, device=args.device)
+    if args.train_steps:
+        metrics = fit_and_calibrate(svc, args)
+        print(f"[serve] fitted {cfg.name}: mse={metrics['mse']:.4f}, "
+              f"threshold={svc.threshold:.4f}")
     data_cfg = TimeseriesConfig(features=cfg.lstm_ae.input_features,
                                 seq_len=args.seq_len, batch=args.batch,
                                 anomaly_rate=0.05)
@@ -71,6 +87,9 @@ def serve_gateway(cfg, args) -> None:
 
     svc = AnomalyService(cfg, schedule=args.schedule, device=args.device)
     feats = cfg.lstm_ae.input_features
+    if args.train_steps:
+        fit_and_calibrate(svc, args)
+        print(f"[gateway] fitted {cfg.name}: threshold={svc.threshold:.4f}")
     gw = svc.open_gateway(capacity=args.capacity, max_batch=args.max_batch,
                           max_wait_ms=args.max_wait_ms)
     dev = svc.device
@@ -125,7 +144,8 @@ def main(argv=None) -> None:
                     help="LSTM-AE execution schedule (engine registry name)")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises without a GPU)")
-    ap.add_argument("--train-steps", type=int, default=0, help="not ported yet")
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="fit the service for this many steps first (0: seeded init)")
     ap.add_argument("--gateway", action="store_true",
                     help="streaming gateway mode (session pool + micro-batched queue)")
     ap.add_argument("--capacity", type=int, default=32,

@@ -1,9 +1,11 @@
 """Model functions of the paper's LSTM-AE family.
 
-Counterpart of ``repro/models/lstm_ae.py``: serving delegates to the engine's
-schedule registry (``prefill``); streaming carries per-layer (h, c) state,
-one timestep through all layers per call.  ``train_loss`` waits for the
-training slice.
+Counterpart of ``repro/models/lstm_ae.py``.  Training uses the
+layer-by-layer schedule in plain PyTorch (``train_loss``; the gradient math
+is schedule-independent, and autograd runs through it as the reference's
+``jax.value_and_grad`` does, with no kernel on the path); serving
+delegates to the engine's schedule registry (``prefill``); streaming
+carries per-layer (h, c) state, one timestep through all layers per call.
 """
 from __future__ import annotations
 
@@ -11,8 +13,16 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config.core import ModelConfig
-from repro_torch.core.lstm import lstm_cell
+from repro_torch.core.lstm import lstm_ae_sequential, lstm_cell
 from repro_torch.utils import Params
+
+
+def train_loss(params: Params, batch: dict, cfg: ModelConfig, **_) -> tuple[torch.Tensor, dict]:
+    """batch: series (B, T, F) -> mean reconstruction MSE."""
+    xs = batch["series"].transpose(0, 1)  # (T, B, F)
+    recon = lstm_ae_sequential(params, xs)
+    err = torch.mean(torch.square(recon.float() - xs.float()))
+    return err, {"mse": err}
 
 
 def prefill(params: Params, batch: dict, cfg: ModelConfig, schedule: str = "wavefront",

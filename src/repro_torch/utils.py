@@ -1,4 +1,5 @@
-"""Parameter helpers: initialisation and the weight carrier to and from numpy.
+"""Parameter helpers: initialisation, the weight carrier to and from numpy,
+and walks over parameter trees.
 
 Parameters are plain nested containers of tensors, in the JAX package's
 layout: ``{"layers": ({"wx": (In, 4H), "wh": (H, 4H), "b": (4H,)}, ...)}``.
@@ -32,12 +33,24 @@ def truncated_normal_init(
     return t * std
 
 
-def _map(tree: Params, fn) -> Params:
+def tree_map(fn, tree: Params, *rest: Params) -> Params:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of ``rest``
+    (trees of the same structure); returns a tree of the same containers."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(v, fn) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Params) -> list:
+    """The leaves in ``jax.tree_util.tree_leaves`` order: dict keys sorted,
+    sequences in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
 
 
 def params_from_numpy(tree: Params, device: Union[str, torch.device, None] = None) -> Params:
@@ -49,9 +62,9 @@ def params_from_numpy(tree: Params, device: Union[str, torch.device, None] = Non
     def leaf(a):
         return a.to(dev) if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a)).to(dev)
 
-    return _map(tree, leaf)
+    return tree_map(leaf, tree)
 
 
 def params_to_numpy(tree: Params) -> Params:
     """Tensors -> numpy arrays on the host, same containers."""
-    return _map(tree, lambda t: t.detach().cpu().numpy())
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -8,6 +8,7 @@ import functools
 import os
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -31,6 +32,7 @@ from repro_torch.kernels.ops import (  # noqa: E402
     lstm_seq_op,
     wkv6_op,
 )
+from repro_torch.utils import tree_leaves  # noqa: E402
 
 SHAPES = [(16, 16), (32, 64), (64, 128), (128, 256), (64, 32), (8, 4)]
 
@@ -623,3 +625,260 @@ def test_launch_counters_count_kernel_launches_only(cuda):
         tf.flash_attention_cuda(q[..., :32], k[..., :32], v[..., :32])
     torch.cuda.synchronize()
     assert launch_counts() == {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 1, "flash_attention": 2}
+
+
+# -- captured programs (engine/capture.py) -----------------------------------
+
+CAPTURE_ARCH = "lstm-ae-f32-d6"
+
+
+def _capture_pair(schedule, cuda):
+    """A capturing engine and an eager (jit=False) one on the same params."""
+    from repro_torch.engine import EngineConfig
+
+    cfg = get_config(CAPTURE_ARCH)
+    params = init_lstm_ae(torch.Generator().manual_seed(3), cfg, device=cuda)
+    captured = build_engine(cfg, EngineConfig(schedule=schedule), params=params, device=cuda)
+    eager = build_engine(cfg, EngineConfig(schedule=schedule, jit=False), params=params,
+                         device=cuda)
+    assert captured._graphs is not None and eager._graphs is None
+    return captured, eager
+
+
+def _programs(engine, series, lengths, state, mask):
+    """Every program of the engine once: reconstruct, score, score_masked,
+    step, mstep (the stream outputs flattened)."""
+    y, st = engine.stream(series[:, 0], state)
+    my, mst = engine.stream_masked(series[:, 1], state, mask)
+    return [engine.reconstruct({"series": series}), engine.score({"series": series}),
+            engine.score_masked({"series": series, "lengths": lengths}),
+            y, *st["h"], *st["c"], my, *mst["h"], *mst["c"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["sequential", "wavefront", "pipelined", "fused"])
+def test_captured_programs_equal_eager(cuda, schedule):
+    """Every program, captured (first call: the warm-up; later: replays)
+    against the same program run eagerly, within the schedule bar of
+    tests/test_engine.py::test_schedule_equivalence (1e-5 / 1e-6)."""
+    captured, eager = _capture_pair(schedule, cuda)
+    gen = torch.Generator().manual_seed(4)
+    series = torch.randn(6, 9, 32, generator=gen)
+    lengths = torch.tensor([9, 1, 4, 7, 9, 2], dtype=torch.int32)
+    state = eager.init_stream_state(6)
+    state["h"] = tuple(torch.randn(h.shape, generator=gen).to(cuda) for h in state["h"])
+    mask = torch.tensor([True, False, True, True, False, True])
+    want = _programs(eager, series, lengths, state, mask)
+    for call in range(3):
+        got = _programs(captured, series, lengths, state, mask)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    info = captured.profile_info()
+    assert info["compiles"] == 5 and len(captured._graphs.programs) == 5
+    assert captured._graphs.replays == 10
+    assert set(info["per_program"]) == {"reconstruct", "score", "score_masked", "step", "mstep"}
+
+
+@pytest.mark.cuda
+def test_captured_fused_schedule_counts_every_launch(cuda):
+    """The fused schedule is captured whole: the graph holds depth x T K1
+    launches, and every call (the warm-up, then each replay) counts them."""
+    captured, _ = _capture_pair("fused", cuda)
+    depth, t_len = len(captured.params["layers"]), 9
+    series = torch.randn(5, t_len, 32, generator=torch.Generator().manual_seed(5))
+    for call in range(3):
+        before = launch_counts()["lstm_cell"]
+        captured.score({"series": series})
+        assert launch_counts()["lstm_cell"] == before + depth * t_len
+    (prog,) = captured._graphs.programs.values()
+    assert prog.launches == {"lstm_cell": depth * t_len} and prog.replays == 2
+
+
+@pytest.mark.cuda
+def test_bind_after_capture_serves_the_new_params(cuda):
+    """Binding params of the same layout copies them in place: the captured
+    graph serves them, nothing is recaptured.  A new layout (f64 params on
+    the wavefront schedule) drops the graphs and recaptures at the next
+    call."""
+    captured, eager = _capture_pair("wavefront", cuda)
+    series = torch.randn(4, 7, 32, generator=torch.Generator().manual_seed(6))
+    captured.score({"series": series})
+    bound = [t.data_ptr() for t in tree_leaves(captured._weights)]
+    other = init_lstm_ae(torch.Generator().manual_seed(9), captured.cfg, device="cpu")
+    for engine in (captured, eager):
+        engine.bind(other)
+    assert [t.data_ptr() for t in tree_leaves(captured._weights)] == bound
+    got = captured.score({"series": series})
+    torch.testing.assert_close(got, eager.score({"series": series}), rtol=1e-5, atol=1e-6)
+    assert captured.profile_info()["compiles"] == 1 and captured._graphs.replays == 1
+    wide = {"layers": tuple({k: v.double() for k, v in layer.items()}
+                            for layer in other["layers"])}
+    for engine in (captured, eager):
+        engine.bind(wide)
+    assert captured.params["layers"][0]["wx"].dtype == torch.float64
+    assert not captured._graphs.programs
+    got = captured.score({"series": series})
+    torch.testing.assert_close(got, eager.score({"series": series}), rtol=1e-5, atol=1e-6)
+    assert captured.profile_info()["compiles"] == 2
+
+
+@pytest.mark.cuda
+def test_captured_results_belong_to_the_caller(cuda):
+    """A later call never overwrites what an earlier call returned; a new
+    shape adds exactly one capture, a seen one none."""
+    captured, eager = _capture_pair("fused", cuda)
+    gen = torch.Generator().manual_seed(7)
+    xs = [torch.randn(4, 8, 32, generator=gen) for _ in range(3)]
+    outs = [captured.reconstruct({"series": x}) for x in xs]
+    for x, out in zip(xs, outs):
+        torch.testing.assert_close(out, eager.reconstruct({"series": x}), rtol=1e-5, atol=1e-6)
+    assert captured.profile_info()["compiles"] == 1
+    captured.reconstruct({"series": torch.randn(5, 8, 32, generator=gen)})
+    assert captured.profile_info()["compiles"] == 2 and len(captured._graphs.programs) == 2
+    captured.reconstruct({"series": xs[0]})
+    assert captured.profile_info()["compiles"] == 2
+
+
+@pytest.mark.cuda
+def test_capture_refusing_a_launch_raises(cuda):
+    """A kernel that refuses its launch raises out of the first call (its
+    warm-up) and leaves no program behind; nothing runs eagerly instead."""
+    captured, _ = _capture_pair("fused", cuda)
+    rows = 65535 * 64 + 1     # one row past K1's grid (test_refused_launch_raises)
+    with pytest.raises(RuntimeError, match="lstm_cell kernel launch failed"):
+        captured.score({"series": torch.zeros(rows, 1, 32, device=cuda)})
+    assert not captured._graphs.programs and captured.profile_info()["compiles"] == 0
+
+
+@pytest.mark.cuda
+def test_capture_refusing_a_launch_inside_the_graph_raises(cuda, monkeypatch):
+    """A K1 launch that the warm-up makes but the capture refuses raises out
+    of the capture and leaves no program behind; nothing runs eagerly
+    instead."""
+    captured, _ = _capture_pair("fused", cuda)
+    real = tk._lib()
+
+    class RefusedWhileCapturing:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def lstm_cell_forward(self, *args):
+            if torch.cuda.is_current_stream_capturing():
+                return 9      # cudaErrorInvalidConfiguration
+            return real.lstm_cell_forward(*args)
+
+    monkeypatch.setattr(tk, "_lib", RefusedWhileCapturing)
+    before = launch_counts()["lstm_cell"]
+    series = torch.randn(4, 3, 32, generator=torch.Generator().manual_seed(11))
+    with pytest.raises(RuntimeError, match="lstm_cell kernel launch failed"):
+        captured.score({"series": series})
+    depth = len(captured.params["layers"])
+    assert launch_counts()["lstm_cell"] == before + depth * 3     # the warm-up's alone
+    assert not captured._graphs.programs and captured.profile_info()["compiles"] == 0
+
+
+@pytest.mark.cuda
+def test_a_params_snapshot_serves_again_after_a_swap(cuda):
+    """The reference's swap and restore (tests/test_gateway.py::
+    test_recalibrate_swaps_params_atomically) on a captured engine: a
+    snapshot of ``svc.params`` taken before a swap is not written by the
+    swap, and rebinding it serves it again, through the score graph and
+    the gateway's pool step, without a recapture."""
+    from repro_torch.engine import AnomalyService
+
+    svc = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda)
+    other = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda, seed=5)
+    gw = svc.open_gateway(capacity=2, max_batch=2)
+    series = torch.randn(3, 6, svc.features, generator=torch.Generator().manual_seed(12))
+
+    def served():
+        gw.admit("a")
+        for t in range(series.shape[1]):
+            running = gw.step({"a": series[0, t].numpy()})["a"]
+        gw.evict("a")
+        return svc.score(series), running
+
+    old = svc.params
+    kept = [t.clone() for t in tree_leaves(old)]
+    want, want_running = served()
+    compiles = svc.engine.profile_info()["compiles"]
+    svc.recalibrate(params=other.params)
+    swapped, _ = served()
+    torch.testing.assert_close(swapped, other.score(series), rtol=1e-5, atol=1e-6)
+    assert not torch.allclose(swapped, want, rtol=1e-5, atol=1e-6)
+    svc.recalibrate(params=old)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(old), kept))
+    got, got_running = served()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert got_running == pytest.approx(want_running, rel=1e-5, abs=1e-6)
+    assert svc.engine.profile_info()["compiles"] == compiles
+
+
+@pytest.mark.cuda
+def test_each_pool_counts_its_own_capture(cuda):
+    """Two pools on one captured engine each capture their step, and each
+    capture counts in the engine's profile."""
+    from repro_torch.engine import AnomalyService
+
+    svc = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda)
+    x = np.zeros(svc.features, np.float32)
+    for n in (1, 2):
+        gw = svc.open_gateway(capacity=4, max_batch=4)
+        gw.admit("a")
+        gw.step({"a": x})
+        gw.step({"a": x})
+        assert gw.pool.captures == 1
+        assert svc.engine.profile_info()["per_program"]["mstep"]["compiles"] == n
+
+
+@pytest.mark.cuda
+def test_pool_churn_adds_no_capture(cuda):
+    """The pool step is one captured program per pool: slot churn (admit,
+    evict, reset, restore) replays it and equals the eager pool."""
+    from repro_torch.engine import AnomalyService, EngineConfig
+    from repro_torch.gateway import drive_stream_churn
+
+    svc = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda)
+    eager = AnomalyService(CAPTURE_ARCH, schedule=EngineConfig("fused", jit=False), device=cuda)
+    eager.recalibrate(params=svc.params)
+    windows = torch.randn(20, 12, svc.features, generator=torch.Generator().manual_seed(8))
+    finals = []
+    for s in (svc, eager):
+        gw = s.open_gateway(capacity=6, max_batch=4)
+        finals.append(drive_stream_churn(gw, windows, churn_every=3)[0])
+        gw.admit("x")
+        gw.reset("x")
+        rows, sq, n = gw.pool.export_slot("x")
+        gw.evict("x")
+        gw.pool.restore("y", rows, sq, n)
+        gw.step({"y": windows[0, 0].numpy()})
+        finals[-1]["y"] = gw.evict("y")
+        assert gw.pool.captures == (1 if s is svc else 0)
+    assert finals[0].keys() == finals[1].keys()
+    for sid in finals[0]:
+        assert finals[0][sid] == pytest.approx(finals[1][sid], rel=1e-5, abs=1e-6)
+
+
+@pytest.mark.cuda
+def test_fit_on_the_card_matches_the_cpu(cuda):
+    """Three steps of AnomalyService.fit on the card against the same fit on
+    the CPU (same seed, so the same init, and the same batches): loss within
+    rtol 1e-5, params within atol 1e-5; the captured engine then scores
+    with the fitted params."""
+    from repro_torch.data import TimeseriesConfig
+    from repro_torch.engine import AnomalyService
+
+    dc = TimeseriesConfig(features=32, seq_len=16, batch=32)
+    gpu = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda)
+    cpu = AnomalyService(CAPTURE_ARCH, schedule="fused", device="cpu")
+    series = torch.randn(8, 16, 32, generator=torch.Generator().manual_seed(10))
+    before = gpu.score(series)             # captured before the fit
+    got, want = gpu.fit(dc, steps=3), cpu.fit(dc, steps=3)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-5)
+    for g, w in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-5)
+    after = gpu.score(series)
+    assert gpu.engine.profile_info()["compiles"] == 1      # the fit rebound in place
+    assert float((after - before).abs().max()) > 0
+    torch.testing.assert_close(after.cpu(), cpu.score(series), rtol=1e-4, atol=1e-6)

@@ -21,6 +21,7 @@ from repro.engine import AnomalyService as JaxAnomalyService  # noqa: E402
 from repro.gateway import AnomalyGateway as JaxAnomalyGateway  # noqa: E402
 from repro.gateway import bucket_for as jax_bucket_for  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
+from repro_torch.data import TimeseriesConfig  # noqa: E402
 from repro_torch.engine import (  # noqa: E402
     AnomalyService,
     Placement,
@@ -37,6 +38,7 @@ from repro_torch.gateway import (  # noqa: E402
     drive_stream_churn,
 )
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -403,6 +405,24 @@ def test_recalibrate_swaps_params_atomically():
     np.testing.assert_allclose(_direct(svc, w), _direct(other, w), rtol=RTOL, atol=ATOL)
 
 
+def test_recalibrate_restores_a_params_snapshot():
+    """The reference's swap and restore (tests/test_gateway.py::
+    test_recalibrate_swaps_params_atomically): a snapshot of ``svc.params``
+    taken before a swap or a fit is not written by either, and rebinding it
+    serves it again."""
+    svc, other = _svc(), _svc(seed=123)
+    gw = AnomalyGateway(svc, capacity=2, max_batch=1, max_wait_ms=0.0)
+    w = _series(6, 8)
+    old, want = svc.params, (gw.score([w])[0], _direct(svc, w))
+    kept = [t.clone() for t in tree_leaves(old)]
+    gw.recalibrate(params=other.params)
+    np.testing.assert_allclose(gw.score([w])[0], _direct(other, w), rtol=RTOL, atol=ATOL)
+    svc.fit(TimeseriesConfig(features=FEATS, seq_len=8, batch=4), steps=1)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(old), kept))
+    gw.recalibrate(params=old)
+    assert (gw.score([w])[0], _direct(svc, w)) == want
+
+
 def test_gateway_over_bare_engine_owns_threshold(svc):
     gw = AnomalyGateway(svc.engine, capacity=1)
     assert gw.service is None and gw.threshold is None
@@ -572,6 +592,11 @@ def test_launcher_gateway_mode(capsys):
     assert "1 still waiting at end" in lines[2]
     assert "scored 5 one-shot requests" in lines[3]
     assert "stream_steps_per_s=" in lines[4] and "rejected=0" in lines[4]
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", ARCH, "--gateway", "--device", "cpu", "--train-steps", "2"])
-    assert "item 5" in capsys.readouterr().err
+    # --train-steps fits and calibrates first, then serves as above
+    serve.main(["--arch", ARCH, "--gateway", "--device", "cpu", "--train-steps", "2",
+                "--capacity", "3", "--max-batch", "2", "--seq-len", "10", "--requests", "5",
+                "--streams", "5"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[gateway]")]
+    assert len(lines) == 6 and lines[0].startswith(f"[gateway] fitted {ARCH}")
+    assert "threshold=" in lines[0]
+    assert "scored 5 one-shot requests" in lines[4] and "alerts=" in lines[4]

@@ -115,10 +115,26 @@ def test_launcher_runs_on_cpu_when_asked(schedule, capsys):
     assert "timesteps/s" in out and "[serve] Eq-1 model" in out
 
 
-@pytest.mark.parametrize("flag,item", [(["--gateway", "--train-steps", "2"], "item 5"),
-                                       (["--http"], "item 7"),
-                                       (["--workers", "2"], "item 8"),
-                                       (["--train-steps", "5"], "item 5")])
+def test_launcher_fits_then_serves(capsys):
+    serve.main(["--arch", "lstm-ae-f32-d2", "--device", "cpu", "--train-steps", "2",
+                "--batch", "4", "--seq-len", "8", "--requests", "2"])
+    out = capsys.readouterr().out
+    fitted = [ln for ln in out.splitlines() if ln.startswith("[serve] fitted lstm-ae-f32-d2")]
+    assert len(fitted) == 1 and "mse=" in fitted[0] and "threshold=" in fitted[0]
+    assert "alerts=" in out and "[serve] lstm-ae-f32-d2-reduced [wavefront]: 2 requests" in out
+
+
+def test_launcher_fits_then_opens_the_gateway(capsys):
+    serve.main(["--arch", "lstm-ae-f32-d2", "--device", "cpu", "--train-steps", "2", "--gateway",
+                "--seq-len", "8", "--requests", "4", "--capacity", "4", "--max-batch", "4"])
+    out = capsys.readouterr().out
+    fitted = [ln for ln in out.splitlines() if ln.startswith("[gateway] fitted lstm-ae-f32-d2")]
+    assert len(fitted) == 1 and "threshold=" in fitted[0]
+    assert "[gateway] scored 4 one-shot requests" in out and "alerts=" in out
+
+
+@pytest.mark.parametrize("flag,item", [(["--http"], "item 7"),
+                                       (["--workers", "2"], "item 8")])
 def test_launcher_rejects_unported_modes(flag, item, capsys):
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "lstm-ae-f32-d2", "--device", "cpu", *flag])
