@@ -55,6 +55,25 @@ toolkit.  It
    one graph per bucket (6 x bucket_T K1 launches inside each) and the
    second only replays, and the pool step is timed captured and eager (a
    second gateway on an eager engine);
+8a. drives that gateway over the socket transport: a ``GatewayServer`` on
+   its own thread with durable sessions on a temporary store and a
+   ``MetricsServer``.  512 windows of T=64 over bp1 in pipelined frames
+   of 64 (the first pass captures the bucket on the server's thread) and
+   over JSON lines, bit-equal to each other and within 1e-5 / 1e-6 of the
+   same gateway's in-process ``gw.score`` (whether bit-equal is printed),
+   and single-window requests from 16 connections (p50/p99 ms as the
+   client sees them); 64 streaming sessions on 64 connections from 4
+   threads (16 sampled against solo ``stream_step``), a ``snapshot`` op,
+   half the connections dropped (parked), the server drained (the
+   handoff snapshot) and a second server on the same store resuming every
+   session by its token: the finished windows must be bit-equal to an
+   uninterrupted in-process run, and the restores must cause no
+   recapture; 16 tickets that only the drain can flush, all answered; one
+   ``GET /metrics``.  K1's launches over the phase must be 6 x 64 per
+   flush, and at the end of the run (11.) one flush over the socket under
+   the profiler must show the device running 6 x 64 K1 kernels, after a
+   profiled repeat of the bp1 pass that gives the device's idle share
+   over it and its windows per flush;
 9. holds K3 (the RWKV-6 WKV recurrence) to its plain version at the
    reference sweep, f32 and bf16, chunk chaining, and rwkv6-7b's heads
    (H=64, hd=64) at train_4k's T=4096, B=32, there also with decays drawn
@@ -85,7 +104,7 @@ toolkit.  It
    main path's launch count must be 3 requests x that figure; then splits
    one fit step of 5a into its parts, each timed alone (the host's batch,
    its copy to the card, the train step) with one profiler pass over the
-   train step.
+   train step; and profiles a bp1 pass and one socket flush of 8a.
 
 The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
@@ -187,6 +206,15 @@ K1_BATCHES = (1, RAGGED_B, GATEWAY_MAX_BATCH, 8192)
 GATEWAY_STREAMS = 2048
 GATEWAY_WINDOWS = 512
 GATEWAY_SAMPLED = 16
+# the socket transport in front of that gateway: streaming sessions (one
+# per connection) and the client threads that drive them, samples per STEP
+# frame, connections of the closed-loop latency run, tickets left for the
+# drain to answer
+TRANSPORT_SESSIONS = 64
+TRANSPORT_THREADS = 4
+TRANSPORT_STEP_FRAME = 8
+TRANSPORT_LATENCY_CONNS = 16
+TRANSPORT_DRAIN_TICKETS = 16
 
 
 def log(msg: str) -> None:
@@ -703,6 +731,392 @@ def drive_gateway(torch, results, card) -> int:
         f"with the eager engine's score_masked of its window alone (max abs diff {worst:.3g}) "
         f"[{card}]")
     return steady["k1_launches"]
+
+
+def in_threads(fn, groups) -> float:
+    """``fn(group)`` for each group on a thread of its own, all at once;
+    returns the wall seconds and raises the first failure."""
+    import threading
+
+    errors = []
+
+    def run(group):
+        try:
+            fn(group)
+        except BaseException as exc:   # re-raised below, on the caller's thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(g,)) for g in groups]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    dt = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("client threads did not finish within 300 s")
+    if errors:
+        raise errors[0]
+    return dt
+
+
+def percentile(values, q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q / 100.0 * len(ordered)))]
+
+
+def score_captures(svc) -> int:
+    """Captures of the flush program (``score_masked``) on ``svc``'s engine."""
+    return svc.engine.profile_info()["per_program"].get("score_masked", {}).get("compiles", 0)
+
+
+def drive_transport(torch, results, card):
+    """The gateway at full width behind the socket transport: a
+    ``GatewayServer`` on its own thread with durable sessions and a
+    ``MetricsServer``; one-shot windows over bp1 and JSON, socket streams,
+    a snapshot, dropped connections, a restart on the same store with
+    resume by token, and a drain that must answer every pending ticket.
+    Returns ``(gateway, windows)`` for the profiled flush at the end of the
+    run (its profiler pass must follow every capture)."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from repro_torch.data import TimeseriesConfig, make_batch
+    from repro_torch.engine import AnomalyService
+    from repro_torch.gateway.client import GatewayClient
+    from repro_torch.gateway.durability import enable_durability
+    from repro_torch.gateway.server import GatewayServer
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.obs import Histogram, MetricsServer
+
+    svc = AnomalyService(GATEWAY_ARCH, schedule="fused", device="cuda", seed=0)
+    feats, t_len, depth = svc.features, 64, len(svc.params["layers"])
+    data_cfg = TimeseriesConfig(features=feats, seq_len=t_len, batch=GATEWAY_STREAMS,
+                                anomaly_rate=0.05, seed=7)
+    windows = make_batch(data_cfg, 0)[0].numpy()                 # (N, T, F), as drive_gateway
+    oneshot = [windows[i] for i in range(GATEWAY_WINDOWS)]
+    n_sess, half = TRANSPORT_SESSIONS, TRANSPORT_SESSIONS // 2
+    streams = windows[GATEWAY_WINDOWS:GATEWAY_WINDOWS + n_sess]  # (64, T, F)
+    out = {"arch": GATEWAY_ARCH, "capacity": GATEWAY_CAPACITY, "max_batch": GATEWAY_MAX_BATCH,
+           "windows": GATEWAY_WINDOWS, "seq_len": t_len, "sessions": n_sess}
+
+    # the uninterrupted run of the streams, in-process on a pool of its own:
+    # all sessions step together, one pool step per timestep
+    oracle_gw = svc.open_gateway(capacity=GATEWAY_CAPACITY, max_batch=GATEWAY_MAX_BATCH)
+    for sid in range(n_sess):
+        oracle_gw.admit(sid)
+    oracle_gw.step({sid: streams[sid, 0] for sid in range(n_sess)})     # its capture
+    for sid in range(n_sess):
+        oracle_gw.reset(sid)
+    oracle = np.zeros((n_sess, t_len), np.float32)
+    t0 = time.perf_counter()
+    for t in range(t_len):
+        errs = oracle_gw.step({sid: streams[sid, t] for sid in range(n_sess)})
+        oracle[:, t] = [errs[sid] for sid in range(n_sess)]
+    out["stream_steps_per_s_in_process"] = n_sess * t_len / (time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as store:
+        gw = svc.open_gateway(capacity=GATEWAY_CAPACITY, max_batch=GATEWAY_MAX_BATCH)
+        enable_durability(gw, store)
+        metrics = MetricsServer(gw.stats, port=0).start()
+        server = GatewayServer(gw)
+        host, port = server.start_in_thread()
+        clients = []
+        try:
+            # --- one-shot: pipelined bp1 frames (the first pass captures the
+            # bucket on the server's thread), then JSON lines
+            with GatewayClient(host, port, protocol="binary") as cb:
+                t0 = time.perf_counter()
+                first = cb.score_many(oneshot, windows_per_frame=64)
+                first_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                bp1 = cb.score_many(oneshot, windows_per_frame=64)
+                bp1_s = time.perf_counter() - t0
+            with GatewayClient(host, port, protocol="json") as cj:
+                t0 = time.perf_counter()
+                js = cj.score_many(oneshot)
+                json_s = time.perf_counter() - t0
+            if bp1 != js or first != bp1:
+                raise AssertionError("bp1 and JSON scores of the same windows differ")
+            # closed loop: single-window requests from concurrent connections,
+            # each traced (the server's stages, the client's serialisation,
+            # the rest of the round trip as "wire")
+            traced = {}
+
+            def closed_loop(idx):
+                with GatewayClient(host, port, protocol="binary") as c:
+                    for i in idx:
+                        traced[i] = c.traced_score(oneshot[i])
+
+            conns = TRANSPORT_LATENCY_CONNS
+            loop_s = in_threads(closed_loop, [range(k, GATEWAY_WINDOWS, conns)
+                                              for k in range(conns)])
+            if [traced[i]["score"] for i in range(GATEWAY_WINDOWS)] != bp1:
+                raise AssertionError("closed-loop scores differ from the pipelined ones")
+            latencies = [t["e2e_ms"] for t in traced.values()]
+            captures_oneshot = score_captures(svc)
+            out["oneshot"] = {
+                "first_pass_s": first_s,
+                "bp1_requests_per_s": GATEWAY_WINDOWS / bp1_s,
+                "json_requests_per_s": GATEWAY_WINDOWS / json_s,
+                "closed_loop_connections": conns,
+                "closed_loop_requests_per_s": GATEWAY_WINDOWS / loop_s,
+                "closed_loop_p50_ms": percentile(latencies, 50),
+                "closed_loop_p99_ms": percentile(latencies, 99),
+                "closed_loop_stage_p50_ms": {
+                    name: percentile([t["stages"][name] for t in traced.values()], 50)
+                    for name in traced[0]["stages"]}}
+
+            # --- streaming: one session per connection, driven by a few threads
+            clients.extend(GatewayClient(host, port, protocol="binary") for _ in range(n_sess))
+            got = [[] for _ in range(n_sess)]
+            groups = [range(k, n_sess, TRANSPORT_THREADS) for k in range(TRANSPORT_THREADS)]
+
+            def stepper(lo, hi):
+                def run(sids):
+                    for a in range(lo, hi, TRANSPORT_STEP_FRAME):
+                        for sid in sids:
+                            got[sid].extend(clients[sid].step_many(streams[sid, a:a + TRANSPORT_STEP_FRAME]))
+                return run
+
+            snap_at, drop_at = t_len // 2, t_len // 2 + TRANSPORT_STEP_FRAME
+            stream_s = in_threads(stepper(0, snap_at), groups)
+            out["stream_steps_per_s"] = n_sess * snap_at / stream_s
+            with GatewayClient(host, port, protocol="binary") as ctl:
+                hist = Histogram.from_dict(ctl.stats()["histograms"]["pool_step_ms"])
+                out["pool_step_ms_p50"] = hist.percentile(50)
+                snap = ctl.request("snapshot")
+                gauges = ctl.stats()["gauges"]
+                out["snapshot"] = {"sessions": snap["sessions"], "bytes": snap["bytes"],
+                                   "copy_ms": gauges["durability.snapshot_copy_ms"],
+                                   "write_ms": gauges["durability.snapshot_write_ms"]}
+                in_threads(stepper(snap_at, drop_at), groups)     # past the snapshot
+                for sid in range(0, n_sess, 2):                   # dropped: parked
+                    clients[sid].close()
+                deadline = time.monotonic() + 30
+                while ctl.stats()["durability"]["parked"] < half:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("dropped connections did not park their sessions")
+                    time.sleep(0.01)
+                body = urllib.request.urlopen(f"http://127.0.0.1:{metrics.port}/metrics",
+                                              timeout=30).read().decode()
+        finally:
+            server.stop_in_thread()       # the drain hands every session off to the store
+            metrics.stop()
+        for c in clients:
+            c.close()
+        handoff = gw.durability.last_handoff
+        s = gw.stats()
+        want_series = (f"repro_queue_completed_total {s['counters']['queue.completed']:.0f}",
+                       'repro_request_ms_bucket{le="+Inf"}', 'repro_pool_step_ms_bucket{le="+Inf"}',
+                       "repro_queue_depth 0", "repro_uptime_s")
+        missing = [m for m in want_series if m not in body]
+        if missing:
+            raise AssertionError(f"/metrics lacks {missing}")
+        if (handoff["sessions_migrated"], handoff["parked_carried"]) != (half, half):
+            raise AssertionError(f"the drain's handoff carried {handoff}, expected {half} live "
+                                 f"and {half} parked sessions")
+        out["handoff"] = {"sessions": handoff["sessions"], "bytes": handoff["bytes"],
+                          "copy_ms": s["gauges"]["durability.snapshot_copy_ms"],
+                          "write_ms": s["gauges"]["durability.snapshot_write_ms"]}
+        if gw.pool.captures != 1:
+            raise AssertionError(f"the first server's pool step was captured {gw.pool.captures} times")
+
+        # in-process one-shot on the same gateway, its server stopped
+        t0 = time.perf_counter()
+        direct = gw.score(oneshot)
+        out["oneshot"]["in_process_requests_per_s"] = GATEWAY_WINDOWS / (time.perf_counter() - t0)
+        np.testing.assert_allclose(bp1, direct, rtol=CAPTURE_RTOL, atol=CAPTURE_ATOL)
+        out["oneshot"]["bit_equal_to_in_process"] = bool(np.array_equal(np.float32(bp1), direct))
+        out["oneshot"]["max_abs_diff_vs_in_process"] = float(np.max(np.abs(np.float32(bp1) - direct)))
+
+        # --- a second server on the same store: resume every session by its
+        # token, replay what the client buffered past the restored position,
+        # finish the window; then tickets that only the drain can flush
+        gw_b = svc.open_gateway(capacity=GATEWAY_CAPACITY, max_batch=GATEWAY_MAX_BATCH,
+                                max_wait_ms=3_600_000.0)
+        enable_durability(gw_b, store)
+        server_b = GatewayServer(gw_b)
+        host, port = server_b.start_in_thread()
+        replayed = []
+        drain_clients = []
+        try:
+            def resumer(sids):
+                for sid in sids:
+                    old = clients[sid]
+                    with GatewayClient(host, port, protocol="binary") as c:
+                        res = c.resume(old.session_token, replay=old.replay_buffer())
+                        if res["seq"] != drop_at:
+                            raise AssertionError(f"session {sid} resumed at {res['seq']}, "
+                                                 f"expected {drop_at}")
+                        replayed.append(res["replayed"])
+                        for a in range(drop_at, t_len, TRANSPORT_STEP_FRAME):
+                            got[sid].extend(c.step_many(streams[sid, a:a + TRANSPORT_STEP_FRAME]))
+                        c.end_session()
+
+            resume_s = in_threads(resumer, groups)
+            pending = []
+            for protocol in ("binary", "json"):
+                c = GatewayClient(host, port, protocol=protocol)
+                drain_clients.append(c)
+                pending.append([c.submit(w) for w in oneshot[:TRANSPORT_DRAIN_TICKETS // 2]])
+                c.ping()                  # same-connection order: the submits are queued
+            queued = gw_b.batcher.queue_depth
+        finally:
+            server_b.stop_in_thread()
+        answered = [c.collect(r)["score"] for c, rids in zip(drain_clients, pending) for r in rids]
+        for c in drain_clients:
+            c.close()
+    k1 = launch_counts()["lstm_cell"]
+    flushes = int(gw.stats()["counters"]["batch.flushes"] + gw_b.stats()["counters"]["batch.flushes"])
+    if k1 != depth * t_len * flushes or score_captures(svc) != captures_oneshot:
+        raise AssertionError(f"K1 launched {k1} times over {flushes} flushes of bucket {t_len}, "
+                             f"expected {depth * t_len * flushes}; flush captures "
+                             f"{captures_oneshot} after the one-shot passes, "
+                             f"{score_captures(svc)} at the end")
+
+    if queued != TRANSPORT_DRAIN_TICKETS or len(answered) != TRANSPORT_DRAIN_TICKETS:
+        raise AssertionError(f"{queued} tickets queued before the drain, {len(answered)} answered")
+    np.testing.assert_allclose(answered, direct[:TRANSPORT_DRAIN_TICKETS // 2].tolist() * 2,
+                               rtol=CAPTURE_RTOL, atol=CAPTURE_ATOL)
+    if gw_b.pool.captures != 1:
+        raise AssertionError(f"the second server's pool step was captured {gw_b.pool.captures} "
+                             f"times over {n_sess} restores")
+    got = np.asarray(got, np.float32)
+    if not np.array_equal(got, oracle):
+        raise AssertionError(f"resumed streams differ from the uninterrupted run (max abs diff "
+                             f"{float(np.max(np.abs(got - oracle))):.3g})")
+    worst = 0.0
+    for sid in range(0, n_sess, n_sess // GATEWAY_SAMPLED):
+        sess = svc.stream_start(1)
+        for t in range(t_len):
+            errs, sess = svc.stream_step(streams[sid:sid + 1, t], sess)
+            np.testing.assert_allclose(got[sid, t], float(errs[0]), rtol=CAPTURE_RTOL,
+                                       atol=CAPTURE_ATOL)
+            worst = max(worst, abs(float(got[sid, t]) - float(errs[0])))
+    out.update(stream_resume_s=resume_s, replayed=sum(replayed), restore_recaptures=gw_b.pool.captures - 1,
+               resumed_bit_equal=True, max_abs_diff_vs_solo=worst, drain_tickets=len(answered),
+               k1_launches=k1, flushes=flushes)
+    results["transport"] = out
+    o = out["oneshot"]
+    log(f"[transport] {GATEWAY_ARCH} [fused] capacity={GATEWAY_CAPACITY}, "
+        f"max_batch={GATEWAY_MAX_BATCH}, behind GatewayServer on its own thread: "
+        f"{GATEWAY_WINDOWS} one-shot windows of T={t_len} over bp1 in frames of 64 "
+        f"{o['bp1_requests_per_s']:,.0f} requests/s (first pass, capturing the bucket on the "
+        f"server's thread, {o['first_pass_s']:.3f} s), over JSON lines "
+        f"{o['json_requests_per_s']:,.0f} requests/s, bit-equal to bp1; in-process gw.score of "
+        f"the same windows {o['in_process_requests_per_s']:,.0f} requests/s [{card}]")
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in o["closed_loop_stage_p50_ms"].items())
+    log(f"[transport] closed loop, {conns} bp1 connections of single-window requests: "
+        f"{o['closed_loop_requests_per_s']:,.0f} requests/s, p50 {o['closed_loop_p50_ms']:.3f} ms, "
+        f"p99 {o['closed_loop_p99_ms']:.3f} ms per request as the client sees it (traced; p50 "
+        f"of each stage in ms: {stages}); socket scores "
+        f"within {CAPTURE_RTOL} / {CAPTURE_ATOL} of in-process, bit-equal: "
+        f"{o['bit_equal_to_in_process']} (max abs diff {o['max_abs_diff_vs_in_process']:.3g}) "
+        f"[{card}]")
+    log(f"[transport] streams: {n_sess} sessions on {n_sess} bp1 connections from "
+        f"{TRANSPORT_THREADS} threads, {TRANSPORT_STEP_FRAME} samples a STEP frame: "
+        f"{out['stream_steps_per_s']:,.0f} stream-steps/s over the socket against "
+        f"{out['stream_steps_per_s_in_process']:,.0f} in-process (all {n_sess} in each pool "
+        f"step); one pool step on the server p50 {out['pool_step_ms_p50']:.3f} ms; "
+        f"{GATEWAY_SAMPLED} sampled sessions within {CAPTURE_RTOL} / {CAPTURE_ATOL} of "
+        f"solo stream_step (max abs diff {worst:.3g}) [{card}]")
+    log(f"[transport] durability: snapshot op of {out['snapshot']['sessions']} sessions, "
+        f"{out['snapshot']['bytes']:,} bytes: device-to-host block copy "
+        f"{out['snapshot']['copy_ms']:.3f} ms, write {out['snapshot']['write_ms']:.3f} ms; "
+        f"{half} connections dropped (parked), the drain's handoff of {handoff['sessions']} "
+        f"sessions copy {out['handoff']['copy_ms']:.3f} ms, write "
+        f"{out['handoff']['write_ms']:.3f} ms; a second server on the store resumed all "
+        f"{n_sess} by token ({sum(replayed)} steps replayed) and finished T={t_len}: every "
+        f"running error bit-equal to the uninterrupted run; pool captures {gw_b.pool.captures} "
+        f"(recaptures caused by {n_sess} restores: 0) [{card}]")
+    log(f"[transport] drain: {TRANSPORT_DRAIN_TICKETS} tickets queued (max_wait_ms 3.6e6), "
+        f"all answered by stop_in_thread; /metrics served the pool_step_ms, request_ms and "
+        f"queue series; K1 launches over the phase {k1} = {depth} x {t_len} x {flushes} "
+        f"flushes [{card}]")
+    return gw, oneshot
+
+
+def device_busy_over(torch, fn) -> dict:
+    """Wall time of one ``fn()`` and the time the device was busy in it (the
+    union of its kernels', copies' and memsets' intervals), from one
+    ``torch.profiler`` pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "device_ops": len(spans),
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms}
+
+
+def profile_transport_flush(torch, gw, oneshot, results, card) -> None:
+    """The transport phase's gateway (its bucket captured there) behind a
+    new server, under the profiler: the bp1 pass of the phase (every window
+    in frames of 64) once plain and once profiled, for the device's idle
+    share over the pass and the windows per flush; then one flush, a bp1
+    frame of max_batch windows, and the K1 kernels the device ran for it."""
+    from repro_torch.gateway.client import GatewayClient
+    from repro_torch.gateway.server import GatewayServer
+
+    server = GatewayServer(gw)
+    host, port = server.start_in_thread()
+    try:
+        with GatewayClient(host, port, protocol="binary") as c:
+            def bp1_pass():
+                c.score_many(oneshot, windows_per_frame=64)
+
+            t0 = time.perf_counter()
+            bp1_pass()
+            plain_s = time.perf_counter() - t0
+            flushes = gw.stats()["counters"]["batch.flushes"]
+            busy = device_busy_over(torch, bp1_pass)
+            pass_flushes = gw.stats()["counters"]["batch.flushes"] - flushes
+            c.score_many(oneshot[:GATEWAY_MAX_BATCH], windows_per_frame=GATEWAY_MAX_BATCH)  # warm
+            flushes = gw.stats()["counters"]["batch.flushes"]
+            prof = host_launches(torch, lambda: c.score_many(oneshot[:GATEWAY_MAX_BATCH],
+                                                             windows_per_frame=GATEWAY_MAX_BATCH))
+            flushed = gw.stats()["counters"]["batch.flushes"] - flushes
+    finally:
+        server.stop_in_thread()
+    busy.update(windows=len(oneshot), flushes=int(pass_flushes),
+                windows_per_flush=len(oneshot) / pass_flushes,
+                requests_per_s=len(oneshot) / (busy["wall_ms"] / 1e3),
+                plain_requests_per_s=len(oneshot) / plain_s)
+    results["transport"]["bp1_pass_profiled"] = busy
+    depth, t_len = len(gw.engine.params["layers"]), oneshot[0].shape[0]
+    in_graph = [p.launches.get("lstm_cell", 0) for key, p in gw.engine._graphs.programs.items()
+                if key[0] == "score_masked"]
+    if flushed != 1 or prof["k1_device_events"] != depth * t_len or in_graph != [depth * t_len]:
+        raise AssertionError(f"one socket flush: {flushed} flushes, {prof['k1_device_events']} K1 "
+                             f"kernels on the device, {in_graph} inside the graph; expected "
+                             f"{depth * t_len}")
+    results["transport"]["profiled_flush"] = prof
+    log(f"[transport] the bp1 pass ({busy['windows']} windows in frames of 64) under the "
+        f"profiler: {busy['wall_ms']:.3f} ms, the device busy {busy['device_busy_ms']:.3f} ms "
+        f"(the union of {busy['device_ops']} kernels, copies and memsets), idle share "
+        f"{busy['idle_share']:.4f}; {busy['flushes']} flushes of "
+        f"{busy['windows_per_flush']:.2f} windows on average; "
+        f"{busy['requests_per_s']:,.0f} requests/s profiled, {busy['plain_requests_per_s']:,.0f} "
+        f"in the plain pass just before [{card}]")
+    log(f"[transport] one flush over the socket (a bp1 frame of {GATEWAY_MAX_BATCH} windows) "
+        f"under the profiler: the device ran {prof['k1_device_events']} K1 kernels = {depth} x "
+        f"{t_len}, as the flush graph records; device busy {prof['device_busy_ms']:.3f} ms "
+        f"[{card}]")
 
 
 def wkv_inputs(torch, b, t_len, h, hd, dtype, seed, zero_state=False, rwkv_decay=False):
@@ -1552,6 +1966,7 @@ def main(argv=None) -> int:
     k2 = time_k2(torch, serve.global_batch, results["k1_layers"], results, card)
     k2_launches = drive_k2_path(torch, svc, first, results, card)
     drive_gateway(torch, results, card)
+    transport_gw, transport_windows = drive_transport(torch, results, card)
 
     check_k3(torch, results)
     k3 = time_k3(torch, results, card)
@@ -1564,6 +1979,7 @@ def main(argv=None) -> int:
     # the main path's count (captured launches x replays) against the K1
     # kernels the profiler saw the device run for one replayed request
     split_fit_step(torch, results, card)
+    profile_transport_flush(torch, transport_gw, transport_windows, results, card)
     main = results["serve"][0]
     measured = main["schedules"]["fused"]["launches_per_request"]["k1_device_events"]
     if main_launches != main["requests"] * measured:

@@ -26,14 +26,20 @@ an earlier one returned.  ``fn`` may also update tensors it closes over in
 place and return None (the session pool's step).
 
 Nothing falls back: a capture that fails, or a kernel that refuses its
-launch while it is captured, raises.  Replays are not re-entrant: two
-threads must not call one cache at once (the static tensors are shared).
+launch while it is captured, raises.  A replay is not re-entrant (the
+static tensors are shared), so a :class:`GraphCache` runs one call at a
+time: a second thread waits on the cache's lock until the first has copied
+its arguments in, replayed and cloned its outputs.  A capture checks only
+its own thread's CUDA calls (``capture_error_mode="thread_local"``), so
+another thread's work on the device — a caller scoring in-process while
+the gateway's server thread captures a new bucket — cannot break it.
 Graphs read whatever they closed over by address, so the engine keeps its
 own copy of the bound params for them, copies new params into it in place
 and drops its caches when it must allocate a new one (``Engine.bind``).
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Hashable
 
 import torch
@@ -76,7 +82,8 @@ class CapturedProgram:
         before = captured_counts()
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph, stream=stream):
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local"):
                 self.out = fn(*static)
         finally:
             torch.cuda.set_stream(current)   # also when capture_end raised
@@ -100,23 +107,26 @@ class CapturedProgram:
 
 class GraphCache:
     """The captured programs of one owner, by key: ``run(key, fn, args)``
-    captures ``fn`` at its first key and replays it after."""
+    captures ``fn`` at its first key and replays it after, one call at a
+    time."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.programs: dict[Hashable, CapturedProgram] = {}
         self.captures = 0        # programs captured, recaptures included
         self._stream = torch.cuda.Stream(device)
+        self._lock = threading.Lock()
 
     def run(self, key: Hashable, fn: Callable, args: tuple):
-        prog = self.programs.get(key)
-        if prog is None:
-            prog = CapturedProgram(fn, args, self.device, self._stream)
-            self.programs[key] = prog
-            self.captures += 1
-            out, prog.first = prog.first, None   # the caller owns it now
-            return out
-        return prog(args)
+        with self._lock:
+            prog = self.programs.get(key)
+            if prog is None:
+                prog = CapturedProgram(fn, args, self.device, self._stream)
+                self.programs[key] = prog
+                self.captures += 1
+                out, prog.first = prog.first, None   # the caller owns it now
+                return out
+            return prog(args)
 
     @property
     def replays(self) -> int:
@@ -125,6 +135,7 @@ class GraphCache:
     def clear(self) -> None:
         """Drop every captured program (the next call at each key recaptures),
         once the device has finished any replay still reading them."""
-        if self.programs:
-            torch.cuda.synchronize(self.device)
-        self.programs.clear()
+        with self._lock:
+            if self.programs:
+                torch.cuda.synchronize(self.device)
+            self.programs.clear()

@@ -20,10 +20,17 @@ paper's deployment needs:
 ``gateway.stats()`` surfaces the shared :class:`Telemetry` (queue depth,
 batch-fill ratio, p50/p95 latency, per-schedule throughput) in the
 reference's schema.  The detector is refreshed in place via
-:meth:`AnomalyGateway.recalibrate` — no drain required.  Only the single
-placement exists in the port; the socket transport, durability and the
-control plane wait for later slices (``durability`` and ``control`` stay
-``None`` until then).
+:meth:`AnomalyGateway.recalibrate` — no drain required.
+
+A live deployment fronts the gateway with the socket transport of
+:mod:`repro_torch.gateway.server` (bp1 frames and JSON lines, a background
+pump, one pool session per connection), whose event loop runs on one
+thread: every pool step and flush of a gateway, and so every replay of its
+captured programs, runs on that thread.  Durable sessions attach through
+:func:`repro_torch.gateway.durability.enable_durability` (``durability``).
+Only the single placement exists in the port, and the control plane waits
+for a later slice (``control`` stays ``None``: flat admission, static
+knobs).
 """
 from __future__ import annotations
 
@@ -82,9 +89,12 @@ class AnomalyGateway:
             if registry is not None:
                 registry.add(self)
         self._threshold: Optional[float] = None  # used when fronting a bare Engine
-        # session durability and the control plane attach here once they
-        # are ported (ROADMAP.md, queue 1, items 8 and 9); None keeps the
-        # plain semantics: no snapshots, flat admission, static knobs
+        # session durability is opt-in: durability.enable_durability()
+        # attaches a DurableSessions coordinator here and the transport and
+        # stats pick it up; None keeps plain sessions (no snapshots, no
+        # tokens).  The control plane attaches here once it is ported
+        # (ROADMAP.md, queue 1, item 9); None keeps flat admission and
+        # static knobs
         self.durability = None
         self.control = None
         # observability plane: per-stage histograms gate on ``obs_detail``,
@@ -117,9 +127,14 @@ class AnomalyGateway:
 
     # -- one-shot scoring (micro-batcher) ---------------------------------
 
-    def submit(self, series) -> Ticket:
+    def submit(self, series, *, priority=None, tenant=None) -> Ticket:
         """Enqueue one (T, F) window: first come, first queued, shed at
-        ``max_queue``."""
+        ``max_queue``.  ``priority`` and ``tenant`` are what a control
+        plane's admission reads; with none attached (``control`` is None
+        until ROADMAP.md, queue 1, item 9) they are ignored, as in the
+        reference without one."""
+        if self.control is not None:
+            self.control.admit(priority=priority, tenant=tenant)
         return self.batcher.submit(series)
 
     def pump(self, now: Optional[float] = None) -> int:
@@ -176,6 +191,11 @@ class AnomalyGateway:
                 self.service.threshold = value
             else:
                 self._threshold = value
+        if self.durability is not None:
+            # resumption tokens carry the recalibration epoch so a client
+            # can tell its scores straddled a swap (state itself is
+            # carried through unchanged, same as for live sessions)
+            self.durability.epoch += 1
         self.telemetry.count("gateway.recalibrated")
         self.events.emit(
             "recalibrate",
@@ -202,6 +222,9 @@ class AnomalyGateway:
         return self.engine.placement
 
     def stats(self) -> dict:
+        """The telemetry snapshot in the reference's schema.  Host-side
+        bookkeeping only, with no CUDA call, so a ``/metrics`` scrape thread
+        may read it while the server's thread captures or replays."""
         out = self.telemetry.stats()
         out.update(
             schedule=self.engine.schedule.tag,
@@ -219,6 +242,8 @@ class AnomalyGateway:
             **self.engine.profile_info(),
             "schedule_cache": schedule_cache_info(),
         }
+        if self.durability is not None:
+            out["durability"] = self.durability.describe()
         return out
 
     def __repr__(self) -> str:

@@ -185,8 +185,9 @@ class MicroBatcher:
         # A pinned buffer copied with non_blocking=True would race.
         # Each (lanes, bucket_T, F) is one captured program on a capturing
         # engine.  Its replay is not re-entrant (one static input per
-        # shape): flushes must not run from two threads at once, which a
-        # threaded transport (ROADMAP.md, queue 1, item 7) has to ensure.
+        # shape): the engine's graph cache runs one call at a time, and
+        # the socket transport (gateway/server.py) runs every flush and
+        # pool step of a gateway on its event loop's one thread.
         self._pad: dict[int, tuple[np.ndarray, np.ndarray]] = {}
 
     @property

@@ -9,20 +9,32 @@ Modes, as in the reference launcher:
   ``--capacity``-slot session pool with admit/evict churn over
   ``--streams`` logical streams, then a micro-batched one-shot request
   stream (``--max-batch`` / ``--max-wait-ms``), printing the ``[gateway]``
-  lines and its telemetry.
+  lines and its telemetry;
+- with ``--http``: the same gateway behind the socket transport
+  (``repro_torch.gateway.server``: bp1 frames with per-connection JSON-lines
+  fallback, a background pump, a graceful drain on SIGINT/SIGTERM that
+  answers every pending ticket) on ``--host``/``--port``, printing the
+  ``[http] listening on ...`` line when it serves and ``[http] drained:
+  ...`` when it stops.  ``--store-dir`` serves durable sessions
+  (snapshots every ``--snapshot-interval-ms`` and signed resumption
+  tokens), ``--metrics-port`` serves ``GET /metrics`` and ``--event-dir``
+  appends lifecycle events as JSONL.
 
-With ``--train-steps N`` either mode first fits the service for N steps
+With ``--train-steps N`` each mode first fits the service for N steps
 on benign windows (``AnomalyService.fit``, batch 64 at ``--seq-len``),
 calibrates its threshold on them and prints the ``fitted`` line.
 
 The device defaults to the GPU and never falls back to the CPU:
-``--device cpu`` asks for it.  The socket transport and worker processes
-are not ported yet; their flags exit with an error that names the
-``ROADMAP.md`` item that will port them.
+``--device cpu`` asks for it.  Worker processes (``--workers``) and the
+control plane (``--slo-p95-ms``, ``--priority-classes``, ``--tenant-rate``,
+``--autoscale``, ``--control-tick-s``) are not ported yet; their flags exit
+with an error that names the ``ROADMAP.md`` item that will port them.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
+import os
 import time
 
 import numpy as np
@@ -34,9 +46,15 @@ from repro_torch.core.latency import PAPER_RH_M
 from repro_torch.data import TimeseriesConfig, make_batch
 from repro_torch.engine import AnomalyService, available_schedules
 
+_ITEM_8 = "ROADMAP.md, queue 1, item 8 (multi-process workers)"
+_ITEM_9 = "ROADMAP.md, queue 1, item 9 (control plane)"
 NOT_PORTED = {
-    "http": "ROADMAP.md, queue 1, item 7 (transport)",
-    "workers": "ROADMAP.md, queue 1, item 8 (durability and multi-process)",
+    "workers": _ITEM_8,
+    "slo_p95_ms": _ITEM_9,
+    "priority_classes": _ITEM_9,
+    "tenant_rate": _ITEM_9,
+    "autoscale": _ITEM_9,
+    "control_tick_s": _ITEM_9,
 }
 
 
@@ -134,6 +152,54 @@ def serve_gateway(cfg, args) -> None:
           f"rejected={s['counters'].get('queue.rejected', 0):.0f}")
 
 
+def serve_http(cfg, args) -> None:
+    """Serve the gateway over the socket transport until SIGINT/SIGTERM,
+    then drain: every pending ticket is answered before the process exits."""
+    from repro_torch.gateway.server import GatewayServer
+
+    svc = AnomalyService(cfg, schedule=args.schedule, device=args.device)
+    if args.train_steps:
+        fit_and_calibrate(svc, args)
+        print(f"[http] fitted {cfg.name}: threshold={svc.threshold:.4f}", flush=True)
+    gw = svc.open_gateway(capacity=args.capacity, max_batch=args.max_batch,
+                          max_wait_ms=args.max_wait_ms)
+    if args.store_dir:
+        from repro_torch.gateway.durability import enable_durability
+
+        enable_durability(gw, args.store_dir,
+                          snapshot_interval_ms=args.snapshot_interval_ms)
+    if args.event_dir:
+        gw.attach_event_log(os.path.join(args.event_dir, "server.jsonl"))
+        gw.events.emit("boot", pid=os.getpid())
+    metrics = None
+    if args.metrics_port is not None:
+        from repro_torch.obs import MetricsServer
+
+        metrics = MetricsServer(gw.stats, host=args.host, port=args.metrics_port).start()
+    server = GatewayServer(gw, host=args.host, port=args.port)
+
+    def _ready(srv) -> None:
+        durable = f", store={args.store_dir}" if args.store_dir else ""
+        scrape = f" metrics_port={metrics.port}" if metrics else ""
+        print(f"[http] listening on {srv.host}:{srv.port}{scrape} "
+              f"protocols=bp1+json "
+              f"(device={svc.device}, schedule={gw.engine.schedule.tag}, "
+              f"capacity={gw.pool.capacity}, max_batch={gw.batcher.max_batch}, "
+              f"max_wait_ms={gw.batcher.max_wait_ms}{durable})", flush=True)
+
+    try:
+        asyncio.run(server.run_until_signal(on_ready=_ready))
+    finally:
+        if metrics is not None:
+            metrics.stop()
+    s = gw.stats()
+    print(f"[http] drained: {s['counters'].get('queue.completed', 0):.0f} one-shot "
+          f"scores ({s['counters'].get('queue.failed', 0):.0f} failed, "
+          f"{s['counters'].get('queue.rejected', 0):.0f} rejected), "
+          f"{s['counters'].get('pool.stream_steps', 0):.0f} stream-steps over "
+          f"{s['counters'].get('pool.admitted', 0):.0f} sessions", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True, choices=list_archs())
@@ -156,18 +222,43 @@ def main(argv=None) -> None:
                     help="gateway: micro-batch max wait")
     ap.add_argument("--streams", type=int, default=0,
                     help="gateway: logical streams to churn (default 2x capacity)")
-    ap.add_argument("--http", action="store_true", help="not ported yet")
+    ap.add_argument("--http", action="store_true",
+                    help="serve the gateway over the socket transport (bp1 frames, "
+                         "JSON-lines fallback) until SIGINT/SIGTERM")
+    ap.add_argument("--host", default="127.0.0.1", help="--http: bind host")
+    ap.add_argument("--port", type=int, default=0,
+                    help="--http: bind port; 0 picks a free one (printed on the "
+                         "'listening on' line)")
+    ap.add_argument("--store-dir", default=None,
+                    help="--http: durable sessions, snapshots and resumption tokens "
+                         "in this directory")
+    ap.add_argument("--snapshot-interval-ms", type=float, default=1000.0,
+                    help="--http: snapshot cadence with --store-dir")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="--http: serve GET /metrics (Prometheus text) on this port; "
+                         "0 picks a free one (printed as metrics_port=)")
+    ap.add_argument("--event-dir", default=None,
+                    help="--http: append lifecycle events as JSONL under this directory")
     ap.add_argument("--workers", type=int, default=0, help="not ported yet")
+    ap.add_argument("--slo-p95-ms", type=float, default=None, help="not ported yet")
+    ap.add_argument("--priority-classes", type=int, default=None, help="not ported yet")
+    ap.add_argument("--tenant-rate", type=float, default=None, help="not ported yet")
+    ap.add_argument("--autoscale", default=None, help="not ported yet")
+    ap.add_argument("--control-tick-s", type=float, default=None, help="not ported yet")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full-config", dest="reduced", action="store_false")
     args = ap.parse_args(argv)
 
     for flag, item in NOT_PORTED.items():
-        if getattr(args, flag):
+        # --workers 0 is the single-process default; a control flag set to
+        # anything, 0 included, asks for the control plane
+        if getattr(args, flag) != (0 if flag == "workers" else None):
             ap.error(f"--{flag.replace('_', '-')} is not ported to repro_torch yet: {item}")
     resolve_device(args.device)  # fail before any work when no GPU is visible
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    if args.gateway:
+    if args.http:
+        serve_http(cfg, args)
+    elif args.gateway:
         serve_gateway(cfg, args)
     else:
         serve_lstm_ae(cfg, args)

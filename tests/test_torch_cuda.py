@@ -7,6 +7,7 @@ Needs only torch (the GPU machine has no JAX).  Every test is marked
 import functools
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -882,3 +883,225 @@ def test_fit_on_the_card_matches_the_cpu(cuda):
     assert gpu.engine.profile_info()["compiles"] == 1      # the fit rebound in place
     assert float((after - before).abs().max()) > 0
     torch.testing.assert_close(after.cpu(), cpu.score(series), rtol=1e-4, atol=1e-6)
+
+
+# -- the socket transport on the card ---------------------------------------
+
+
+def _serve(gw, **kw):
+    from repro_torch.gateway.server import GatewayServer
+
+    server = GatewayServer(gw, port=0, pump_interval_ms=1.0, **kw)
+    host, port = server.start_in_thread()
+    return server, host, port
+
+
+def _eager_twin(svc):
+    """The same model and params on an engine that runs eagerly."""
+    from repro_torch.engine import AnomalyService, EngineConfig
+
+    eager = AnomalyService(svc.cfg, schedule=EngineConfig("fused", jit=False),
+                           device=svc.device)
+    eager.recalibrate(params=svc.params)
+    return eager
+
+
+@pytest.mark.cuda
+def test_socket_server_scores_bit_equal_over_bp1_and_json(cuda):
+    """A server in front of a captured gateway: bp1 and JSON scores are
+    bit-equal, within 1e-4 / 1e-6 of eager direct scores; a bp1 stream
+    equals solo stream_step; every capture ran on the server's thread."""
+    from repro_torch.engine import AnomalyService
+    from repro_torch.gateway.client import GatewayClient
+
+    svc = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda)
+    eager = _eager_twin(svc)
+    gw = svc.open_gateway(capacity=8, max_batch=4, max_wait_ms=2.0)
+    windows = [torch.randn(n, svc.features, generator=torch.Generator().manual_seed(n)).numpy()
+               for n in (5, 8, 12, 16, 30, 7)]
+    captures = svc.engine._graphs.captures
+    server, host, port = _serve(gw)
+    try:
+        with GatewayClient(host, port, protocol="binary") as cb, \
+                GatewayClient(host, port, protocol="json") as cj:
+            got_b, got_j = cb.score_many(windows), cj.score_many(windows)
+            data = windows[3][:10]
+            steps = cb.step_many(data)
+            cb.end_session()
+    finally:
+        server.stop_in_thread()
+    assert got_b == got_j
+    for w, s in zip(windows, got_b):
+        assert s == pytest.approx(float(eager.score(w[None])[0]), rel=1e-4, abs=1e-6)
+    sess = eager.stream_start(1)
+    for t, got in enumerate(steps):
+        errs, sess = eager.stream_step(data[t:t + 1], sess)
+        assert got == pytest.approx(float(errs[0]), rel=1e-4, abs=1e-6)
+    assert svc.engine._graphs.captures == captures + 3      # buckets 8, 16, 32
+    assert gw.pool.captures == 1
+
+
+def _hammer(stop, errors, fn):
+    """Call ``fn`` until ``stop`` is set, keeping the first failure."""
+    def run():
+        try:
+            while not stop.is_set():
+                fn()
+        except Exception as exc:  # reported by the test that started it
+            errors.append(exc)
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("neighbour", ["metrics_scrape", "cuda_work"])
+def test_capture_on_the_server_thread_survives_a_busy_neighbour(cuda, neighbour):
+    """New buckets are captured on the server's thread while another thread
+    scrapes /metrics in a loop (``gw.stats()`` makes no CUDA call), or runs
+    CUDA work of its own (captures check only their own thread's calls):
+    every scrape answers, every capture completes, every score is right."""
+    import urllib.request
+
+    from repro_torch.engine import AnomalyService
+    from repro_torch.gateway.client import GatewayClient
+    from repro_torch.obs import MetricsServer
+
+    svc = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda)
+    eager = _eager_twin(svc)
+    gw = svc.open_gateway(capacity=4, max_batch=2, max_wait_ms=1.0)
+    metrics = MetricsServer(gw.stats, port=0).start()
+    server, host, port = _serve(gw)
+    stop, errors, done = threading.Event(), [], []
+    url = f"http://127.0.0.1:{metrics.port}/metrics"
+    if neighbour == "metrics_scrape":
+        work = lambda: done.append(urllib.request.urlopen(url, timeout=30).status)  # noqa: E731
+    else:
+        side = torch.randn(512, 512, device=cuda)
+        work = lambda: done.append(float((side @ side).sum()))  # noqa: E731
+    th = _hammer(stop, errors, work)
+    captures = svc.engine._graphs.captures
+    windows = [torch.randn(n, svc.features, generator=torch.Generator().manual_seed(n)).numpy()
+               for n in (5, 9, 17, 33, 65)]
+    try:
+        with GatewayClient(host, port) as c:
+            scores = [c.score(w) for w in windows]      # one new bucket each
+    finally:
+        stop.set()
+        th.join(30)
+        server.stop_in_thread()
+        metrics.stop()
+    assert not th.is_alive() and not errors, errors
+    assert done and (neighbour != "metrics_scrape" or set(done) == {200})
+    assert svc.engine._graphs.captures == captures + len(windows)
+    for w, s in zip(windows, scores):
+        assert s == pytest.approx(float(eager.score(w[None])[0]), rel=1e-4, abs=1e-6)
+
+
+@pytest.mark.cuda
+def test_two_threads_on_one_captured_program_never_mix_scores(cuda):
+    """Two threads replay one captured program on different inputs: the
+    graph cache runs one call at a time, so neither ever gets a score of
+    the other's input (unserialised, one thread's copy into the static
+    input lands between the other's copy and replay)."""
+    from repro_torch.engine import AnomalyService
+
+    svc = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda)
+    gen = torch.Generator().manual_seed(12)
+    batches = [torch.randn(4, 16, svc.features, generator=gen) for _ in range(2)]
+    want = [svc.engine.score({"series": b}).cpu() for b in batches]
+    assert svc.engine._graphs.captures == 1
+    errors = []
+
+    def run(i):
+        for _ in range(300):
+            got = svc.engine.score({"series": batches[i]}).cpu()
+            if not torch.equal(got, want[i]):
+                errors.append((i, got, want[i]))
+                return
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors[0]
+    assert svc.engine._graphs.captures == 1 and svc.engine._graphs.replays >= 601
+
+
+@pytest.mark.cuda
+def test_a_restore_adds_no_capture(cuda, tmp_path):
+    """Park, snapshot and resume a durable session on a captured pool: the
+    pool step stays the one graph it captured first, and the resumed run
+    is bit-equal to an uninterrupted one."""
+    from repro_torch.engine import AnomalyService
+    from repro_torch.gateway.durability import enable_durability
+
+    svc = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda)
+    data = torch.randn(10, svc.features, generator=torch.Generator().manual_seed(13)).numpy()
+    ref = svc.open_gateway(capacity=4)
+    ref.admit("u")
+    uninterrupted = [ref.step({"u": x})["u"] for x in data]
+    gw = svc.open_gateway(capacity=4)
+    dur = enable_durability(gw, tmp_path)
+    sid, _ = dur.admit()
+    got = []
+    for x in data[:4]:
+        running, _, token = dur.step(sid, x)
+        got.append(running)
+    dur.suspend(sid)
+    dur.snapshot_now(wait=True)
+    assert gw.pool.captures == 1
+    assert dur.resume(token)["seq"] == 4
+    got += [dur.step(sid, x)[0] for x in data[4:]]
+    # a second worker on the store resumes from the snapshot, as after a restart
+    dur.suspend(sid)
+    dur.snapshot_now(wait=True)
+    gw2 = svc.open_gateway(capacity=4)
+    dur2 = enable_durability(gw2, tmp_path, shard="worker-1")
+    dur2.resume(token)
+    extra = dur2.step(sid, data[0])[0]
+    assert got == uninterrupted
+    assert extra == ref.step({"u": data[0]})["u"]
+    assert gw.pool.captures == 1 and gw2.pool.captures == 1
+
+
+@pytest.mark.cuda
+def test_server_thread_runs_on_the_gateway_device(cuda):
+    """A gateway on the second GPU: the server's loop thread takes it as its
+    current device before any CUDA call, so its captures and replays run
+    there, and scores are right."""
+    import asyncio
+
+    from repro_torch.engine import AnomalyService
+    from repro_torch.gateway.client import GatewayClient
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: the gateway must live off device 0")
+    dev = torch.device("cuda", 1)
+    svc = AnomalyService(CAPTURE_ARCH, schedule="fused", device=dev)
+    eager = _eager_twin(svc)
+    gw = svc.open_gateway(capacity=4, max_batch=2, max_wait_ms=1.0)
+    server, host, port = _serve(gw)
+
+    async def current():
+        return torch.cuda.current_device()
+
+    try:
+        on_loop = asyncio.run_coroutine_threadsafe(current(), server._loop).result(30)
+        w = torch.randn(12, svc.features, generator=torch.Generator().manual_seed(14)).numpy()
+        with GatewayClient(host, port) as c:
+            score = c.score(w)
+            c.step(w[0])
+    finally:
+        server.stop_in_thread()
+    assert on_loop == 1
+    assert score == pytest.approx(float(eager.score(w[None])[0]), rel=1e-4, abs=1e-6)
+    assert all(p.graph is not None for p in svc.engine._graphs.programs.values())
+    assert gw.pool._state["h"][0].device == dev

@@ -1,7 +1,11 @@
 """Port parity of the application layer: data, detection metrics and the
 AnomalyService against the JAX package with carried weights; and the
-launcher end to end on the CPU."""
+launcher end to end on the CPU, ``--http`` included (a subprocess, so a
+real SIGTERM drives the drain)."""
 import dataclasses
+import json
+import signal
+import urllib.request
 
 import numpy as np
 import pytest
@@ -18,7 +22,9 @@ from repro.engine import build_engine as jax_build_engine  # noqa: E402
 from repro_torch.core import anomaly as ta  # noqa: E402
 from repro_torch.data import TimeseriesConfig, make_batch  # noqa: E402
 from repro_torch.engine import AnomalyService  # noqa: E402
+from repro_torch.gateway.client import GatewayClient  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from test_torch_server import spawn_http_server  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -133,11 +139,85 @@ def test_launcher_fits_then_opens_the_gateway(capsys):
     assert "[gateway] scored 4 one-shot requests" in out and "alerts=" in out
 
 
-@pytest.mark.parametrize("flag,item", [(["--http"], "item 7"),
-                                       (["--workers", "2"], "item 8")])
+@pytest.mark.parametrize("flag,item", [(["--workers", "2"], "item 8"),
+                                       (["--slo-p95-ms", "50"], "item 9"),
+                                       (["--priority-classes", "3"], "item 9"),
+                                       (["--tenant-rate", "100"], "item 9"),
+                                       (["--tenant-rate", "0"], "item 9"),
+                                       (["--slo-p95-ms", "0"], "item 9"),
+                                       (["--control-tick-s", "0"], "item 9"),
+                                       (["--autoscale", "1:4"], "item 9"),
+                                       (["--control-tick-s", "0.5"], "item 9")])
 def test_launcher_rejects_unported_modes(flag, item, capsys):
     with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", "lstm-ae-f32-d2", "--device", "cpu", *flag])
+        serve.main(["--arch", "lstm-ae-f32-d2", "--device", "cpu", "--http", *flag])
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert "not ported" in err and "ROADMAP.md" in err and item in err
+
+
+def test_launcher_http_without_a_gpu_raises():
+    """``--http`` without ``--device`` resolves the GPU first: with none
+    visible it raises, and never serves from the CPU instead."""
+    import os
+    import subprocess
+    import sys
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device resolves")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                          "lstm-ae-f32-d2", "--http", "--port", "0"],
+                         env={**os.environ, "PYTHONPATH": os.path.join(root, "src")},
+                         cwd=root, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "listening on" not in out.stdout
+
+
+def _drive_and_terminate(proc, port, output, durable: bool) -> str:
+    """Ping, score over bp1 and JSON, stream a few steps, SIGTERM; returns
+    the server's output once it has drained and exited with rc 0."""
+    window = np.random.default_rng(5).standard_normal((8, 32)).astype(np.float32)
+    try:
+        with GatewayClient("127.0.0.1", port, protocol="binary") as cb, \
+                GatewayClient("127.0.0.1", port, protocol="json") as cj:
+            assert cb.protocol == "bp1" and cb.ping() and cj.ping()
+            assert cb.score(window) == cj.score(window)
+            steps = cb.step_many(window[:3])
+            assert len(steps) == 3 and (cb.session_token is not None) == durable
+        proc.send_signal(signal.SIGTERM)
+        out = output(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, out
+    return out
+
+
+def test_launcher_http_serves_and_drains_on_sigterm():
+    proc, port, _, output = spawn_http_server(["--capacity", "4", "--max-batch", "4"],
+                                              arch="lstm-ae-f32-d2")
+    out = _drive_and_terminate(proc, port, output, durable=False)
+    assert "protocols=bp1+json (device=cpu, schedule=wavefront, capacity=4" in out
+    assert "[http] drained: 2 one-shot scores (0 failed, 0 rejected), " \
+        "3 stream-steps over 1 sessions" in out
+
+
+def test_launcher_http_with_store_and_metrics(tmp_path):
+    store = tmp_path / "store"
+    proc, port, metrics_port, output = spawn_http_server(
+        ["--capacity", "4", "--max-batch", "4", "--store-dir", str(store),
+         "--snapshot-interval-ms", "50", "--metrics-port", "0",
+         "--event-dir", str(tmp_path)], arch="lstm-ae-f32-d2")
+    body = urllib.request.urlopen(f"http://127.0.0.1:{metrics_port}/metrics",
+                                  timeout=10).read().decode()
+    assert "repro_capacity 4" in body
+    with GatewayClient("127.0.0.1", port) as c:
+        c.step(np.zeros(32, np.float32))
+        token = c.session_token
+    assert token and token.startswith("rt1.")
+    out = _drive_and_terminate(proc, port, output, durable=True)
+    assert f"store={store}" in out
+    assert (store / "token.secret").exists() and list((store / "shards" / "worker-0").iterdir())
+    kinds = [json.loads(line)["kind"] for line in (tmp_path / "server.jsonl").read_text().splitlines()]
+    assert kinds[0] == "boot" and "snapshot" in kinds and "migration" in kinds
