@@ -215,6 +215,15 @@ TRANSPORT_THREADS = 4
 TRANSPORT_STEP_FRAME = 8
 TRANSPORT_LATENCY_CONNS = 16
 TRANSPORT_DRAIN_TICKETS = 16
+# the multi-worker front of that gateway: queue bound per worker (its
+# priority-2 limit, a third of it, is reachable inside one bucket of 256
+# lanes), bp1 connections and timed passes per fleet size, the SLO the
+# control loop is given, fit steps of each worker of `serve --workers 2`
+WORKERS_MAX_QUEUE = 384
+WORKERS_CONNS = 8
+WORKERS_PASSES = 3
+WORKERS_SLO_MS = 4.0
+WORKERS_FIT_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -1040,6 +1049,549 @@ def drive_transport(torch, results, card):
         f"flushes [{card}]")
     return gw, oneshot
 
+
+def worker_gateway(report_dir: str, **kw):
+    """The worker factory of the smoke's worker phase: the package's
+    ``default_gateway_factory`` (spawn imports this script as
+    ``__mp_main__`` in every worker), whose K1 launch count starts after
+    the warm-up flush and is written to ``report_dir/<pid>.json`` when the
+    worker exits cleanly, so each worker's K1 launches can be held to its
+    flushes."""
+    import atexit
+
+    from repro_torch.gateway.workers import default_gateway_factory
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    gw = default_gateway_factory(**kw)
+    reset_launch_counts()          # traffic only: the warm-up flush is not counted
+
+    def report():
+        with open(os.path.join(report_dir, f"{os.getpid()}.json"), "w") as f:
+            json.dump({"pid": os.getpid(), "launches": launch_counts()}, f)
+
+    atexit.register(report)
+    return gw
+
+
+def per_worker(front) -> dict:
+    """pid -> that worker's stats, over the control pipes."""
+    return {w["pid"]: w for w in front.stats()["per_worker"]}
+
+
+def wait_for(predicate, what: str, timeout: float = 240.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout:.0f} s waiting for {what}")
+        time.sleep(0.05)
+
+
+def drive_workers(torch, results, card) -> None:
+    """The gateway at full width behind the multi-worker front: worker
+    processes on the one card, each with its own CUDA context and captured
+    bucket graph, clients in this process.  Scores bit-equal to an
+    in-process gateway, K1 per worker, throughput at 1 and 2 workers, a
+    SIGKILL with durable resume, a recalibration fan-out, priority
+    shedding, the control loop (knobs and a scale-down, no new capture),
+    the shutdown; then ``serve --workers 2`` from a cold kernel build with
+    a fit in each worker, the training launcher with a resume, and
+    ``run_with_recovery`` on the card."""
+    import functools
+    import signal
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from repro_torch.config import get_config
+    from repro_torch.control import ControlConfig, ControlLoop
+    from repro_torch.data import TimeseriesConfig, make_batch
+    from repro_torch.engine import AnomalyService
+    from repro_torch.gateway.client import GatewayClient, GatewayClientError
+    from repro_torch.gateway.workers import WorkerFront
+    from repro_torch.obs import Histogram
+
+    t_phase = time.perf_counter()
+    cfg = get_config(GATEWAY_ARCH)
+    svc = AnomalyService(GATEWAY_ARCH, schedule="fused", device="cuda", seed=0)
+    feats, t_len, depth = svc.features, 64, len(svc.params["layers"])
+    data_cfg = TimeseriesConfig(features=feats, seq_len=t_len, batch=GATEWAY_STREAMS,
+                                anomaly_rate=0.05, seed=7)
+    windows = make_batch(data_cfg, 0)[0].numpy()                 # (N, T, F), as drive_gateway
+    oneshot = [windows[i] for i in range(GATEWAY_WINDOWS)]
+    n_sess = TRANSPORT_SESSIONS
+    streams = windows[GATEWAY_WINDOWS:GATEWAY_WINDOWS + n_sess]  # (64, T, F)
+    local_gw = svc.open_gateway(capacity=GATEWAY_CAPACITY, max_batch=GATEWAY_MAX_BATCH)
+    local = local_gw.score(oneshot)                              # the in-process reference
+    oracle_gw = svc.open_gateway(capacity=GATEWAY_CAPACITY, max_batch=GATEWAY_MAX_BATCH)
+    for sid in range(n_sess):
+        oracle_gw.admit(sid)
+    oracle = np.zeros((n_sess, t_len), np.float32)
+    for t in range(t_len):
+        errs = oracle_gw.step({sid: streams[sid, t] for sid in range(n_sess)})
+        oracle[:, t] = [errs[sid] for sid in range(n_sess)]
+    out = {"arch": GATEWAY_ARCH, "capacity": GATEWAY_CAPACITY, "max_batch": GATEWAY_MAX_BATCH,
+           "max_queue": WORKERS_MAX_QUEUE, "windows": GATEWAY_WINDOWS, "seq_len": t_len}
+    flushes_at_exit: dict = {}      # pid -> batch.flushes when it last reported
+
+    def note_flushes(front):
+        for pid, w in per_worker(front).items():
+            flushes_at_exit[pid] = int(w["counters"].get("batch.flushes", 0))
+
+    def bp1_pass(host, port, conns):
+        """Every connection pipelines all 512 windows in frames of 64 at
+        once; returns requests/s over the pass."""
+        got = {}
+
+        def run(k):
+            with GatewayClient(host, port, protocol="binary") as c:
+                got[k] = c.score_many(oneshot, windows_per_frame=64)
+
+        dt = in_threads(run, range(conns))
+        for k in range(conns):
+            if not np.array_equal(np.float32(got[k]), local):
+                raise AssertionError("a worker's bp1 scores differ from the in-process gateway")
+        return conns * GATEWAY_WINDOWS / dt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store, events, reports = (os.path.join(tmp, d) for d in ("store", "events", "reports"))
+        os.makedirs(reports)
+        factory = functools.partial(
+            worker_gateway, reports, arch=GATEWAY_ARCH, schedule="fused",
+            capacity=GATEWAY_CAPACITY, max_batch=GATEWAY_MAX_BATCH,
+            max_queue=WORKERS_MAX_QUEUE, warm_seq_len=t_len, priority_classes=3)
+        front = WorkerFront(factory, n_workers=1, store_dir=store, metrics_port=0,
+                            event_dir=events)
+        t0 = time.perf_counter()
+        host, port = front.start(ready_timeout=600.0)
+        out["start_1_s"] = time.perf_counter() - t0
+        traced = {}
+        conns = TRANSPORT_LATENCY_CONNS
+
+        def closed_loop(idx):
+            with GatewayClient(host, port, protocol="binary") as c:
+                for i in idx:
+                    traced[i] = c.traced_score(oneshot[i])
+
+        def closed_loop_pass():
+            """Single windows from 16 connections, traced: p50/p99 as the
+            client sees them."""
+            traced.clear()
+            loop_s = in_threads(closed_loop, [range(k, GATEWAY_WINDOWS, conns)
+                                              for k in range(conns)])
+            if not np.array_equal(np.float32([traced[i]["score"]
+                                              for i in range(GATEWAY_WINDOWS)]), local):
+                raise AssertionError("closed-loop scores differ from in-process")
+            latencies = [t["e2e_ms"] for t in traced.values()]
+            return {"connections": conns, "requests_per_s": GATEWAY_WINDOWS / loop_s,
+                    "p50_ms": percentile(latencies, 50), "p99_ms": percentile(latencies, 99)}
+
+        try:
+            # --- 1 worker: warm the connection path, then the timed passes
+            bp1_pass(host, port, 1)
+            out["bp1_requests_per_s_1"] = [bp1_pass(host, port, WORKERS_CONNS)
+                                           for _ in range(WORKERS_PASSES)]
+            out["closed_loop_1"] = closed_loop_pass()
+            t0 = time.perf_counter()
+            front.scale_up(ready_timeout=600.0)
+            out["scale_up_s"] = time.perf_counter() - t0
+
+            # --- 2 workers: bp1 and JSON scores from each bit-equal to in-process
+            for attempt in range(32):
+                with GatewayClient(host, port, protocol="binary") as cb, \
+                        GatewayClient(host, port, protocol="json") as cj:
+                    if not np.array_equal(np.float32(cb.score_many(oneshot[:64], windows_per_frame=64)),
+                                          local[:64]):
+                        raise AssertionError("bp1 scores of a worker differ from in-process")
+                    if not np.array_equal(np.float32(cj.score_many(oneshot[:8])), local[:8]):
+                        raise AssertionError("JSON scores of a worker differ from in-process")
+                served = [int(w["counters"].get("queue.completed", 0))
+                          for w in per_worker(front).values()]
+                if len(served) == 2 and min(served) > 0:
+                    break
+            else:
+                raise AssertionError(f"connections never reached both workers: {served}")
+            out["bit_equal_connections"] = attempt + 1
+            out["bp1_requests_per_s_2"] = [bp1_pass(host, port, WORKERS_CONNS)
+                                           for _ in range(WORKERS_PASSES)]
+            out["served_per_worker_after_passes"] = [
+                int(w["counters"].get("queue.completed", 0)) for w in per_worker(front).values()]
+
+            out["closed_loop"] = closed_loop_pass()
+            body = urllib.request.urlopen(f"http://127.0.0.1:{front.metrics.port}/metrics",
+                                          timeout=30).read().decode()
+            agg = front.stats()
+            want = ('repro_workers_count{scope="front"} 2',
+                    f'repro_queue_completed_total{{scope="front"}} '
+                    f'{agg["counters"]["queue.completed"]:.0f}')
+            missing = [m for m in want if m not in body]
+            if missing:
+                raise AssertionError(f"the front's /metrics lacks {missing}")
+            out["metrics_lines"] = [ln for ln in body.splitlines()
+                                    if ln.startswith(("repro_workers_", "repro_queue_completed",
+                                                      "repro_request_ms_count", "repro_batch_"))]
+            out["metrics_bytes"] = len(body)
+
+            # --- 64 durable streams, SIGKILL the busier worker, resume by token
+            clients = [GatewayClient(host, port, protocol="binary") for _ in range(n_sess)]
+            got = [[] for _ in range(n_sess)]
+            groups = [range(k, n_sess, TRANSPORT_THREADS) for k in range(TRANSPORT_THREADS)]
+            snap_at, kill_at = t_len // 2, t_len // 2 + TRANSPORT_STEP_FRAME
+
+            def stepper(lo, hi):
+                def run(sids):
+                    for a in range(lo, hi, TRANSPORT_STEP_FRAME):
+                        for sid in sids:
+                            got[sid].extend(clients[sid].step_many(
+                                streams[sid, a:a + TRANSPORT_STEP_FRAME]))
+                return run
+
+            in_threads(stepper(0, snap_at), groups)
+            for c in clients:                    # one snapshot op on every worker
+                c.request("snapshot")
+            in_threads(stepper(snap_at, kill_at), groups)
+            resident = {pid: int(w["active_streams"]) for pid, w in per_worker(front).items()}
+            victim = max(resident, key=resident.get)
+            note_flushes(front)
+            os.kill(victim, signal.SIGKILL)
+            wait_for(lambda: front.restarts == 1, "the monitor to see the crash")
+            t0 = time.perf_counter()
+            resumed = []
+
+            def finish(sids):
+                for sid in sids:
+                    c = clients[sid]
+                    try:
+                        got[sid].extend(c.step_many(streams[sid, kill_at:kill_at + 1]))
+                    except (ConnectionError, OSError):
+                        c.close()
+                        c2 = GatewayClient(host, port, protocol="binary")
+                        res = c2.resume(c.session_token, replay=c.replay_buffer())
+                        if res["seq"] != kill_at:
+                            raise AssertionError(f"session {sid} resumed at {res['seq']}, "
+                                                 f"expected {kill_at}")
+                        resumed.append(res["replayed"])
+                        clients[sid] = c = c2
+                        got[sid].extend(c.step_many(streams[sid, kill_at:kill_at + 1]))
+                    for a in range(kill_at + 1, t_len, TRANSPORT_STEP_FRAME):
+                        got[sid].extend(c.step_many(streams[sid, a:a + TRANSPORT_STEP_FRAME]))
+                    c.end_session()
+
+            in_threads(finish, groups)
+            out["resume_s"] = time.perf_counter() - t0
+            for c in clients:
+                c.close()
+            gotarr = np.asarray(got, np.float32)
+            if not np.array_equal(gotarr, oracle):
+                raise AssertionError(f"resumed streams differ from the uninterrupted run (max abs "
+                                     f"diff {float(np.max(np.abs(gotarr - oracle))):.3g})")
+            if len(resumed) != resident[victim]:
+                raise AssertionError(f"{len(resumed)} sessions resumed, the killed worker held "
+                                     f"{resident[victim]}")
+            wait_for(lambda: front.stats()["workers"]["count"] == 2, "the respawned worker")
+            out["crash"] = {"sessions": n_sess, "on_killed_worker": resident[victim],
+                            "resumed": len(resumed), "replayed": sum(resumed),
+                            "restarts": front.restarts, "sessions_lost": front.sessions_lost,
+                            "respawn_ready_s": time.perf_counter() - t0}
+            if front.sessions_lost != 0:
+                raise AssertionError(f"sessions_lost={front.sessions_lost} with the store")
+
+            # --- recalibrate(params=...): fanned out, the card's tensors
+            # converted to numpy on this (the supervisor's) side
+            scaled = {"layers": tuple({k: v * 1.25 for k, v in layer.items()}
+                                      for layer in svc.params["layers"])}
+            svc.recalibrate(params=scaled)
+            local2 = local_gw.score(oneshot[:64])
+            if np.array_equal(local2, local[:64]):
+                raise AssertionError("the param swap changed no score")
+            t0 = time.perf_counter()
+            rec = front.recalibrate(params=scaled)
+            out["recalibrate_ms"] = (time.perf_counter() - t0) * 1e3
+            if rec["workers"] != 2 or not rec["params_swapped"]:
+                raise AssertionError(f"recalibrate reached {rec}")
+            before = {p: int(w["counters"].get("queue.completed", 0))
+                      for p, w in per_worker(front).items()}
+            for attempt in range(32):
+                with GatewayClient(host, port, protocol="binary") as c:
+                    if not np.array_equal(np.float32(c.score_many(oneshot[:64])), local2):
+                        raise AssertionError("a worker's scores after recalibrate differ")
+                now = {p: int(w["counters"].get("queue.completed", 0))
+                       for p, w in per_worker(front).items()}
+                if all(now[p] > before.get(p, 0) for p in now):
+                    break
+            else:
+                raise AssertionError("connections never reached both workers after recalibrate")
+
+            # --- priority classes: the highest class sheds first.  Knobs
+            # (never captures) hold the flushes back; one connection, one worker
+            captures = {p: w["engine"]["compiles"] for p, w in per_worker(front).items()}
+            front.set_batching(max_wait_ms=3_600_000.0)
+            limits = [int(WORKERS_MAX_QUEUE * (1 - k / 3)) if k else WORKERS_MAX_QUEUE
+                      for k in range(3)]
+            with GatewayClient(host, port, protocol="binary") as c:
+                rids = [c.submit(oneshot[i % GATEWAY_WINDOWS], priority=0)
+                        for i in range(limits[2])]
+                shed = c.submit(oneshot[0], priority=2)
+                kept = [c.submit(oneshot[1], priority=1), c.submit(oneshot[2], priority=0)]
+                c.ping()
+                queued = front.stats()["queue_depth"]
+                front.set_batching(max_wait_ms=5.0)
+                try:
+                    c.collect(shed)
+                except GatewayClientError as exc:      # the typed error frame
+                    if exc.error != "GatewayOverloadedError":
+                        raise
+                else:
+                    raise AssertionError("a priority-2 request was admitted past its limit")
+                answered = [c.collect(r) for r in rids + kept]
+            counters = front.stats()["counters"]
+            out["priority"] = {"classes": 3, "depth_limits": limits, "queued": queued,
+                               "shed_p2": counters.get("admission.shed_p2", 0.0),
+                               "shed_p1": counters.get("admission.shed_p1", 0.0),
+                               "shed_p0": counters.get("admission.shed_p0", 0.0),
+                               "answered": len(answered)}
+            if (queued != limits[2] + 2 or out["priority"]["shed_p2"] != 1
+                    or out["priority"]["shed_p1"] or out["priority"]["shed_p0"]
+                    or not all(r["ok"] for r in answered)):
+                raise AssertionError(f"priority shedding: {out['priority']}")
+
+            # --- the control loop: SLO-driven knobs and the autoscaler,
+            # ticked between closed-loop bursts
+            loop = ControlLoop(front, ControlConfig(
+                slo_p95_ms=WORKERS_SLO_MS, autoscale_min=1, autoscale_max=2, patience=1,
+                cooldown_ticks=0, arch=GATEWAY_ARCH, floor_timesteps=t_len,
+                extra={"max_wait_ms": 5.0}), lanes=GATEWAY_MAX_BATCH,
+                max_queue=WORKERS_MAX_QUEUE, model_cfg=cfg.lstm_ae, event_dir=events)
+            decisions = []
+            for _ in range(3):
+                in_threads(closed_loop, [range(k, GATEWAY_WINDOWS // 4, conns)
+                                         for k in range(conns)])
+                note_flushes(front)            # a scale-down may retire a worker now
+                decisions.append(loop.tick())
+            hist = Histogram.from_dict(front.stats()["histograms"].get("compute_ms"))
+            scale = [d["scale"] for d in decisions]
+            drains = [s["drain"] for s in scale if "drain" in s]
+            now_captures = {p: w["engine"]["compiles"] for p, w in per_worker(front).items()}
+            out["control"] = {
+                "slo_p95_ms": WORKERS_SLO_MS, "eq1_floor_ms": loop.floor_ms,
+                "flush_compute_p50_ms": hist.percentile(50), "flushes": hist.count,
+                "actions": [d["action"] for d in decisions],
+                "p95_ms": [d["p95_ms"] for d in decisions],
+                "knobs": loop.describe()["knobs"],
+                "scale": [(s["delta"], s["reason"]) for s in scale],
+                "scale_down": drains,
+                "new_captures": sum(now_captures[p] - captures[p] for p in now_captures)}
+            if not loop.describe()["knobs"] or out["control"]["new_captures"]:
+                raise AssertionError(f"the control loop: {out['control']}")
+            if len(drains) != 1 or drains[0]["dropped_tickets"] or not drains[0]["clean"]:
+                raise AssertionError(f"the scale-down: {drains}")
+            loop.stop()
+            front.control = None
+            note_flushes(front)
+        finally:
+            summary = front.shutdown()
+        out["shutdown"] = {k: summary[k] for k in ("workers", "clean_exits", "dropped_tickets",
+                                                   "restarts", "sessions_migrated",
+                                                   "sessions_lost")}
+        if summary["dropped_tickets"] or summary["clean_exits"] != summary["workers"]:
+            raise AssertionError(f"shutdown: {out['shutdown']}")
+        k1 = {}
+        for name in os.listdir(reports):
+            with open(os.path.join(reports, name)) as f:
+                rep = json.load(f)
+            k1[rep["pid"]] = rep["launches"]["lstm_cell"]
+        out["k1_per_worker"] = [{"pid": pid, "k1_launches": n, "flushes": flushes_at_exit[pid]}
+                                for pid, n in sorted(k1.items())]
+        clean = len(out["control"]["scale_down"]) + summary["clean_exits"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    results["workers"] = out
+    w1, w2 = max(out["bp1_requests_per_s_1"]), max(out["bp1_requests_per_s_2"])
+    c = out["control"]
+    log(f"[workers] {GATEWAY_ARCH} [fused] capacity={GATEWAY_CAPACITY}, "
+        f"max_batch={GATEWAY_MAX_BATCH}, max_queue={WORKERS_MAX_QUEUE} per worker, every worker "
+        f"on cuda:0 with its own CUDA context, clients in this process: front of 1 worker up in "
+        f"{out['start_1_s']:.1f} s, scale-up to 2 in {out['scale_up_s']:.1f} s; bp1 and JSON "
+        f"scores of both workers bit-equal to an in-process gateway on the same seed "
+        f"({out['bit_equal_connections']} connection pair(s) to reach both) [{card}]")
+    log(f"[workers] one-shot over bp1, {WORKERS_CONNS} connections each pipelining "
+        f"{GATEWAY_WINDOWS} windows of T={t_len} in frames of 64: 1 worker "
+        f"{', '.join(f'{r:,.0f}' for r in out['bp1_requests_per_s_1'])} requests/s, 2 workers "
+        f"{', '.join(f'{r:,.0f}' for r in out['bp1_requests_per_s_2'])} requests/s (best "
+        f"{w2 / w1:.2f}x; windows served per worker {out['served_per_worker_after_passes']}); "
+        f"the single-process server thread earlier in this run "
+        f"{results['transport']['oneshot']['bp1_requests_per_s']:,.0f} (18,456 in PERF.md §5) "
+        f"[{card}]")
+    cl, cl1 = out["closed_loop"], out["closed_loop_1"]
+    log(f"[workers] closed loop, {cl['connections']} bp1 connections of single windows: 1 worker "
+        f"{cl1['requests_per_s']:,.0f} requests/s, p50 {cl1['p50_ms']:.3f} ms, p99 "
+        f"{cl1['p99_ms']:.3f} ms; 2 workers {cl['requests_per_s']:,.0f} requests/s, p50 "
+        f"{cl['p50_ms']:.3f} ms, p99 {cl['p99_ms']:.3f} ms, as the client sees them [{card}]")
+    log(f"[workers] the front's /metrics ({out['metrics_bytes']:,} bytes, aggregated over the "
+        f"workers): " + "; ".join(out["metrics_lines"][:12]) + f" [{card}]")
+    cr = out["crash"]
+    log(f"[workers] {cr['sessions']} durable streams, SIGKILL of the worker holding "
+        f"{cr['on_killed_worker']}: restarts={cr['restarts']}, sessions_lost="
+        f"{cr['sessions_lost']}; {cr['resumed']} resumed by token on a live worker "
+        f"({cr['replayed']} steps replayed), every running error of all {cr['sessions']} "
+        f"bit-equal to the uninterrupted in-process run; respawned worker ready "
+        f"{cr['respawn_ready_s']:.1f} s after the kill [{card}]")
+    p = out["priority"]
+    log(f"[workers] recalibrate(params=x1.25) fanned out to 2 workers in "
+        f"{out['recalibrate_ms']:.1f} ms, both then bit-equal to the in-process gateway on the "
+        f"new params; priority_classes=3 (depth limits {p['depth_limits']}): at depth "
+        f"{p['queued'] - 2} a priority-2 request shed, priority 1 and 0 admitted (shed p2/p1/p0 "
+        f"= {p['shed_p2']:.0f}/{p['shed_p1']:.0f}/{p['shed_p0']:.0f}), all {p['answered']} "
+        f"admitted answered [{card}]")
+    log(f"[workers] ControlLoop slo_p95_ms={c['slo_p95_ms']} autoscale 1:2: actions "
+        f"{c['actions']} at window p95 {[round(x, 3) for x in c['p95_ms']]} ms, knobs "
+        f"{c['knobs']}, scale {c['scale']}, scale-down dropped "
+        f"{c['scale_down'][0]['dropped_tickets']} tickets (clean {c['scale_down'][0]['clean']}); "
+        f"new flush captures 0; Eq-1 prior floor {c['eq1_floor_ms']:.3f} ms (the paper's FPGA "
+        f"model) against the flush compute p50 measured here {c['flush_compute_p50_ms']:.3f} ms "
+        f"over {c['flushes']} flushes [{card}]")
+    s = out["shutdown"]
+    log(f"[workers] shutdown: {s['clean_exits']}/{s['workers']} workers exited cleanly, "
+        f"{s['dropped_tickets']} dropped tickets, restarts={s['restarts']}, sessions_lost="
+        f"{s['sessions_lost']}; K1 launches per worker (pid: launches = 6 x {t_len} x flushes): "
+        + ", ".join(f"{r['pid']}: {r['k1_launches']} = 384 x {r['flushes']}"
+                    for r in out["k1_per_worker"]) + f"; phase {out['phase_s']:.1f} s [{card}]")
+    if len(out["k1_per_worker"]) != clean or any(
+            r["k1_launches"] != depth * t_len * r["flushes"] or not r["flushes"]
+            for r in out["k1_per_worker"]):
+        raise AssertionError(f"K1 per worker ({clean} clean exits): {out['k1_per_worker']}")
+
+
+def drive_worker_launchers(torch, results, card) -> None:
+    """``serve --workers 2`` in a subprocess from a cold K1 build (both
+    workers build it at once) with a fit in each worker, and its SIGTERM
+    drain; while its workers boot, the training launcher twice (the second
+    run resumes) and ``run_with_recovery`` on the card with two injected
+    failures against a clean run."""
+    import functools
+    import glob
+    import queue
+    import signal
+    import tempfile
+    import threading
+    import types
+
+    import numpy as np
+
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.core.lstm import init_lstm_ae
+    from repro_torch.data import TimeseriesConfig, TimeseriesIterator
+    from repro_torch.distributed import FailureInjector, run_with_recovery
+    from repro_torch.gateway.client import GatewayClient
+    from repro_torch.kernels import _build
+    from repro_torch.models.lstm_ae import train_loss
+    from repro_torch.training import build_train_step, init_train_state
+
+    out = {}
+    cfg = get_config(GATEWAY_ARCH)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    # a cold start: the workers find no K1 library and build it together
+    for path in glob.glob(str(_build.library_path("lstm_cell").with_suffix("")) + "*"):
+        os.remove(path)
+    t_serve = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--workers", "2", "--arch",
+         GATEWAY_ARCH, "--full-config", "--schedule", "fused", "--capacity", "64",
+         "--max-batch", "64", "--port", "0", "--train-steps", str(WORKERS_FIT_STEPS)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    collected: list = []
+
+    def pump():
+        for line in proc.stdout:
+            collected.append(line)
+            lines.put(line)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            train = [sys.executable, "-m", "repro_torch.launch.train", "--arch", GATEWAY_ARCH,
+                     "--full-config", "--ckpt-dir", ckpt, "--ckpt-every", "3", "--batch", "8",
+                     "--seq-len", "64"]
+            runs = []
+            for steps in (6, 9):
+                t0 = time.perf_counter()
+                r = subprocess.run(train + ["--steps", str(steps)], cwd=ROOT, env=env,
+                                   capture_output=True, text=True, timeout=600)
+                runs.append((r, time.perf_counter() - t0))
+                if r.returncode != 0:
+                    raise AssertionError(f"launch.train --steps {steps}: {r.stdout}{r.stderr}")
+            if "resumed from step 6" not in runs[1][0].stdout or "resumed" in runs[0][0].stdout:
+                raise AssertionError(f"launch.train did not resume: {runs[1][0].stdout}")
+            out["train_runs"] = [{"s": dt, "lines": r.stdout.strip().splitlines()}
+                                 for r, dt in runs]
+
+        tc = TrainConfig(learning_rate=5e-3, warmup_steps=3, total_steps=12)
+        step = build_train_step(types.SimpleNamespace(
+            loss=functools.partial(train_loss, cfg=cfg)), tc)
+        losses = []
+        with tempfile.TemporaryDirectory() as ckpt:
+            for name, inj in (("clean", None), ("faulty", FailureInjector((3, 8)))):
+                state = init_train_state(
+                    init_lstm_ae(torch.Generator().manual_seed(0), cfg, "cuda"), tc)
+                it = TimeseriesIterator(TimeseriesConfig(features=cfg.lstm_ae.input_features,
+                                                         seq_len=16, batch=8))
+                t0 = time.perf_counter()
+                _, ls = run_with_recovery(
+                    state=state, train_step=lambda s, b: step(s, {"series": b[0].to("cuda")}),
+                    iterator=it, total_steps=12, ckpt_dir=os.path.join(ckpt, name),
+                    ckpt_every=5, injector=inj)
+                losses.append((ls, time.perf_counter() - t0))
+        np.testing.assert_allclose(losses[1][0], losses[0][0], rtol=1e-5)
+        out["recovery"] = {"clean": losses[0][0], "faulty": losses[1][0],
+                           "bit_equal": losses[0][0] == losses[1][0]}
+
+        deadline = time.monotonic() + 600
+        ready = ""
+        while "listening on" not in ready:
+            ready = lines.get(timeout=max(1.0, deadline - time.monotonic()))
+        out["serve_ready_s"] = time.perf_counter() - t_serve
+        port = int(ready.split("listening on ")[1].split()[0].rsplit(":", 1)[1])
+        rng = np.random.default_rng(5)
+        window = rng.standard_normal((64, cfg.lstm_ae.input_features)).astype(np.float32)
+        scores = set()
+        for _ in range(8):
+            with GatewayClient("127.0.0.1", port, protocol="binary") as c:
+                scores.add(c.score(window))
+                agg = c.stats()
+        thresholds = [w["threshold"] for w in agg["per_worker"]]
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=300)
+        reader.join(30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rest = "".join(collected)
+    drained = [ln for ln in rest.splitlines() if ln.startswith("[workers] drained")]
+    if proc.returncode != 0 or not drained or \
+            "2/2 workers exited cleanly, 0 dropped tickets" not in drained[0]:
+        raise AssertionError(f"serve --workers 2 drain (rc {proc.returncode}): {rest[-2000:]}")
+    if not _build.library_path("lstm_cell").is_file():
+        raise AssertionError("the workers' cold build left no K1 library")
+    out.update(serve_ready_line=ready.strip(), serve_drained_line=drained[0],
+               fit_thresholds=thresholds, fit_thresholds_bit_equal=len(set(thresholds)) == 1,
+               fit_distinct_scores=len(scores))
+    results["worker_launchers"] = out
+    log(f"[workers] serve: {ready.strip()} (cold K1 build in both workers, a "
+        f"{WORKERS_FIT_STEPS}-step fit on the card in each; ready after "
+        f"{out['serve_ready_s']:.1f} s, the runs below beside it) [{card}]")
+    log(f"[workers] the workers' fits from one seed: thresholds {thresholds} (bit-equal: "
+        f"{out['fit_thresholds_bit_equal']}), {len(scores)} distinct score(s) of one window "
+        f"over 8 connections; SIGTERM: {drained[0]} [{card}]")
+    log(f"[workers] launch.train {GATEWAY_ARCH} --full-config on the card, B=8, T=64, "
+        f"checkpoints every 3: a 6-step run ({runs[0][1]:.1f} s), then a 9-step run "
+        f"({runs[1][1]:.1f} s): " + " | ".join(runs[1][0].stdout.strip().splitlines())
+        + f" [{card}]")
+    log(f"[workers] run_with_recovery on the card ({GATEWAY_ARCH}, B=8, T=16, 12 steps, "
+        f"checkpoints every 5), failures injected at steps 3 and 8: losses within rtol 1e-5 of "
+        f"the clean run (bit-equal: {out['recovery']['bit_equal']}; last "
+        f"{losses[1][0][-1]:.6f}) in {losses[1][1]:.1f} s against {losses[0][1]:.1f} s [{card}]")
 
 def device_busy_over(torch, fn) -> dict:
     """Wall time of one ``fn()`` and the time the device was busy in it (the
@@ -1967,6 +2519,8 @@ def main(argv=None) -> int:
     k2_launches = drive_k2_path(torch, svc, first, results, card)
     drive_gateway(torch, results, card)
     transport_gw, transport_windows = drive_transport(torch, results, card)
+    drive_workers(torch, results, card)
+    drive_worker_launchers(torch, results, card)
 
     check_k3(torch, results)
     k3 = time_k3(torch, results, card)

@@ -7,8 +7,9 @@ holds a flat ``leaves.npz`` of leaves keyed by tree path plus
 the latest checkpoint.
 
 The keys are the reference's: a leaf's path joined by ``/``, each part a
-dict key or a sequence index, in the order ``jax.tree_util`` flattens
-(dict keys sorted, sequences in order).  So a checkpoint written by one
+dict key, a sequence index or ``.field`` of a dataclass (a train state),
+in the order ``jax.tree_util`` flattens (dict keys sorted, sequences and
+dataclass fields in order).  So a checkpoint written by one
 package restores in the other.  ``treedef`` in ``meta.json`` describes the
 tree for a reader and is never parsed; restores follow the target's
 structure.  Only whole, unsharded leaves exist in the port: restoring
@@ -17,6 +18,7 @@ item 10).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -28,12 +30,22 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.utils import Params, tree_map
+from repro_torch.utils import Params
+
+def _is_node(tree) -> bool:
+    """A dataclass instance is a tree node (as ``register_dataclass``
+    makes the reference's train state one), its fields in order."""
+    return dataclasses.is_dataclass(tree) and not isinstance(tree, type)
+
 
 def _items(tree: Params, prefix: tuple = ()):
     """``(path, leaf)`` in ``jax.tree_util.tree_flatten_with_path`` order:
-    dict keys sorted, sequences in order; None is an empty subtree."""
-    if isinstance(tree, dict):
+    dict keys sorted, sequences in order, dataclass fields in order (as
+    ``.name``); None is an empty subtree."""
+    if _is_node(tree):
+        for f in dataclasses.fields(tree):
+            yield from _items(getattr(tree, f.name), prefix + (f".{f.name}",))
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _items(tree[k], prefix + (k,))
     elif isinstance(tree, (tuple, list)):
@@ -78,6 +90,9 @@ def _flatten(tree: Params) -> tuple[dict[str, np.ndarray], dict[str, str]]:
 def _describe(tree: Params) -> str:
     """The tree's containers with ``*`` for each leaf, e.g.
     ``{'layers': ({'b': *, 'wh': *}, ...)}`` — informative only."""
+    if _is_node(tree):
+        return (type(tree).__name__ + "(" + ", ".join(
+            f"{f.name}={_describe(getattr(tree, f.name))}" for f in dataclasses.fields(tree)) + ")")
     if isinstance(tree, dict):
         return "{" + ", ".join(f"{k!r}: {_describe(tree[k])}" for k in sorted(tree)) + "}"
     if isinstance(tree, tuple):
@@ -153,8 +168,9 @@ class AsyncCheckpointer:
         self.wait()
         # a copy the caller cannot change under the writer: tensors to
         # the host now, on this thread; the worker thread only serialises
-        host_state = tree_map(lambda leaf: leaf.detach().to("cpu", copy=True)
-                              if isinstance(leaf, torch.Tensor) else leaf, state)
+        host_state = _rebuild(state, {
+            path: leaf.detach().to("cpu", copy=True) if isinstance(leaf, torch.Tensor) else leaf
+            for path, leaf in _items(state)}, ())
 
         def _work():
             try:
@@ -237,6 +253,10 @@ def restore_checkpoint(
 
 
 def _rebuild(tree: Params, leaves: dict, prefix: tuple) -> Params:
+    if _is_node(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _rebuild(getattr(tree, f.name), leaves, prefix + (f".{f.name}",))
+            for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: _rebuild(v, leaves, prefix + (k,)) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

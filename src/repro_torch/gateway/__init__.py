@@ -27,10 +27,11 @@ A live deployment fronts the gateway with the socket transport of
 pump, one pool session per connection), whose event loop runs on one
 thread: every pool step and flush of a gateway, and so every replay of its
 captured programs, runs on that thread.  Durable sessions attach through
-:func:`repro_torch.gateway.durability.enable_durability` (``durability``).
-Only the single placement exists in the port, and the control plane waits
-for a later slice (``control`` stays ``None``: flat admission, static
-knobs).
+:func:`repro_torch.gateway.durability.enable_durability` (``durability``),
+the control plane through :func:`repro_torch.control.enable_control`
+(``control``: priority admission, SLO-driven batching knobs).  Only the
+single placement exists in the port.  Several gateways behind one port,
+one per worker process, are :class:`repro_torch.gateway.workers.WorkerFront`.
 """
 from __future__ import annotations
 
@@ -92,9 +93,10 @@ class AnomalyGateway:
         # session durability is opt-in: durability.enable_durability()
         # attaches a DurableSessions coordinator here and the transport and
         # stats pick it up; None keeps plain sessions (no snapshots, no
-        # tokens).  The control plane attaches here once it is ported
-        # (ROADMAP.md, queue 1, item 9); None keeps flat admission and
-        # static knobs
+        # tokens).  The control plane is opt-in the same way:
+        # control.enable_control() attaches a GatewayControl whose
+        # admission gates submit() and whose ticks ride the transport's
+        # pump; None keeps flat admission and static knobs
         self.durability = None
         self.control = None
         # observability plane: per-stage histograms gate on ``obs_detail``,
@@ -130,9 +132,8 @@ class AnomalyGateway:
     def submit(self, series, *, priority=None, tenant=None) -> Ticket:
         """Enqueue one (T, F) window: first come, first queued, shed at
         ``max_queue``.  ``priority`` and ``tenant`` are what a control
-        plane's admission reads; with none attached (``control`` is None
-        until ROADMAP.md, queue 1, item 9) they are ignored, as in the
-        reference without one."""
+        plane's admission reads (shed the lowest class first, rate-limit
+        a tenant); with none attached they are ignored."""
         if self.control is not None:
             self.control.admit(priority=priority, tenant=tenant)
         return self.batcher.submit(series)
@@ -244,6 +245,8 @@ class AnomalyGateway:
         }
         if self.durability is not None:
             out["durability"] = self.durability.describe()
+        if self.control is not None:
+            out["control"] = self.control.describe()
         return out
 
     def __repr__(self) -> str:

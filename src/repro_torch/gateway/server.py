@@ -50,7 +50,7 @@ request                 response
                         slot occupancy) plus ``pool.device_active`` /
                         ``queue.device_fill`` gauges, so mesh imbalance
                         is observable over the wire.  Behind a
-                        multi-worker front (``stats_provider``)
+                        multi-worker front (:mod:`repro_torch.gateway.workers`)
                         the snapshot is AGGREGATED over all workers:
                         counters/capacities sum, and a ``workers``
                         section carries per-worker detail plus
@@ -176,16 +176,19 @@ class GatewayServer:
         stats_provider: Optional[Callable] = None,
         recalibrate_provider: Optional[Callable] = None,
         enable_binary: bool = True,
+        reuse_port: bool = False,
     ):
         if not isinstance(gateway, AnomalyGateway):
             raise TypeError(f"expected AnomalyGateway, got {type(gateway)!r}")
         self.gateway = gateway
         self.host = host
         self.port = port
-        # multi-worker mode (ROADMAP.md, queue 1, item 8): stats/recalibrate
-        # answer for the whole front via the providers (which may return an
-        # awaitable — the fan-out crosses a control pipe) instead of this
-        # process's gateway alone
+        # multi-worker mode (repro_torch.gateway.workers): several servers
+        # bind the same port with SO_REUSEPORT and the kernel load-balances
+        # connections; stats/recalibrate then answer for the whole front
+        # via the providers (which may return an awaitable — the fan-out
+        # crosses a control pipe) instead of this process's gateway alone
+        self.reuse_port = reuse_port
         self.stats_provider = stats_provider
         self.recalibrate_provider = recalibrate_provider
         # generous line limit: a max_seq_len x F window as JSON text is
@@ -221,8 +224,10 @@ class GatewayServer:
         if device.type == "cuda":
             torch.cuda.set_device(device)
         self._draining = False
+        extra = {"reuse_port": True} if self.reuse_port else {}
         self._server = await asyncio.start_server(
             self._handle, self.host, self.port, limit=self.max_line_bytes,
+            **extra,
         )
         self.host, self.port = self._server.sockets[0].getsockname()[:2]
         self._pump_task = asyncio.get_running_loop().create_task(self._pump_loop())

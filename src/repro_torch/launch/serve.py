@@ -18,17 +18,32 @@ Modes, as in the reference launcher:
   ...`` when it stops.  ``--store-dir`` serves durable sessions
   (snapshots every ``--snapshot-interval-ms`` and signed resumption
   tokens), ``--metrics-port`` serves ``GET /metrics`` and ``--event-dir``
-  appends lifecycle events as JSONL.
+  appends lifecycle events as JSONL;
+- with ``--workers N`` (implies ``--http``): the multi-worker front
+  (``repro_torch.gateway.workers``) — N spawned worker processes share one
+  ``SO_REUSEPORT`` port, each with its own engine and CUDA context on the
+  current device (``cuda:0``; ``--device`` reaches every worker's
+  factory); the supervisor respawns crashes and coordinates the SIGTERM
+  drain, printing ``[workers] listening on ...`` when every worker serves
+  and ``[workers] drained: ...`` (clean exits, dropped tickets) when it
+  stops.  ``--store-dir`` makes the front durable (a snapshot shard per
+  worker, resume on any worker).
+
+``--slo-p95-ms``, ``--priority-classes``, ``--tenant-rate`` and, with
+``--workers``, ``--autoscale MIN:MAX`` run the adaptive control plane
+(``repro_torch.control``) every ``--control-tick-s``: SLO-driven batching
+knobs, priority-aware admission (the highest class number sheds first)
+and drain-based worker autoscaling.  Admission runs in each worker; the
+batching controller and the autoscaler run in the supervisor.
 
 With ``--train-steps N`` each mode first fits the service for N steps
 on benign windows (``AnomalyService.fit``, batch 64 at ``--seq-len``),
 calibrates its threshold on them and prints the ``fitted`` line.
 
 The device defaults to the GPU and never falls back to the CPU:
-``--device cpu`` asks for it.  Worker processes (``--workers``) and the
-control plane (``--slo-p95-ms``, ``--priority-classes``, ``--tenant-rate``,
-``--autoscale``, ``--control-tick-s``) are not ported yet; their flags exit
-with an error that names the ``ROADMAP.md`` item that will port them.
+``--device cpu`` asks for it.  ``--mesh`` (a data placement over several
+GPUs) is not ported yet; it exits with an error that names the
+``ROADMAP.md`` item that will port it.
 """
 from __future__ import annotations
 
@@ -45,17 +60,45 @@ from repro_torch.config import get_config, list_archs, reduced_config
 from repro_torch.core.latency import PAPER_RH_M
 from repro_torch.data import TimeseriesConfig, make_batch
 from repro_torch.engine import AnomalyService, available_schedules
+from repro_torch.engine.placement import MULTI_GPU_ITEM
 
-_ITEM_8 = "ROADMAP.md, queue 1, item 8 (multi-process workers)"
-_ITEM_9 = "ROADMAP.md, queue 1, item 9 (control plane)"
-NOT_PORTED = {
-    "workers": _ITEM_8,
-    "slo_p95_ms": _ITEM_9,
-    "priority_classes": _ITEM_9,
-    "tenant_rate": _ITEM_9,
-    "autoscale": _ITEM_9,
-    "control_tick_s": _ITEM_9,
-}
+NOT_PORTED = {"mesh": MULTI_GPU_ITEM}
+
+
+def parse_autoscale(spec):
+    """``--autoscale MIN:MAX`` -> ``(min, max)`` worker bounds (or None)."""
+    if not spec:
+        return None
+    try:
+        lo, hi = (int(p) for p in spec.split(":", 1))
+    except ValueError:
+        raise SystemExit(f"--autoscale expects MIN:MAX, got {spec!r}")
+    if lo < 1 or hi < lo:
+        raise SystemExit(f"--autoscale needs 1 <= MIN <= MAX, got {spec!r}")
+    return lo, hi
+
+
+def control_cfg_for(args, *, autoscale=None):
+    """The :class:`repro_torch.control.ControlConfig` this invocation asked
+    for, or None when no control-plane flag is set (flat admission, static
+    knobs, fixed fleet)."""
+    wants = (args.slo_p95_ms is not None or args.priority_classes > 1
+             or args.tenant_rate is not None or autoscale is not None)
+    if not wants:
+        return None
+    from repro_torch.control import ControlConfig
+
+    return ControlConfig(
+        slo_p95_ms=args.slo_p95_ms,
+        tick_interval_s=args.control_tick_s,
+        priority_classes=args.priority_classes,
+        tenant_rate=args.tenant_rate,
+        autoscale_min=autoscale[0] if autoscale else None,
+        autoscale_max=autoscale[1] if autoscale else None,
+        floor_timesteps=args.seq_len,
+        arch=args.arch,
+        extra={"max_wait_ms": args.max_wait_ms},
+    )
 
 
 def fit_and_calibrate(svc, args) -> dict:
@@ -171,6 +214,11 @@ def serve_http(cfg, args) -> None:
     if args.event_dir:
         gw.attach_event_log(os.path.join(args.event_dir, "server.jsonl"))
         gw.events.emit("boot", pid=os.getpid())
+    ccfg = control_cfg_for(args)
+    if ccfg is not None:
+        from repro_torch.control import enable_control
+
+        enable_control(gw, ccfg, event_dir=args.event_dir or None)
     metrics = None
     if args.metrics_port is not None:
         from repro_torch.obs import MetricsServer
@@ -180,12 +228,16 @@ def serve_http(cfg, args) -> None:
 
     def _ready(srv) -> None:
         durable = f", store={args.store_dir}" if args.store_dir else ""
+        control = ""
+        if gw.control is not None:
+            control = (f", slo_p95_ms={args.slo_p95_ms}, "
+                       f"priority_classes={args.priority_classes}")
         scrape = f" metrics_port={metrics.port}" if metrics else ""
         print(f"[http] listening on {srv.host}:{srv.port}{scrape} "
               f"protocols=bp1+json "
               f"(device={svc.device}, schedule={gw.engine.schedule.tag}, "
               f"capacity={gw.pool.capacity}, max_batch={gw.batcher.max_batch}, "
-              f"max_wait_ms={gw.batcher.max_wait_ms}{durable})", flush=True)
+              f"max_wait_ms={gw.batcher.max_wait_ms}{durable}{control})", flush=True)
 
     try:
         asyncio.run(server.run_until_signal(on_ready=_ready))
@@ -198,6 +250,78 @@ def serve_http(cfg, args) -> None:
           f"{s['counters'].get('queue.rejected', 0):.0f} rejected), "
           f"{s['counters'].get('pool.stream_steps', 0):.0f} stream-steps over "
           f"{s['counters'].get('pool.admitted', 0):.0f} sessions", flush=True)
+
+
+def serve_workers(cfg, args) -> None:
+    """Run the multi-worker front: ``--workers N`` processes behind one
+    ``SO_REUSEPORT`` port until SIGINT/SIGTERM, then the coordinated drain
+    with a per-worker summary (every worker exits cleanly, zero dropped).
+
+    The per-worker build is ``workers.default_gateway_factory`` (it runs IN
+    each worker, on ``--device``; with ``--train-steps`` every worker fits
+    from the same seed on its own device, so all workers serve the same
+    params without shipping arrays across processes).  The supervisor
+    makes no CUDA call."""
+    import functools
+
+    from repro_torch.gateway.workers import WorkerFront, default_gateway_factory
+
+    autoscale = parse_autoscale(args.autoscale)
+    n_workers = args.workers
+    if autoscale:
+        # start inside the declared bounds; the autoscaler moves from here
+        n_workers = min(max(n_workers, autoscale[0]), autoscale[1])
+    front = WorkerFront(
+        functools.partial(
+            default_gateway_factory, args.arch, args.schedule,
+            reduced=args.reduced, train_steps=args.train_steps,
+            train_seq_len=args.seq_len, capacity=args.capacity,
+            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+            warm_seq_len=args.seq_len,
+            priority_classes=args.priority_classes,
+            tenant_rate=args.tenant_rate, device=args.device,
+        ),
+        n_workers=n_workers, host=args.host, port=args.port,
+        store_dir=args.store_dir or None,
+        snapshot_interval_ms=args.snapshot_interval_ms,
+        event_dir=args.event_dir or None,
+        metrics_port=args.metrics_port,
+    )
+    ccfg = control_cfg_for(args, autoscale=autoscale)
+    loop = None
+    if ccfg is not None and (ccfg.slo_p95_ms is not None or ccfg.autoscaling):
+        from repro_torch.control import ControlLoop
+
+        loop = ControlLoop(front, ccfg, lanes=args.max_batch,
+                           model_cfg=cfg.lstm_ae,
+                           event_dir=args.event_dir or None)
+
+    def _ready(f) -> None:
+        scrape = f" metrics_port={f.metrics.port}" if f.metrics else ""
+        control = ""
+        if loop is not None:
+            loop.start()
+            bounds = (f" autoscale={autoscale[0]}:{autoscale[1]}"
+                      if autoscale else "")
+            control = (f" slo_p95_ms={args.slo_p95_ms}{bounds} "
+                       f"priority_classes={args.priority_classes}")
+        print(f"[workers] listening on {f.host}:{f.port}{scrape} "
+              f"protocols=bp1+json workers={n_workers} mesh=1xdata "
+              f"(schedule={args.schedule}, capacity={args.capacity} and "
+              f"max_batch={args.max_batch} per worker){control}", flush=True)
+
+    summary = front.run_until_signal(on_ready=_ready)
+    c = summary["counters"]
+    print(f"[workers] drained: {summary['clean_exits']}/{summary['workers']} "
+          f"workers exited cleanly, {summary['dropped_tickets']} dropped "
+          f"tickets, {c.get('queue.completed', 0):.0f} one-shot scores "
+          f"({c.get('queue.failed', 0):.0f} failed, "
+          f"{c.get('queue.rejected', 0):.0f} rejected), "
+          f"{c.get('pool.stream_steps', 0):.0f} stream-steps over "
+          f"{c.get('pool.admitted', 0):.0f} sessions, "
+          f"restarts={summary['restarts']}, "
+          f"sessions_migrated={summary.get('sessions_migrated', 0)}, "
+          f"sessions_lost={summary['sessions_lost']}", flush=True)
 
 
 def main(argv=None) -> None:
@@ -239,24 +363,42 @@ def main(argv=None) -> None:
                          "0 picks a free one (printed as metrics_port=)")
     ap.add_argument("--event-dir", default=None,
                     help="--http: append lifecycle events as JSONL under this directory")
-    ap.add_argument("--workers", type=int, default=0, help="not ported yet")
-    ap.add_argument("--slo-p95-ms", type=float, default=None, help="not ported yet")
-    ap.add_argument("--priority-classes", type=int, default=None, help="not ported yet")
-    ap.add_argument("--tenant-rate", type=float, default=None, help="not ported yet")
-    ap.add_argument("--autoscale", default=None, help="not ported yet")
-    ap.add_argument("--control-tick-s", type=float, default=None, help="not ported yet")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="spawn N gateway worker processes sharing one SO_REUSEPORT "
+                         "port (implies --http), each with its own engine")
+    ap.add_argument("--slo-p95-ms", type=float, default=None,
+                    help="declare a p95 one-shot-latency SLO (ms): the control plane "
+                         "tunes max_batch/max_wait_ms each tick to meet it")
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help="admission priority classes (1 = flat admission); under "
+                         "overload the HIGHEST class number sheds first")
+    ap.add_argument("--tenant-rate", type=float, default=None,
+                    help="per-tenant token-bucket admission rate (requests/s)")
+    ap.add_argument("--autoscale", default=None, metavar="MIN:MAX",
+                    help="with --workers: scale the fleet between MIN and MAX workers "
+                         "from the arrival rate and queue saturation (scale-down is a "
+                         "zero-drop drain)")
+    ap.add_argument("--control-tick-s", type=float, default=1.0,
+                    help="control-plane tick interval (seconds)")
+    ap.add_argument("--mesh", default=None, metavar="data=N", help="not ported yet")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full-config", dest="reduced", action="store_false")
     args = ap.parse_args(argv)
 
     for flag, item in NOT_PORTED.items():
-        # --workers 0 is the single-process default; a control flag set to
-        # anything, 0 included, asks for the control plane
-        if getattr(args, flag) != (0 if flag == "workers" else None):
+        if getattr(args, flag) is not None:
             ap.error(f"--{flag.replace('_', '-')} is not ported to repro_torch yet: {item}")
-    resolve_device(args.device)  # fail before any work when no GPU is visible
+    # fail before any work when no GPU is visible; the supervisor of
+    # --workers checks without initialising CUDA (its workers use the card)
+    if not args.workers:
+        resolve_device(args.device)
+    elif args.device is None or torch.device(args.device).type == "cuda":
+        if not torch.cuda.is_available():
+            resolve_device(args.device)  # raises, naming --device cpu
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    if args.http:
+    if args.workers:
+        serve_workers(cfg, args)
+    elif args.http:
         serve_http(cfg, args)
     elif args.gateway:
         serve_gateway(cfg, args)

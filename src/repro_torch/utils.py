@@ -66,5 +66,6 @@ def params_from_numpy(tree: Params, device: Union[str, torch.device, None] = Non
 
 
 def params_to_numpy(tree: Params) -> Params:
-    """Tensors -> numpy arrays on the host, same containers."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """Tensors (or arrays) -> numpy arrays on the host, same containers."""
+    return tree_map(lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                    else np.asarray(t), tree)

@@ -1105,3 +1105,110 @@ def test_server_thread_runs_on_the_gateway_device(cuda):
     assert score == pytest.approx(float(eager.score(w[None])[0]), rel=1e-4, abs=1e-6)
     assert all(p.graph is not None for p in svc.engine._graphs.programs.values())
     assert gw.pool._state["h"][0].device == dev
+
+
+# -- the multi-worker front on the card ---------------------------------------
+
+
+WORKER_KW = {"capacity": 4, "max_batch": 4, "max_wait_ms": 5.0, "warm_seq_len": 16}
+
+
+def device_reporting_gateway(report_dir: str, **kw):
+    """Per-worker factory (spawn imports this module in each worker): the
+    port's default gateway on the current CUDA device, which writes the
+    device its engine took to ``report_dir/<pid>``."""
+    from repro_torch.gateway.workers import default_gateway_factory
+
+    gw = default_gateway_factory(CAPTURE_ARCH, "fused", **{**WORKER_KW, **kw})
+    with open(os.path.join(report_dir, str(os.getpid())), "w") as f:
+        f.write(str(gw.engine.device))
+    return gw
+
+
+@pytest.mark.cuda
+def test_workers_on_the_card_score_bit_equal_to_in_process(cuda, tmp_path):
+    """Two workers on cuda:0, each with its own CUDA context and captured
+    bucket graph: one-shot scores and a stream over the socket bit-equal
+    to an in-process gateway on the same card with the same seed."""
+    from repro_torch.engine import AnomalyService
+    from repro_torch.gateway.client import GatewayClient
+    from repro_torch.gateway.workers import WorkerFront
+
+    svc = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda)
+    gw = svc.open_gateway(**{k: v for k, v in WORKER_KW.items() if k != "warm_seq_len"})
+    rng = np.random.default_rng(3)
+    windows = [rng.standard_normal((16, svc.features)).astype(np.float32) for _ in range(6)]
+    local = [float(gw.score([w])[0]) for w in windows]
+    gw.admit("s")
+    stream = [gw.step({"s": w[0]})["s"] for w in windows]
+    f = WorkerFront(functools.partial(device_reporting_gateway, str(tmp_path)), n_workers=2)
+    host, port = f.start(ready_timeout=300.0)
+    try:
+        for _ in range(8):  # several connections: the kernel spreads them
+            with GatewayClient(host, port) as c:
+                assert [c.score(w) for w in windows] == local
+        with GatewayClient(host, port) as c:
+            assert [c.step(w[0])["running_error"] for w in windows] == stream
+        per = f.stats()["per_worker"]
+        assert all(w["counters"].get("queue.completed", 0) > 0 for w in per), per
+    finally:
+        summary = f.shutdown()
+    assert summary["clean_exits"] == 2 and summary["dropped_tickets"] == 0
+    assert sorted(p.read_text() for p in tmp_path.iterdir()) == ["cuda:0", "cuda:0"]
+
+
+@pytest.mark.cuda
+def test_supervisor_leaves_cuda_uninitialised(cuda):
+    """A process that starts a front of CUDA workers and recalibrates it
+    with new params never initialises CUDA itself: params cross the pipes
+    as numpy, stats as plain Python.  Run in a fresh interpreter, as this
+    test process has long initialised CUDA."""
+    import subprocess
+
+    script = f"""
+import functools, numpy as np, torch
+from repro_torch.gateway.workers import WorkerFront, default_gateway_factory
+from repro_torch.engine import AnomalyService
+cpu = AnomalyService({CAPTURE_ARCH!r}, schedule="fused", device="cpu")
+f = WorkerFront(functools.partial(default_gateway_factory, {CAPTURE_ARCH!r}, "fused",
+                                  **{WORKER_KW!r}), n_workers=2)
+f.start(ready_timeout=300.0)
+out = f.recalibrate(params=cpu.params, threshold=0.5)
+s = f.stats()
+summary = f.shutdown()
+assert out["workers"] == 2 and out["params_swapped"], out
+assert [w["threshold"] for w in s["per_worker"]] == [0.5, 0.5]
+assert summary["clean_exits"] == 2, summary
+print("initialised", torch.cuda.is_initialized())
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    out = subprocess.run([sys.executable, "-c", script], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "initialised False" in out.stdout
+
+
+@pytest.mark.cuda
+def test_claim_of_cuda_1_sets_the_workers_device(cuda, tmp_path):
+    """A worker that claims ``cuda:1`` makes it its current device before
+    it builds its gateway: ``device=None`` resolves there, and the claim
+    is in the registry while the worker lives."""
+    from repro_torch.gateway.claims import DeviceClaimRegistry
+    from repro_torch.gateway.client import GatewayClient
+    from repro_torch.gateway.workers import WorkerFront
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: the worker must live off device 0")
+    report = tmp_path / "report"
+    report.mkdir()
+    f = WorkerFront(functools.partial(device_reporting_gateway, str(report)), n_workers=1,
+                    device_claims={0: ["cuda:1"]}, claims_dir=str(tmp_path))
+    host, port = f.start(ready_timeout=300.0)
+    try:
+        assert DeviceClaimRegistry(tmp_path).claims()["worker-0"]["devices"] == ["cuda:1"]
+        with GatewayClient(host, port) as c:
+            assert np.isfinite(c.score(np.zeros((16, 32), np.float32)))
+    finally:
+        f.shutdown()
+    assert [p.read_text() for p in report.iterdir()] == ["cuda:1"]

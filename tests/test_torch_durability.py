@@ -17,7 +17,7 @@ and parity with the reference across packages.
   and continues within 1e-5 of the reference's run.
 
 The device-claim registry and worker-front cases of tests/test_durability.py
-wait for ROADMAP.md, queue 1, item 8 (``claims.py``, ``workers.py``).
+are in tests/test_torch_workers_durability.py.
 """
 import json
 import os

@@ -13,10 +13,9 @@ drain must return while clients still hold their connections open (the
 reference's ``drain`` awaits ``Server.wait_closed()`` first, which from
 Python 3.12.1 waits for those connections; ROADMAP.md queue 3).
 
-``tests/test_wire.py::test_priority_shed_over_binary_frames`` has no
-counterpart here: it needs the control plane's admission controller,
-which waits for ROADMAP.md, queue 1, item 9.  The durable-session cases
-over the wire are in tests/test_torch_durability.py.
+``tests/test_wire.py::test_priority_shed_over_binary_frames`` is in
+tests/test_torch_control.py, beside the control plane it needs.  The
+durable-session cases over the wire are in tests/test_torch_durability.py.
 """
 import os
 import queue

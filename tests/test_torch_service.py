@@ -139,21 +139,27 @@ def test_launcher_fits_then_opens_the_gateway(capsys):
     assert "[gateway] scored 4 one-shot requests" in out and "alerts=" in out
 
 
-@pytest.mark.parametrize("flag,item", [(["--workers", "2"], "item 8"),
-                                       (["--slo-p95-ms", "50"], "item 9"),
-                                       (["--priority-classes", "3"], "item 9"),
-                                       (["--tenant-rate", "100"], "item 9"),
-                                       (["--tenant-rate", "0"], "item 9"),
-                                       (["--slo-p95-ms", "0"], "item 9"),
-                                       (["--control-tick-s", "0"], "item 9"),
-                                       (["--autoscale", "1:4"], "item 9"),
-                                       (["--control-tick-s", "0.5"], "item 9")])
+@pytest.mark.parametrize("flag,item", [(["--workers", "2"], "item 10"),
+                                       (["--slo-p95-ms", "50"], "item 10"),
+                                       (["--priority-classes", "3"], "item 10"),
+                                       (["--tenant-rate", "100"], "item 10"),
+                                       (["--tenant-rate", "0"], "item 10"),
+                                       (["--slo-p95-ms", "0"], "item 10"),
+                                       (["--control-tick-s", "0"], "item 10"),
+                                       (["--autoscale", "1:4"], "item 10"),
+                                       (["--control-tick-s", "0.5"], "item 10")])
 def test_launcher_rejects_unported_modes(flag, item, capsys):
+    """Since the worker front and the control plane are ported, ``--mesh``
+    (several GPUs) is the one mode refused: with any of the former
+    flags beside it, the launcher names ``--mesh`` and its item, and
+    never the flag."""
     with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", "lstm-ae-f32-d2", "--device", "cpu", "--http", *flag])
+        serve.main(["--arch", "lstm-ae-f32-d2", "--device", "cpu", "--http", *flag,
+                    "--mesh", "data=2"])
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert "not ported" in err and "ROADMAP.md" in err and item in err
+    assert "--mesh is not ported" in err and f"{flag[0]} is not ported" not in err
 
 
 def test_launcher_http_without_a_gpu_raises():
