@@ -74,6 +74,24 @@ toolkit.  It
    the profiler must show the device running 6 x 64 K1 kernels, after a
    profiled repeat of the bp1 pass that gives the device's idle share
    over it and its windows per flush;
+8b. the worker front and the launchers (``[workers]`` lines), then the
+   multi-GPU slice (``[multi_gpu]`` lines) at the main path's width and
+   params: the stage pipeline (``pipelined_forward``) on (1, 2), (1, 4) and
+   (2, 2) (data x stage) meshes of cuda:0, a stream per cell, held to
+   ``sequential`` (rtol 1e-4, atol 1e-5) and ``wavefront`` and timed beside
+   them and the captured ``fused`` engine, with each mesh's stage
+   assignment and pass-through stages; ``EngineConfig("pipelined",
+   n_stages=2)`` with 1 and 2 data shards; ``Placement.data(2)`` over cuda:0
+   named twice: engine scores bit-equal to the single placement's, K1
+   launched 2 x 384 times per request (counts set to 0 just before, read
+   just after), one capture per shard, host and device ms per request; and
+   the gateway of 8. on that placement: 2048 streams churned against the
+   single-placement gateway (bit-equality printed), ``per_device_active``,
+   512 one-shot windows bit-equal, requests/s and ``queue.device_fill``.
+   With two GPUs it repeats the data=2 engine and the (1, 2) pipeline over
+   cuda:0 and cuda:1 and runs ``serve --mesh data=2 --http``; with one it
+   says so and checks that ``Placement.data(2)`` without ``devices=``
+   raises;
 9. holds K3 (the RWKV-6 WKV recurrence) to its plain version at the
    reference sweep, f32 and bf16, chunk chaining, and rwkv6-7b's heads
    (H=64, hd=64) at train_4k's T=4096, B=32, there also with decays drawn
@@ -566,7 +584,7 @@ def profile_pool_step(torch, gw, windows, card) -> dict:
         gw.evict(("profile", sid))
     x_t = torch.from_numpy(windows[:cap, 0].copy()).to("cuda")
     keep = torch.ones(cap, dtype=torch.bool, device="cuda")
-    state = gw.pool._state
+    state = gw.pool._blocks[0].state
     engine = gw.engine
     out = {"step_ms": statistics.median(steps),
            "masked_step_host_ms": host_ms(torch, lambda: engine.stream_masked(x_t, state, keep),
@@ -626,7 +644,7 @@ def drive_gateway(torch, results, card) -> int:
                      "pool_step_ms_p50": gw.telemetry.histograms["pool_step_ms"].percentile(50),
                      "kernel_launches": launch_counts(), "pool_captures": gw.pool.captures,
                      "recaptures": gw.pool.captures - 1,
-                     "pool_replays": gw.pool._graphs.replays}
+                     "pool_replays": gw.pool._blocks[0].graphs.replays}
     churned = sorted(i for i, (a, e) in spans.items() if a == 0 and e < t_len)
     late = sorted(i for i, (a, _) in spans.items() if a > 0)
     sampled = (churned + late)[:GATEWAY_SAMPLED - 2] + [churned[-1] + 1, GATEWAY_CAPACITY - 1]
@@ -1593,6 +1611,263 @@ def drive_worker_launchers(torch, results, card) -> None:
         f"the clean run (bit-equal: {out['recovery']['bit_equal']}; last "
         f"{losses[1][0][-1]:.6f}) in {losses[1][1]:.1f} s against {losses[0][1]:.1f} s [{card}]")
 
+MULTI_ARCH = "lstm-ae-f64-d6"
+PIPELINE_MESHES = ((1, 2), (1, 4), (2, 2))     # (data, stage) over cuda:0, a stream a cell
+MULTI_REQUESTS = 3
+PIPELINE_RTOL, PIPELINE_ATOL = 1e-4, 1e-5      # tests/test_temporal.py's pipeline bar
+
+
+def emulated(n: int) -> tuple:
+    """``n`` names of the first GPU: one card standing in for n devices."""
+    return ("cuda:0",) * n
+
+
+def drive_multi_gpu(torch, main_svc, results, card) -> None:
+    """The multi-GPU slice at the main path's width (f64-d6, B=8192, T=64,
+    the main path's params): the stage pipeline on (1, 2), (1, 4) and (2, 2)
+    meshes over cuda:0 (a stream per cell) against ``sequential`` and
+    ``wavefront``, timed beside them and the captured ``fused`` engine;
+    the same through ``EngineConfig("pipelined")``; then ``Placement.data(2)``
+    over cuda:0 twice: engine scores bit-equal to the single placement with
+    K1 launched 2 x 384 times per request, and the gateway (pool churn and
+    one-shot windows) against the single-placement gateway.  With two GPUs
+    or more, the data=2 engine, the (1, 2) pipeline and ``serve --mesh
+    data=2 --http`` run on cuda:0 and cuda:1; with one, ``Placement.data(2)``
+    without ``devices=`` must raise."""
+    import functools
+
+    import numpy as np
+
+    from repro_torch.core.lstm import lstm_ae_sequential
+    from repro_torch.core.temporal import (build_stage_params, pipelined_forward,
+                                           wavefront_forward)
+    from repro_torch.data import TimeseriesConfig, make_batch
+    from repro_torch.engine import AnomalyService, EngineConfig, Placement
+    from repro_torch.gateway import drive_stream_churn
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    cfg, params = main_svc.cfg, main_svc.params
+    depth, feats = len(params["layers"]), main_svc.features
+    batch, t_len = 8192, 64
+    data_cfg = TimeseriesConfig(features=feats, seq_len=t_len, batch=batch, anomaly_rate=0.05)
+    requests = [make_batch(data_cfg, i)[0] for i in range(MULTI_REQUESTS)]
+    on_card = [r.to("cuda") for r in requests]
+    xs = on_card[0].transpose(0, 1).contiguous()                      # (T, B, F)
+    out = {"arch": MULTI_ARCH, "batch": batch, "seq_len": t_len,
+           "gpus": torch.cuda.device_count(), "pipeline": {}}
+
+    # --- the stage pipeline over meshes of cuda:0
+    ref = lstm_ae_sequential(params, xs)
+    wave_ms = host_ms(torch, lambda: wavefront_forward(params, xs), iters=3)
+    wave = wavefront_forward(params, xs)
+    torch.testing.assert_close(wave, ref, rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL)
+    fused = main_svc.engine
+    fused_ms = host_ms(torch, lambda: fused.reconstruct({"series": on_card[0]}), iters=5)
+    out["wavefront_ms"], out["fused_captured_ms"] = wave_ms, fused_ms
+    for shape in PIPELINE_MESHES:
+        mesh = make_host_mesh(shape, ("data", "model"), devices=emulated(shape[0] * shape[1]))
+        sp, counts, assignment = build_stage_params(params, cfg, shape[1])
+        run = functools.partial(pipelined_forward, sp, counts, xs, mesh=mesh, cfg=cfg)
+        ys = run()
+        torch.testing.assert_close(ys, ref, rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL)
+        torch.testing.assert_close(ys, wave, rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL)
+        row = {"assignment": assignment, "counts": counts.tolist(),
+               "pass_through_stages": int((counts == 0).sum()),
+               "ms_per_forward": host_ms(torch, run, iters=3),
+               "max_abs_err_vs_sequential": float((ys - ref).abs().max())}
+        out["pipeline"][f"{shape[0]}x{shape[1]}"] = row
+        log(f"[multi_gpu] pipeline {shape[0]}x{shape[1]} (data x stage) over cuda:0, a stream a "
+            f"cell: {MULTI_ARCH} B={batch} T={t_len}, assignment {assignment}, layers per stage "
+            f"{row['counts']} ({row['pass_through_stages']} pass-through), "
+            f"{row['ms_per_forward']:.2f} ms/forward against wavefront {wave_ms:.2f} and fused "
+            f"(captured) {fused_ms:.2f}; agrees with sequential (max abs err "
+            f"{row['max_abs_err_vs_sequential']:.3g}; rtol {PIPELINE_RTOL}, atol "
+            f"{PIPELINE_ATOL}) and wavefront [{card}]")
+    for name, ecfg in (
+            ("pipelined n_stages=2", EngineConfig("pipelined", n_stages=2,
+                                                  placement=Placement(devices=emulated(2)))),
+            ("pipelined n_stages=2, data=2", EngineConfig("pipelined", n_stages=2,
+                                                          placement=Placement.data(
+                                                              2, devices=emulated(4))))):
+        psvc = AnomalyService(MULTI_ARCH, schedule=ecfg, device="cuda")
+        psvc.recalibrate(params=params)
+        if psvc.engine.schedule.tag != "pipelined":
+            raise AssertionError(f"{name} resolved to {psvc.engine.schedule.tag}")
+        recon = psvc.engine.reconstruct({"series": on_card[0]})
+        torch.testing.assert_close(recon.transpose(0, 1), ref, rtol=PIPELINE_RTOL,
+                                   atol=PIPELINE_ATOL)
+        ms = host_ms(torch, lambda: psvc.engine.reconstruct({"series": on_card[0]}), iters=3)
+        out["pipeline"][f"engine {name}"] = {"ms_per_forward": ms}
+        log(f"[multi_gpu] Engine({name}) over cuda:0: reconstruct agrees with sequential, "
+            f"{ms:.2f} ms/request with the input on the card [{card}]")
+
+    # --- data-parallel serving: Placement.data(2) over cuda:0 twice
+    pl = Placement.data(2, devices=emulated(2))
+    dsvc = AnomalyService(MULTI_ARCH, schedule=EngineConfig("fused", placement=pl), device="cuda")
+    dsvc.recalibrate(params=params)
+    dsvc.score(requests[0]).cpu()      # the captures, one per shard
+    single = [main_svc.score(r).cpu() for r in requests]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sharded = [dsvc.score(r).cpu() for r in requests]
+    k1 = launch_counts()["lstm_cell"]
+    if k1 != MULTI_REQUESTS * 2 * depth * t_len:
+        raise AssertionError(f"data=2: K1 launched {k1} times over {MULTI_REQUESTS} requests, "
+                             f"expected {MULTI_REQUESTS} x 2 x {depth * t_len}")
+    for a, b in zip(sharded, single):
+        if not torch.equal(a, b):
+            raise AssertionError(f"data=2 scores differ from the single placement's "
+                                 f"(max abs diff {float((a - b).abs().max()):.3g})")
+    per = dsvc.engine.profile_info()["per_program"]
+    captures = {k: v["compiles"] for k, v in per.items() if k.startswith("score@")}
+    if captures != {"score@shard0": 1, "score@shard1": 1}:
+        raise AssertionError(f"data=2 captures per shard: {captures}")
+    d_ms = host_ms(torch, lambda: dsvc.engine.score({"series": on_card[0]}), iters=5)
+    s_ms = host_ms(torch, lambda: fused.score({"series": on_card[0]}), iters=5)
+    # device time of a request, queued behind a sleep kernel: whether the
+    # layout's cost is the card's or the host's
+    d_dev = device_ms(torch, lambda: dsvc.engine.score({"series": on_card[0]}), iters=5, reps=3)
+    s_dev = device_ms(torch, lambda: fused.score({"series": on_card[0]}), iters=5, reps=3)
+    out["data2_engine"] = {"k1_launches": k1, "k1_per_request": k1 // MULTI_REQUESTS,
+                           "captures": captures, "ms_per_request_input_on_card": d_ms,
+                           "single_ms_per_request_input_on_card": s_ms,
+                           "device_ms_per_request": d_dev, "single_device_ms_per_request": s_dev}
+    log(f"[multi_gpu] Engine(fused, {pl!r}): {MULTI_REQUESTS} requests at B={batch}, scores "
+        f"bit-equal to the single placement; K1 launches {k1} = {MULTI_REQUESTS} x 2 x "
+        f"{depth * t_len} (one captured graph per shard: {captures}); {d_ms:.3f} against "
+        f"{s_ms:.3f} ms/request single, input on the card; device time {d_dev:.3f} against "
+        f"{s_dev:.3f} ms [{card}]")
+
+    gws = main_svc.open_gateway(capacity=GATEWAY_CAPACITY, max_batch=GATEWAY_MAX_BATCH,
+                                placement=pl)
+    gwu = main_svc.open_gateway(capacity=GATEWAY_CAPACITY, max_batch=GATEWAY_MAX_BATCH)
+    windows = make_batch(TimeseriesConfig(features=feats, seq_len=t_len, batch=GATEWAY_STREAMS,
+                                          anomaly_rate=0.05, seed=7), 0)[0].numpy()
+    churn = {}
+    for name, gw in (("data2", gws), ("single", gwu)):
+        gw.telemetry.reset()
+        t0 = time.perf_counter()
+        finals, _ = drive_stream_churn(gw, windows)
+        churn[name] = (finals, time.perf_counter() - t0, gw.stats()["stream_steps_per_s"])
+    f2, f1 = churn["data2"][0], churn["single"][0]
+    if set(f2) != set(f1):
+        raise AssertionError("data=2 and single gateways served different streams")
+    diff = max(abs(f2[i] - f1[i]) for i in f1)
+    for i in f1:
+        np.testing.assert_allclose(f2[i], f1[i], rtol=CAPTURE_RTOL, atol=CAPTURE_ATOL)
+    stream_bit_equal = all(f2[i] == f1[i] for i in f1)
+    if gws.pool.captures != 2:
+        raise AssertionError(f"the data=2 pool captured {gws.pool.captures} steps, expected "
+                             f"one per shard")
+    for i in range(GATEWAY_CAPACITY):
+        gws.admit(("resident", i))
+    active = gws.pool.per_device_active()
+    if active != [GATEWAY_CAPACITY // 2] * 2:
+        raise AssertionError(f"per_device_active {active} after {GATEWAY_CAPACITY} admissions")
+    for i in range(GATEWAY_CAPACITY):
+        gws.evict(("resident", i))
+    rng = np.random.default_rng(12)
+    lens = rng.integers(8, t_len + 1, size=GATEWAY_WINDOWS)
+    oneshot = [windows[i % GATEWAY_STREAMS, :n] for i, n in enumerate(lens)]
+    rates, fills, scores = {}, {}, {}
+    for name, gw in (("data2", gws), ("single", gwu)):
+        gw.score(oneshot)                 # the first pass captures each bucket
+        gw.telemetry.reset()
+        t0 = time.perf_counter()
+        scores[name] = gw.score(oneshot)
+        rates[name] = GATEWAY_WINDOWS / (time.perf_counter() - t0)
+        fills[name] = gw.stats()["gauge_vecs"].get("queue.device_fill")
+    if not np.array_equal(scores["data2"], scores["single"]):
+        raise AssertionError("data=2 one-shot scores differ from the single placement's")
+    out["data2_gateway"] = {
+        "stream_max_abs_diff": diff, "stream_bit_equal": stream_bit_equal,
+        "stream_steps_per_s": churn["data2"][2], "single_stream_steps_per_s": churn["single"][2],
+        "per_device_active": active, "oneshot_requests_per_s": rates["data2"],
+        "single_oneshot_requests_per_s": rates["single"], "queue_device_fill": fills["data2"],
+        "pool_captures": gws.pool.captures}
+    log(f"[multi_gpu] gateway on {pl!r}, capacity={GATEWAY_CAPACITY}, "
+        f"max_batch={GATEWAY_MAX_BATCH}: {len(f1)} of {GATEWAY_STREAMS} streams churned, their "
+        f"running errors within {CAPTURE_RTOL}/{CAPTURE_ATOL} of the single placement's (max abs "
+        f"diff {diff:.3g}, bit-equal: {stream_bit_equal}), {churn['data2'][2]:,.0f} against "
+        f"{churn['single'][2]:,.0f} stream-steps/s; pool captures {gws.pool.captures} (one per "
+        f"shard); per_device_active {active} at capacity; {GATEWAY_WINDOWS} one-shot windows "
+        f"bit-equal to the single placement, {rates['data2']:,.0f} against "
+        f"{rates['single']:,.0f} requests/s, last flush's queue.device_fill {fills['data2']} "
+        f"[{card}]")
+
+    # --- distinct GPUs
+    gpus = torch.cuda.device_count()
+    if gpus >= 2:
+        two = AnomalyService(MULTI_ARCH, schedule=EngineConfig("fused", placement=Placement.data(2)),
+                             device="cuda:0")
+        two.recalibrate(params=params)
+        if two.engine.shard_devices != [torch.device("cuda:0"), torch.device("cuda:1")]:
+            raise AssertionError(f"Placement.data(2) took {two.engine.shard_devices}")
+        for r, want in zip(requests, single):
+            if not torch.equal(two.score(r).cpu(), want):
+                raise AssertionError("data=2 over cuda:0 and cuda:1 differs from one GPU")
+        mesh = make_host_mesh((1, 2), ("data", "model"))
+        sp, counts, _ = build_stage_params(params, cfg, 2)
+        ys = pipelined_forward(sp, counts, xs, mesh=mesh, cfg=cfg)
+        torch.testing.assert_close(ys, ref, rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL)
+        out["two_gpus"] = {"data2_bit_equal": True, "pipeline_1x2_max_abs_err":
+                           float((ys - ref).abs().max()),
+                           "serve_ready_line": serve_mesh_http(torch)}
+        log(f"[multi_gpu] {gpus} GPUs: data=2 over cuda:0 and cuda:1 bit-equal to one GPU, the "
+            f"1x2 pipeline over them agrees with sequential, serve --mesh data=2 --http: "
+            f"{out['two_gpus']['serve_ready_line']} [{card}]")
+    else:
+        try:
+            AnomalyService(MULTI_ARCH, schedule=EngineConfig("fused", placement=Placement.data(2)),
+                           device="cuda")
+        except ValueError as exc:
+            refusal = str(exc)
+        else:
+            raise AssertionError("Placement.data(2) without devices= built on one GPU")
+        out["two_gpus"] = None
+        log(f"[multi_gpu] {gpus} GPU visible: the distinct-GPU runs (data=2, the 1x2 pipeline, "
+            f"serve --mesh data=2 --http) need two; every figure above is emulated on cuda:0. "
+            f"Placement.data(2) without devices= raises: {refusal}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[multi_gpu] phase {out['phase_s']:.1f} s [{card}]")
+    results["multi_gpu"] = out
+
+
+def serve_mesh_http(torch) -> str:
+    """``serve --mesh data=2 --http`` over the first two GPUs: one score
+    over the socket, then the SIGTERM drain; returns the ready line."""
+    import signal
+
+    import numpy as np
+
+    from repro_torch.gateway.client import GatewayClient
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", MULTI_ARCH, "--full-config",
+         "--schedule", "fused", "--http", "--mesh", "data=2", "--port", "0", "--max-batch", "8"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        ready = proc.stdout.readline()
+        if "listening on" not in ready or "mesh=2xdata" not in ready:
+            raise AssertionError(f"serve --mesh data=2 --http: {ready}")
+        port = int(ready.split("listening on ")[1].split()[0].rsplit(":", 1)[1])
+        with GatewayClient("127.0.0.1", port) as c:
+            if not np.isfinite(c.score(np.zeros((64, 64), np.float32))):
+                raise AssertionError("serve --mesh data=2 --http: a score is not finite")
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --mesh data=2 --http drain (rc {proc.returncode}): {rest}")
+    return ready.strip()
+
+
 def device_busy_over(torch, fn) -> dict:
     """Wall time of one ``fn()`` and the time the device was busy in it (the
     union of its kernels', copies' and memsets' intervals), from one
@@ -2521,6 +2796,7 @@ def main(argv=None) -> int:
     transport_gw, transport_windows = drive_transport(torch, results, card)
     drive_workers(torch, results, card)
     drive_worker_launchers(torch, results, card)
+    drive_multi_gpu(torch, svc, results, card)
 
     check_k3(torch, results)
     k3 = time_k3(torch, results, card)

@@ -12,9 +12,9 @@ in the order ``jax.tree_util`` flattens (dict keys sorted, sequences and
 dataclass fields in order).  So a checkpoint written by one
 package restores in the other.  ``treedef`` in ``meta.json`` describes the
 tree for a reader and is never parsed; restores follow the target's
-structure.  Only whole, unsharded leaves exist in the port: restoring
-onto a device mesh waits for the multi-GPU slice (``ROADMAP.md``, queue 1,
-item 10).
+structure.  Only whole, unsharded leaves are restored: restoring onto
+sharded placements comes with the sharded train step (``ROADMAP.md``,
+queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -228,12 +228,12 @@ def restore_checkpoint(
     """Restore into the structure of ``target`` (a tree of tensors or
     arrays, whose shapes must match).  Each leaf comes back as a tensor of
     its saved dtype, on the target leaf's device (the CPU for an array).
-    ``shardings`` (a placement per leaf) is refused: only the single
-    placement exists until ``ROADMAP.md``, queue 1, item 10."""
+    ``shardings`` (a placement per leaf) is refused until the sharded
+    train step exists (``ROADMAP.md``, queue 1, item 11)."""
     if shardings is not None:
         raise NotImplementedError(
-            "restoring onto sharded placements is not ported yet: "
-            "ROADMAP.md, queue 1, item 10 (multi-GPU)"
+            "restoring onto sharded placements is not ported yet: it comes "
+            "with the sharded train step, ROADMAP.md, queue 1, item 11"
         )
     path = Path(path)
     with np.load(path / "leaves.npz") as data:

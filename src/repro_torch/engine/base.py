@@ -15,17 +15,29 @@ device, and results stay there.  On a CUDA device with
 ``EngineConfig.jit`` (the default) every program is captured into one CUDA
 graph per input signature at its first call and replayed after
 (``engine/capture.py``), the counterpart of the reference's ``jax.jit``; on
-the CPU, or with ``jit=False``, programs run eagerly.  The engine carries a
-:class:`~repro_torch.engine.placement.Placement`; only the single
-placement exists until the multi-GPU slice.
+the CPU, or with ``jit=False``, programs run eagerly.
+
+The engine carries a :class:`~repro_torch.engine.placement.Placement`.
+Under ``Placement.data(N)`` the row programs (reconstruct, score,
+score_masked, step, mstep) run data-parallel: the params are replicated
+once per shard device at ``bind``, each shard runs the unsharded program
+on its contiguous block of rows on its own device and stream (captured in
+its own graph cache: a graph replays only on the device it was captured
+on), and the results are gathered onto the engine's device.  A batch whose
+rows do not divide over the shards runs the unsharded program, with the
+same values (the rows are independent).  A ``prejitted`` schedule (the
+pipeline) lays its own batch out, so only the streaming programs shard
+under it, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -46,9 +58,9 @@ class EngineConfig:
 
     ``schedule``  registry name ("sequential" | "wavefront" | "fused" | "pipelined")
     ``pwl``       piecewise-linear activations (the paper's HLS numerics)
-    ``n_stages``  pipeline stages (pipelined; one GPU runs one stage)
-    ``placement`` device placement (only ``Placement.single()`` until the
-                  multi-GPU slice)
+    ``n_stages``  pipeline stages (pipelined; default: min(devices, depth))
+    ``placement`` device placement: data-parallel rows, the devices under
+                  them and the pipeline's axis names (default: one device)
     ``jit``       on a CUDA device, capture each program into a CUDA graph
                   per input signature (the reference's ``jax.jit``); the
                   CPU always runs eagerly
@@ -64,6 +76,34 @@ def _as_engine_cfg(schedule: Union[str, EngineConfig]) -> EngineConfig:
     if isinstance(schedule, EngineConfig):
         return schedule
     return EngineConfig(schedule=schedule)
+
+
+class _Shard(NamedTuple):
+    """One data shard of a sharded engine: its device, stream and graphs."""
+    index: int
+    device: torch.device
+    stream: Optional["torch.cuda.Stream"]
+    graphs: Optional[GraphCache]
+
+
+@contextlib.contextmanager
+def _on_stream(stream):
+    """Run the block on ``stream``, after the work queued so far on its
+    device's current stream; that stream then waits for the block."""
+    if stream is None:
+        yield
+        return
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        current.wait_stream(stream)
+
+
+def _rows(a, rows: slice):
+    return a[rows]
 
 
 class Engine:
@@ -84,7 +124,7 @@ class Engine:
         self.device = resolve_device(device)
         self.engine_cfg = _as_engine_cfg(engine_cfg)
         self.schedule: Schedule = resolve_schedule(
-            self.engine_cfg.schedule, cfg, self.engine_cfg
+            self.engine_cfg.schedule, cfg, self.engine_cfg, device=self.device
         )
         # the engine's captured programs, and every cache that captured a
         # program over its weights (its own and its pools'; a pool's graph
@@ -93,14 +133,25 @@ class Engine:
         self._caches: "weakref.WeakSet[GraphCache]" = weakref.WeakSet()
         if self.device.type == "cuda" and self.engine_cfg.jit:
             self._graphs = self.new_graph_cache()
+        # a sharded placement's shards (raises here, at construction, when
+        # the devices it needs do not exist)
+        self._shards: list[_Shard] = []
+        if self.placement.is_sharded:
+            mesh = self.placement.mesh(self.device)
+            self._shards = [_Shard(i, mesh.device(i), mesh.stream(i),
+                                   self.new_graph_cache(mesh.device(i)))
+                            for i in range(mesh.size)]
         # eagerly, the (program, signature) pairs run so far; captured, the
         # caches' own programs say which calls capture
         self._seen: set = set()
         self.profile: dict = {"compiles": 0, "compile_ms": 0.0, "per_program": {}}
         self.params = None
         # what the programs read: the bound params themselves when eager,
-        # the engine's own copy of them when captured (see bind)
+        # the engine's own copy of them when captured (see bind); a copy of
+        # those per other shard device; the schedule's prepared form
         self._weights = None
+        self._replicas: dict[str, Params] = {}
+        self._prepared = None
         if params is not None:
             self.bind(params)
 
@@ -113,7 +164,8 @@ class Engine:
 
     def with_placement(self, placement: Placement) -> "Engine":
         """An engine on the same model, schedule, params and device with
-        ``placement``; returns self when the placement already matches."""
+        ``placement``; returns self when the placement already matches.
+        Captured programs are not shared: the new engine captures its own."""
         if placement == self.placement:
             return self
         ecfg = dataclasses.replace(self.engine_cfg, placement=placement)
@@ -121,26 +173,30 @@ class Engine:
 
     # -- profiling ---------------------------------------------------------
 
-    def new_graph_cache(self) -> Optional[GraphCache]:
-        """A cache for programs captured over this engine's params (None
-        when the engine runs eagerly); :meth:`bind` drops its programs
-        whenever it allocates new param tensors."""
+    def new_graph_cache(self, device: Optional[torch.device] = None) -> Optional[GraphCache]:
+        """A cache for programs captured over this engine's params on
+        ``device`` (default: the engine's; None when the engine runs
+        eagerly); :meth:`bind` drops its programs whenever it allocates new
+        param tensors."""
         if self.device.type != "cuda" or not self.engine_cfg.jit:
             return None
-        cache = GraphCache(self.device)
+        cache = GraphCache(self.device if device is None else device)
         self._caches.add(cache)
         return cache
 
-    def run_program(self, name: str, fn, args: tuple, graphs: Optional[GraphCache] = None):
-        """``fn(*args)`` as program ``name``: eagerly on device tensors, or
-        through ``graphs`` (default: the engine's own cache) captured at
-        its first call per signature and replayed after.  ``args`` hold
+    def run_program(self, name: str, fn, args: tuple, graphs: Optional[GraphCache] = None,
+                    device: Optional[torch.device] = None, capture: bool = True):
+        """``fn(*args)`` as program ``name``: eagerly on tensors on ``device``
+        (default: the engine's), or through ``graphs`` (default: the
+        engine's own cache) captured at its first call per signature and
+        replayed after; ``capture=False`` runs eagerly.  ``args`` hold
         tensors or arrays (containers of them too).  Each capture (eagerly:
         the first call per (program, signature)) is timed into the
         profile; later calls cost one lookup."""
-        graphs = graphs or self._graphs
+        graphs = (graphs or self._graphs) if capture else None
         if graphs is None:
-            args = tree_map(self._on_device, args)
+            dev = self.device if device is None else device
+            args = tree_map(lambda a: self._on_device(a, dev), args)
             key = (name, signature(args))
             if key in self._seen:
                 return fn(*args)
@@ -174,9 +230,10 @@ class Engine:
         "compile_ms" their host wall time.  On a CUDA device with ``jit``
         each is a capture: the warm-up run (the kernel build and load on
         the first launch in the process, the caching allocator's warm-up)
-        and the CUDA graph's capture; each pool captures its own step, and
-        a bind that drops the graphs makes the next call capture, and
-        count, anew.  Eagerly (the CPU, or
+        and the CUDA graph's capture; each pool captures its own step, each
+        shard of a sharded placement its own programs (``score@shard0``,
+        ``score@shard1``, ...), and a bind that drops the graphs makes the
+        next call capture, and count, anew.  Eagerly (the CPU, or
         ``jit=False``) it is the first run's enqueue; device work still in
         flight when the call returns is not in it."""
         return {
@@ -209,19 +266,38 @@ class Engine:
         reference's "compiled executors are reused").  Otherwise the engine
         makes a new copy and drops every captured program, to be captured
         anew at its next call.  Changing bound tensors in place reaches a
-        captured engine only through the next bind."""
+        captured engine only through the next bind.
+
+        Every shard device of a sharded placement gets a replica of the
+        weights by the same rule (the engine's own device reads
+        ``self._weights``), and a schedule with ``prepare`` (the pipeline)
+        rebuilds its prepared form, so no shard or stage serves stale
+        weights."""
         self.params = tree_map(
             lambda a: (a.detach() if isinstance(a, torch.Tensor)
                        else torch.from_numpy(np.array(a))).to(self.device), params)
+        in_place = (self._graphs is not None and self._weights is not None
+                    and _layout(self.params) == _layout(self._weights))
         if self._graphs is None:
             self._weights = self.params
-        elif self._weights is not None and _layout(self.params) == _layout(self._weights):
+        elif in_place:
             with torch.no_grad():
                 tree_map(lambda dst, src: dst.copy_(src), self._weights, self.params)
         else:
             self._weights = tree_map(lambda t: t.clone(), self.params)
             for cache in list(self._caches):
                 cache.clear()
+        for dev in {shard.device for shard in self._shards} - {self.device}:
+            replica = self._replicas.get(str(dev))
+            if in_place and replica is not None:
+                with torch.no_grad():
+                    tree_map(lambda dst, src: dst.copy_(src), replica, self._weights)
+            else:
+                self._replicas[str(dev)] = tree_map(lambda t: t.to(dev, copy=True),
+                                                    self._weights)
+        self._replicas[str(self.device)] = self._weights
+        if self.schedule.prepare is not None:
+            self._prepared = self.schedule.prepare(self._weights)
         return self
 
     def _require_params(self) -> Params:
@@ -229,52 +305,117 @@ class Engine:
             raise ValueError("engine has no bound params; call bind(params)")
         return self._weights
 
-    def _on_device(self, a) -> torch.Tensor:
+    def _on_device(self, a, device: torch.device) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):
             a = np.asarray(a)
-        return torch.as_tensor(a, device=self.device)
+        return torch.as_tensor(a, device=device)
+
+    # -- shards -------------------------------------------------------------
+
+    @property
+    def shard_devices(self) -> list[torch.device]:
+        """The device of each data shard (empty under the single placement)."""
+        return [shard.device for shard in self._shards]
+
+    def shard_params(self, i: int) -> Params:
+        """The weights shard ``i`` reads, on its device."""
+        self._require_params()
+        return self._replicas[str(self._shards[i].device)]
+
+    def run_on_shards(self, name: str, fn, blocks: list, graphs: Optional[list] = None) -> list:
+        """``fn(i, *blocks[i])`` as program ``name@shard{i}`` for every shard
+        i, each on its device and stream, captured in ``graphs[i]`` (default:
+        the shard's own cache).  Returns the outputs (None for none) on the
+        engine's device, in shard order, ordered before whatever the caller
+        queues next."""
+        caller = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        outs = []
+        for shard, args in zip(self._shards, blocks):
+            cache = shard.graphs if graphs is None else graphs[shard.index]
+            with _on_stream(shard.stream):
+                out = self.run_program(f"{name}@shard{shard.index}",
+                                       functools.partial(fn, shard.index), args,
+                                       graphs=cache, device=shard.device)
+                if out is not None:
+                    out = tree_map(functools.partial(_hand_back, self.device, caller), out)
+                if caller is not None and shard.stream is not None:
+                    caller.wait_stream(shard.stream)
+            outs.append(out)
+        return outs
+
+    def _run_rows(self, name: str, program, args: tuple, batch: bool):
+        """Program ``name`` over the rows of ``args`` (leading dims):
+        data-parallel over the shards when there are shards for it and the
+        rows divide, else the unsharded program."""
+        n = args[0].shape[0]
+        prejitted = batch and self.schedule.prejitted
+        shards = len(self._shards)
+        params = self._require_params()
+        if not shards or prejitted or n % shards:
+            if batch and self.schedule.prepare is not None:
+                params = self._prepared
+            return self.run_program(name, functools.partial(program, params), args,
+                                    capture=not prejitted)
+        blocks = [tree_map(functools.partial(_rows, rows=rows), args)
+                  for rows in self.placement.row_blocks(n)]
+        outs = self.run_on_shards(name, lambda i, *a: program(self.shard_params(i), *a), blocks)
+        return tree_map(lambda *parts: torch.cat(parts), *outs)
 
     # -- batch surface ----------------------------------------------------
 
-    # The programs below take device tensors (run_program moves the
-    # caller's data there) and run eagerly or under capture alike.
+    # The programs below take the params they read and device tensors
+    # (run_program moves the caller's data there) and run eagerly or under
+    # capture alike.
 
-    def _forward(self, series: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def _forward(self, params, series: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         xs = series.transpose(0, 1)                                   # (T, B, F)
-        return xs, self.schedule.forward(self._require_params(), xs)
+        return xs, self.schedule.forward(params, xs)
 
-    def _reconstruct(self, series) -> torch.Tensor:
-        _, recon = self._forward(series)
+    def _reconstruct(self, params, series) -> torch.Tensor:
+        _, recon = self._forward(params, series)
         return recon.transpose(0, 1)
 
-    def _score(self, series) -> torch.Tensor:
-        xs, recon = self._forward(series)
-        return torch.mean(torch.square(recon.float() - xs.float()), dim=(0, 2))
+    # Each row's error is reduced along contiguous memory (over F, then over
+    # T of a (B, T) copy): a row's score then does not depend on how many
+    # rows share the call, so data shards equal the unsharded program bit
+    # for bit (a reduction over T strided by B sums in a B-dependent order).
 
-    def _score_masked(self, series, lengths) -> torch.Tensor:
-        xs, recon = self._forward(series)
-        lengths = lengths.to(torch.int64)
+    @staticmethod
+    def _row_errors(xs: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:
+        """(T, B, F) pair -> per-timestep MSE over F, as (B, T)."""
         sq = torch.mean(torch.square(recon.float() - xs.float()), dim=2)   # (T, B)
-        valid = torch.arange(sq.shape[0], device=self.device)[:, None] < lengths[None, :]
+        return sq.t().contiguous()
+
+    def _score(self, params, series) -> torch.Tensor:
+        xs, recon = self._forward(params, series)
+        return self._row_errors(xs, recon).mean(dim=1)
+
+    def _score_masked(self, params, series, lengths) -> torch.Tensor:
+        xs, recon = self._forward(params, series)
+        lengths = lengths.to(torch.int64)
+        sq = self._row_errors(xs, recon)                                   # (B, T)
+        valid = torch.arange(sq.shape[1], device=sq.device)[None, :] < lengths[:, None]
         denom = torch.clamp(lengths, min=1).float()
-        return torch.where(valid, sq, 0.0).sum(dim=0) / denom
+        return torch.where(valid, sq, 0.0).sum(dim=1) / denom
 
     def reconstruct(self, batch: dict) -> torch.Tensor:
         """batch {"series": (B, T, F)} -> reconstruction (B, T, F)."""
-        return self.run_program("reconstruct", self._reconstruct, (batch["series"],))
+        return self._run_rows("reconstruct", self._reconstruct, (batch["series"],), batch=True)
 
     def score(self, batch: dict) -> torch.Tensor:
         """batch {"series": (B, T, F)} -> per-sequence reconstruction MSE (B,)
-        — the anomaly score of the paper's application."""
-        return self.run_program("score", self._score, (batch["series"],))
+        — the anomaly score of the paper's application.  Under a sharded
+        placement the rows are scored data-parallel over the shards."""
+        return self._run_rows("score", self._score, (batch["series"],), batch=True)
 
     def score_masked(self, batch: dict) -> torch.Tensor:
         """batch {"series": (B, T, F), "lengths": (B,) int} -> per-sequence
         MSE over each row's first ``lengths[i]`` timesteps.  The stack is
         causal, so end-padding does not perturb the valid timesteps — the
-        gateway's bucketed-scoring primitive."""
-        return self.run_program("score_masked", self._score_masked,
-                                (batch["series"], batch["lengths"]))
+        gateway's bucketed-scoring primitive (which pads B to a per-device
+        multiple under a sharded placement)."""
+        return self._run_rows("score_masked", self._score_masked,
+                              (batch["series"], batch["lengths"]), batch=True)
 
     # -- streaming surface ------------------------------------------------
 
@@ -282,14 +423,13 @@ class Engine:
         """Zero (h, c) per layer for a streaming session of ``batch`` series."""
         return init_stream_state(self.cfg, batch, dtype, device=self.device)
 
-    def _stream_step(self, x_t, state: Params) -> tuple[torch.Tensor, Params]:
-        return decode_step(self._require_params(), x_t, state, None,
-                           self.cfg, pwl=self.engine_cfg.pwl)
+    def _stream_step(self, params, x_t, state: Params) -> tuple[torch.Tensor, Params]:
+        return decode_step(params, x_t, state, None, self.cfg, pwl=self.engine_cfg.pwl)
 
-    def _masked_stream_step(self, x_t, state: Params, mask) -> tuple[torch.Tensor, Params]:
+    def _masked_stream_step(self, params, x_t, state: Params, mask) -> tuple[torch.Tensor, Params]:
         # rows are independent through the cell, so a masked step equals
         # stepping each selected row alone
-        y_t, new_state = self._stream_step(x_t, state)
+        y_t, new_state = self._stream_step(params, x_t, state)
         keep = mask.to(torch.bool)[:, None]
         merged = {k: tuple(torch.where(keep, new, old) for new, old in zip(new_state[k], state[k]))
                   for k in ("h", "c")}
@@ -299,13 +439,13 @@ class Engine:
         """One streaming timestep x_t (B, F) -> (reconstruction (B, F), state).
         A single timestep admits no temporal parallelism, so every schedule
         streams through the same cell loop."""
-        return self.run_program("step", self._stream_step, (x_t, state))
+        return self._run_rows("step", self._stream_step, (x_t, state), batch=False)
 
     def stream_masked(self, x_t, state: Params, mask) -> tuple[torch.Tensor, Params]:
         """Pooled step: x_t (B, F), mask (B,) bool -> (y_t (B, F), state)
         where only masked rows' (h, c) advance (others carry unchanged).
         The gateway's session pool steps all its slots through this."""
-        return self.run_program("mstep", self._masked_stream_step, (x_t, state, mask))
+        return self._run_rows("mstep", self._masked_stream_step, (x_t, state, mask), batch=False)
 
     # -- analytics --------------------------------------------------------
 
@@ -322,12 +462,24 @@ class Engine:
         )
 
     def __repr__(self) -> str:
+        pl = f", placement={self.placement!r}" if self.placement.is_sharded else ""
         return (f"Engine({self.cfg.name}, schedule={self.schedule.tag}, "
-                f"device={self.device}, bound={self.params is not None})")
+                f"device={self.device}{pl}, bound={self.params is not None})")
 
 
 def _layout(tree: Params) -> Params:
     return tree_map(lambda t: (tuple(t.shape), t.dtype), tree)
+
+
+def _hand_back(device: torch.device, caller, t: torch.Tensor) -> torch.Tensor:
+    """A shard's output on the engine's ``device``, issued on the shard's
+    stream (the caller's stream then waits for it); marked as used on the
+    caller's stream, so the allocator never hands its memory to the shard's
+    stream while the caller still reads it."""
+    out = t.to(device)
+    if caller is not None:
+        out.record_stream(caller)
+    return out
 
 
 def build_engine(model: ModelConfig, schedule: Union[str, EngineConfig] = "wavefront",

@@ -106,9 +106,11 @@ class CapturedProgram:
 
 
 class GraphCache:
-    """The captured programs of one owner, by key: ``run(key, fn, args)``
-    captures ``fn`` at its first key and replays it after, one call at a
-    time."""
+    """The captured programs of one owner on one device, by key:
+    ``run(key, fn, args)`` captures ``fn`` at its first key and replays it
+    after, one call at a time, on the current stream of ``device``.  Each
+    data shard of an engine (and of a pool) has its own cache, so two
+    shards on one repeated device never share a static input."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -118,7 +120,9 @@ class GraphCache:
         self._lock = threading.Lock()
 
     def run(self, key: Hashable, fn: Callable, args: tuple):
-        with self._lock:
+        # a graph captures and replays on its own device, which need not be
+        # the current one (a data shard's cache on another GPU)
+        with self._lock, torch.cuda.device(self.device):
             prog = self.programs.get(key)
             if prog is None:
                 prog = CapturedProgram(fn, args, self.device, self._stream)

@@ -8,8 +8,9 @@ selected by name:
   before layer i+1 (plain PyTorch).
 * ``"wavefront"``  — temporal-parallel dataflow (§3.2): at wavefront step k
   every layer fires on its own timestep, as one batched cell (plain PyTorch).
-* ``"pipelined"``  — multi-device pipeline; on one GPU it degenerates to
-  the wavefront schedule.  Two or more stages wait for the multi-GPU slice.
+* ``"pipelined"``  — the stage pipeline over a (data, stage) device mesh
+  (``core/temporal.py::pipelined_forward``); with fewer than two stages it
+  degenerates to the wavefront schedule.
 * ``"fused"``      — the hand-written CUDA LSTM cell (``kernels/lstm_cell.py``,
   K1) once per (layer, timestep), walked layer by layer.
 
@@ -25,7 +26,13 @@ import torch
 
 from repro_torch.config.core import ModelConfig
 from repro_torch.core.lstm import lstm_ae_sequential
-from repro_torch.core.temporal import wavefront_forward
+from repro_torch.core.temporal import (
+    build_stage_params,
+    place_stages,
+    run_pipeline,
+    wavefront_forward,
+)
+from repro_torch.engine.placement import make_mesh
 from repro_torch.kernels.lstm_cell import pack_weights
 from repro_torch.kernels.ops import lstm_cell_op
 from repro_torch.utils import Params
@@ -38,11 +45,19 @@ ForwardFn = Callable[[Params, torch.Tensor], torch.Tensor]
 
 
 class Schedule(NamedTuple):
-    """A resolved schedule: the executor plus its Eq-1 accounting kind."""
+    """A resolved schedule: the executor plus its Eq-1 accounting kind.
+
+    ``prepare`` (optional) turns bound params into what ``forward`` reads
+    (the pipeline's stage cells on their devices); the Engine calls it once
+    per bind.  ``prejitted`` schedules manage their own devices and
+    streams, so the Engine never captures their batch programs into one
+    CUDA graph (the reference's ``prejitted``: never wrapped in a jit)."""
     name: str            # requested registry name
     resolved: str        # actual executor after fallbacks (may differ)
     latency_kind: str    # "dataflow" | "sequential" (core.latency Eq-1 mode)
     forward: ForwardFn
+    prepare: Optional[Callable[[Params], object]] = None
+    prejitted: bool = False
 
     @property
     def tag(self) -> str:
@@ -56,23 +71,33 @@ _SCHEDULES: dict[str, Callable[[ModelConfig, "EngineConfig"], Schedule]] = {}
 # name -> EngineConfig field names the factory reads (None = all), so configs
 # differing only in fields a schedule ignores share one cached Schedule
 _SCHEDULE_FIELDS: dict[str, Optional[tuple[str, ...]]] = {}
+# names whose factory also takes the engine's platform ("cuda" | "cpu"): the
+# devices a placement may use depend on it
+_PER_PLATFORM: set = set()
 
 SCHEDULE_CACHE_CAPACITY = 32
 _RESOLVE_CACHE: "OrderedDict[tuple, Schedule]" = OrderedDict()
 _CACHE_STATS = {"hits": 0, "misses": 0}
 
 
-def register_schedule(name: str, *, config_fields: Optional[tuple[str, ...]] = None):
+def register_schedule(name: str, *, config_fields: Optional[tuple[str, ...]] = None,
+                      per_platform: bool = False):
     """Register a schedule factory under ``name`` (decorator).
 
     The factory receives ``(model_cfg, engine_cfg)`` and returns a
     :class:`Schedule` whose ``forward`` maps ``(params, xs (T,B,F))`` to the
     reconstruction ``(T,B,F)``.  ``config_fields`` names the
     :class:`EngineConfig` fields the factory reads; omit it to key the
-    resolve cache on every field."""
+    resolve cache on every field.  A ``per_platform`` factory also receives
+    the engine's platform (``"cuda"`` or ``"cpu"``) as a third argument,
+    which then joins the cache key."""
     def deco(factory):
         _SCHEDULES[name] = factory
         _SCHEDULE_FIELDS[name] = config_fields
+        if per_platform:
+            _PER_PLATFORM.add(name)
+        else:
+            _PER_PLATFORM.discard(name)
         _RESOLVE_CACHE.clear()  # re-registration must not serve stale entries
         return factory
     return deco
@@ -82,6 +107,7 @@ def unregister_schedule(name: str) -> None:
     """Remove a registered schedule and drop its cached resolutions."""
     _SCHEDULES.pop(name, None)
     _SCHEDULE_FIELDS.pop(name, None)
+    _PER_PLATFORM.discard(name)
     _RESOLVE_CACHE.clear()
 
 
@@ -114,19 +140,25 @@ def _canonical_cfg(name: str, engine_cfg: "EngineConfig") -> "EngineConfig":
                         **{f: getattr(engine_cfg, f) for f in fields})
 
 
-def resolve_schedule(name: str, cfg: ModelConfig, engine_cfg: "EngineConfig") -> Schedule:
-    """Look up ``name`` in the registry and build its executor, cached per
-    (name, cfg, canonical engine_cfg) in a capped LRU."""
+def resolve_schedule(name: str, cfg: ModelConfig, engine_cfg: "EngineConfig",
+                     device=None) -> Schedule:
+    """Look up ``name`` in the registry and build its executor for an
+    engine on ``device`` (None: the GPU), cached per (name, cfg, canonical
+    engine_cfg[, platform]) in a capped LRU."""
     if name not in _SCHEDULES:
         raise ValueError(
             f"unknown schedule {name!r}; available schedules: "
             f"{', '.join(available_schedules())}"
         )
-    key = (name, cfg, _canonical_cfg(name, engine_cfg))
+    platform = None
+    if name in _PER_PLATFORM:
+        platform = "cuda" if device is None else torch.device(device).type
+    key = (name, cfg, _canonical_cfg(name, engine_cfg), platform)
     sched = _RESOLVE_CACHE.get(key)
     if sched is None:
         _CACHE_STATS["misses"] += 1
-        sched = _SCHEDULES[name](cfg, key[2])
+        factory = _SCHEDULES[name]
+        sched = factory(cfg, key[2], platform) if platform else factory(cfg, key[2])
         _RESOLVE_CACHE[key] = sched
         while len(_RESOLVE_CACHE) > SCHEDULE_CACHE_CAPACITY:
             _RESOLVE_CACHE.popitem(last=False)
@@ -137,12 +169,16 @@ def resolve_schedule(name: str, cfg: ModelConfig, engine_cfg: "EngineConfig") ->
 
 
 def resolve_forward(name: str, cfg: ModelConfig, *, pwl: bool = False,
-                    n_stages: Optional[int] = None) -> ForwardFn:
-    """Schedule name -> ForwardFn with a default EngineConfig."""
+                    n_stages: Optional[int] = None, device=None) -> ForwardFn:
+    """Schedule name -> ForwardFn(params, xs) with a default EngineConfig,
+    for data on ``device`` (None: the GPU)."""
     from repro_torch.engine.base import EngineConfig
 
     ecfg = EngineConfig(schedule=name, pwl=pwl, n_stages=n_stages)
-    return resolve_schedule(name, cfg, ecfg).forward
+    sched = resolve_schedule(name, cfg, ecfg, device=device)
+    if sched.prepare is None:
+        return sched.forward
+    return lambda params, xs: sched.forward(sched.prepare(params), xs)
 
 
 @register_schedule("sequential", config_fields=("pwl",))
@@ -186,16 +222,53 @@ def _fused(cfg: ModelConfig, ecfg: "EngineConfig") -> Schedule:
     return Schedule("fused", "fused", "sequential", forward)
 
 
-@register_schedule("pipelined", config_fields=("pwl", "n_stages"))
-def _pipelined(cfg: ModelConfig, ecfg: "EngineConfig") -> Schedule:
-    """On one GPU the pipeline degenerates to the wavefront schedule (same
-    dataflow semantics, no stage axis; Eq-1 accounting stays "dataflow")."""
+@register_schedule("pipelined", config_fields=("pwl", "n_stages"), per_platform=True)
+def _pipelined(cfg: ModelConfig, ecfg: "EngineConfig", platform: str) -> Schedule:
+    """The stage pipeline over a (data, stage) mesh of the placement's
+    devices (``Placement.device_pool``: its ``devices``, else the visible
+    GPUs, else on the CPU as many as an explicit ``n_stages`` needs).
+
+    ``n_stages`` defaults to ``min(len(devices) // data, depth)``.  Under two
+    stages the pipeline degenerates to the wavefront schedule (same dataflow
+    semantics, no stage axis; Eq-1 accounting stays "dataflow"), unless the
+    placement asked for data shards, which must never silently collapse
+    onto one device.  Stage cells are built once per bind (``prepare``), and
+    the schedule is ``prejitted``: one CUDA graph cannot span the stages'
+    devices and streams."""
     if cfg.lstm_ae is None:
         raise ValueError("pipelined schedule requires an lstm_ae config")
-    if (ecfg.n_stages or 1) >= 2:
-        raise NotImplementedError(
-            f"pipelined schedule with n_stages={ecfg.n_stages} needs the "
-            "multi-GPU pipeline, which is not ported yet: ROADMAP.md, queue 1, "
-            "item 10 (Multi-GPU)")
-    wf = _wavefront(cfg, ecfg)
-    return Schedule("pipelined", "wavefront", "dataflow", wf.forward)
+    depth = len(cfg.lstm_ae.layer_sizes())
+    pl = ecfg.placement
+    data_par = pl.data_shards
+    need = data_par * ecfg.n_stages if ecfg.n_stages else None
+    devices = pl.device_pool(platform, need)
+    n_stages = ecfg.n_stages or min(len(devices) // data_par, depth)
+
+    if n_stages < 2:
+        if data_par > 1:
+            raise ValueError(
+                f"pipelined schedule with Placement.data({data_par}) needs "
+                f"at least {2 * data_par} devices (2 stages x {data_par}), "
+                f"have {len(devices)}"
+            )
+        wf = _wavefront(cfg, ecfg)
+        return Schedule("pipelined", "wavefront", "dataflow", wf.forward)
+
+    need = data_par * n_stages
+    if len(devices) < need:
+        raise ValueError(
+            f"pipelined schedule needs {need} devices "
+            f"({data_par} data x {n_stages} stages), have {len(devices)}"
+        )
+    mesh = make_mesh((data_par, n_stages), (pl.data_axis, pl.stage_axis), devices[:need])
+
+    def prepare(params):
+        stage_params, counts, _ = build_stage_params(params, cfg, n_stages)
+        return place_stages(stage_params, counts, mesh, stage_axis=pl.stage_axis,
+                            batch_axes=(pl.data_axis,))
+
+    def forward(grid, xs):
+        return run_pipeline(grid, xs, pwl=ecfg.pwl)
+
+    return Schedule("pipelined", "pipelined", "dataflow", forward,
+                    prepare=prepare, prejitted=True)

@@ -70,10 +70,8 @@ class AnomalyService:
         self.params: Params = self.engine.bind(init_lstm_ae(gen, cfg, self.device)).params
         self.threshold: Optional[float] = None
         # open gateways, weakly held so a dropped gateway is collectable;
-        # _bind rebinds every one whose engine is not ours on a param swap.
-        # Until multi-GPU placements exist (ROADMAP.md, queue 1, item 10),
-        # with_placement returns this engine itself, so every gateway shares
-        # it and that rebinding branch has no case to act on yet
+        # _bind rebinds every one whose engine is not ours (a gateway opened
+        # on another placement has its own) on a param swap
         self._gateways: "weakref.WeakSet" = weakref.WeakSet()
 
     def _bind(self, params: Params) -> None:
@@ -223,9 +221,11 @@ class AnomalyService:
         ``capacity``-slot session pool (admit/step/evict over one masked
         step) plus a shape-bucketed one-shot scoring queue (flush on
         ``max_batch`` or ``max_wait_ms``, reject past ``max_queue`` pending
-        or ``max_seq_len`` timesteps), on this service's device.  The
-        gateway registers itself, so ``recalibrate(params=...)`` rebinds
-        its engine too."""
+        or ``max_seq_len`` timesteps), on this service's device.  A
+        ``placement`` other than the service engine's gives the gateway its
+        own engine on it (``Placement.data(N)``: rows over N devices).  The
+        gateway registers itself, so ``fit`` and ``recalibrate(params=...)``
+        rebind its engine too."""
         from repro_torch.gateway import AnomalyGateway  # lazy: gateway imports engine
 
         return AnomalyGateway(

@@ -29,9 +29,18 @@ thread: every pool step and flush of a gateway, and so every replay of its
 captured programs, runs on that thread.  Durable sessions attach through
 :func:`repro_torch.gateway.durability.enable_durability` (``durability``),
 the control plane through :func:`repro_torch.control.enable_control`
-(``control``: priority admission, SLO-driven batching knobs).  Only the
-single placement exists in the port.  Several gateways behind one port,
-one per worker process, are :class:`repro_torch.gateway.workers.WorkerFront`.
+(``control``: priority admission, SLO-driven batching knobs).  Several
+gateways behind one port, one per worker process, are
+:class:`repro_torch.gateway.workers.WorkerFront`.
+
+Both surfaces follow the engine's placement: under
+``open_gateway(placement=Placement.data(N))`` the gateway gets its own
+engine on that placement, the pool's slot block splits over the N
+devices (capacity scales to ``slots_per_device x N``), bucket flushes
+score data-parallel padded to a per-device multiple, and ``stats()``
+gains a ``placement`` section with per-device slot occupancy beside the
+``pool.device_active`` and ``queue.device_fill`` gauges.  The single
+placement is a strict no-op.
 """
 from __future__ import annotations
 
@@ -79,8 +88,10 @@ class AnomalyGateway:
                 raise TypeError(
                     f"placement must be a Placement, got {type(placement)!r}"
                 )
-            # a matching placement returns the engine itself; the port
-            # constructs no other (Placement raises for data_shards > 1)
+            # re-lay the engine out on the requested devices; a matching
+            # placement returns the engine itself (strict no-op).  The
+            # fronted service keeps its own engine and rebinds this one on
+            # every param swap (see recalibrate)
             engine = engine.with_placement(placement)
         self.engine = engine
         if self.service is not None:
@@ -243,6 +254,16 @@ class AnomalyGateway:
             **self.engine.profile_info(),
             "schedule_cache": schedule_cache_info(),
         }
+        if self.placement.is_sharded:
+            # the layout and live per-device residency; the per-flush fill
+            # is the queue.device_fill gauge.  Absent under the single
+            # placement, so single-device telemetry is unchanged
+            out["placement"] = {
+                **self.placement.describe(),
+                "slots_per_device": self.pool.slots_per_device,
+                "score_lanes": self.batcher.lanes,
+                "device_active": self.pool.per_device_active(),
+            }
         if self.durability is not None:
             out["durability"] = self.durability.describe()
         if self.control is not None:
@@ -250,9 +271,10 @@ class AnomalyGateway:
         return out
 
     def __repr__(self) -> str:
+        pl = f", placement={self.placement!r}" if self.placement.is_sharded else ""
         return (f"AnomalyGateway(schedule={self.engine.schedule.tag}, "
                 f"capacity={self.pool.capacity}, active={self.pool.active}, "
-                f"queue_depth={self.batcher.queue_depth})")
+                f"queue_depth={self.batcher.queue_depth}{pl})")
 
 
 def drive_stream_churn(

@@ -45,6 +45,22 @@ def claimed_cuda_index(devices: Iterable) -> Optional[int]:
     return None
 
 
+# the devices this process claimed (a worker registers its claim at boot,
+# before its factory runs), so the factory can lay its placement on them
+_process_claim: tuple[str, ...] = ()
+
+
+def set_process_claim(devices: Iterable) -> None:
+    """Record the devices this worker process claimed, in claim order."""
+    global _process_claim
+    _process_claim = tuple(device_name(d) for d in devices)
+
+
+def process_claim() -> tuple[str, ...]:
+    """The devices this process claimed (empty when it claimed none)."""
+    return _process_claim
+
+
 def _norm_devices(devices: Iterable) -> tuple[str, ...]:
     """Canonical device names, sorted; a device listed twice raises."""
     out = [device_name(d) for d in devices]

@@ -8,12 +8,14 @@ boundary, and flush when a bucket reaches ``max_batch`` or its oldest
 request has waited ``max_wait_ms``.  Every flush runs the engine's
 masked score on a FIXED (lanes, bucket_T, F) shape — ``lanes`` is
 ``max_batch`` rounded up to a per-device multiple of the engine's
-placement (``max_batch`` itself on one GPU) — so the set of shapes is
-bounded by the ladder; padding lanes are masked out of the scores (LSTM
-causality makes end-padding exact, see ``Engine.score_masked``).  Under
-the ``fused`` schedule each flush launches K1 6 x bucket_T times for a
-six-layer model; a capturing engine captures each such shape once and
-replays one CUDA graph per flush.
+placement — so the set of shapes is bounded by the ladder; padding lanes
+are masked out of the scores (LSTM causality makes end-padding exact, see
+``Engine.score_masked``).  Under a sharded placement each flush scores
+data-parallel, lanes split over the shards, and ``queue.device_fill``
+gauges each shard's share of real rows.  Under the ``fused`` schedule
+each flush launches K1 6 x bucket_T times for a six-layer model (per
+shard, on its block of lanes); a capturing engine captures each such
+shape once (per shard) and replays its CUDA graphs per flush.
 
 Backpressure: ``submit`` raises :class:`GatewayOverloadedError` once
 ``max_queue`` requests are pending (admission control, not silent
@@ -164,8 +166,9 @@ class MicroBatcher:
         self.max_seq_len = max_seq_len
         self.telemetry = telemetry or Telemetry()
         self._clock = clock
-        # the fixed lane count pads max_batch up to a per-device multiple
-        # (max_batch itself under the single placement, the only one here)
+        # the fixed lane count pads max_batch up to a per-device multiple,
+        # so every flush splits evenly over the shards (the extra lanes are
+        # padding, masked like any other); max_batch itself on one device
         self.placement = engine.placement
         self.lanes = self.placement.pad_rows(max_batch)
         # bucket_T -> FIFO of (series (T,F) float32, ticket)
@@ -349,6 +352,13 @@ class MicroBatcher:
             ticket._resolve(float(scores[i]))
         tel.count("queue.completed", n)
         tel.record_batch(n, self.lanes, oldest_wait_ms)
+        if self.placement.is_sharded:
+            # real rows pack from lane 0 and shard d holds lanes
+            # [d*lpd, (d+1)*lpd), so each shard's fill is observable
+            lpd = self.lanes // self.placement.data_shards
+            tel.gauge_vec("queue.device_fill",
+                          [min(max(n - d * lpd, 0), lpd) / lpd
+                           for d in range(self.placement.data_shards)])
         return n
 
     # -- convenience ------------------------------------------------------

@@ -63,8 +63,10 @@ anything, and each worker registers its claim in the store's
 :class:`~repro_torch.gateway.claims.DeviceClaimRegistry` at boot — two
 workers claiming one device is a boot error naming both — then makes
 the claimed device its current CUDA device before it builds its
-gateway, so ``device=None`` resolves to it.  Without a claim every
-worker takes the current device of a fresh process, ``cuda:0``.
+gateway, so ``device=None`` resolves to it.  A claim of several GPUs with
+``default_gateway_factory(mesh=K)`` lays the worker's data placement over
+its first K.  Without a claim every worker takes the current device of a
+fresh process, ``cuda:0``.
 
 Workers are spawned (not forked): a process that has initialised CUDA
 must never be forked, and ``env`` overrides (e.g.
@@ -93,6 +95,8 @@ import torch
 from repro_torch.gateway.claims import (
     DeviceClaimRegistry,
     claimed_cuda_index,
+    process_claim,
+    set_process_claim,
     validate_disjoint,
 )
 from repro_torch.gateway.telemetry import REQUEST_HIST
@@ -232,6 +236,7 @@ def _worker_main(index: int, conn, host: str, port: int,
             # validate-at-boot, BEFORE the expensive factory work: an
             # overlapping claim fails the spawn with the registry's error
             DeviceClaimRegistry(claim["dir"]).claim(owner, claim["devices"])
+            set_process_claim(claim["devices"])
             cuda_index = claimed_cuda_index(claim["devices"])
             if cuda_index is not None:
                 # before factory(): resolve_device(None) takes the current
@@ -1277,8 +1282,10 @@ def default_gateway_factory(
     CPU), optionally fits + calibrates it on that device — every worker
     re-fits from the same seed, so all workers serve the same params
     without shipping arrays across processes — and opens a gateway.
-    ``mesh > 1`` raises: a data placement over several GPUs is not ported
-    yet (``Placement.data``).  ``warm_seq_len > 0`` runs one full flush of
+    ``mesh > 1`` lays the engine out on ``Placement.data(mesh)``: over the
+    first ``mesh`` CUDA devices of the worker's device claim (fewer raise),
+    else over the first ``mesh`` visible GPUs, or ``mesh`` emulated CPU
+    devices on the CPU.  ``warm_seq_len > 0`` runs one full flush of
     that bucket before the worker reports ready, which captures its graph,
     so kernel connection balancing never lands traffic on a cold worker.
     """
@@ -1287,8 +1294,14 @@ def default_gateway_factory(
     from repro_torch.engine import AnomalyService, EngineConfig, Placement
 
     cfg = reduced_config(arch) if reduced else get_config(arch)
-    sched = (EngineConfig(schedule=schedule, placement=Placement.data(mesh))
-             if mesh > 1 else schedule)
+    sched = schedule
+    if mesh > 1:
+        claimed = [d for d in process_claim() if d.startswith("cuda:")]
+        if claimed and len(claimed) < mesh:
+            raise ValueError(f"mesh={mesh} needs {mesh} CUDA devices in the worker's "
+                             f"device claim, which names {claimed}")
+        sched = EngineConfig(schedule=schedule,
+                             placement=Placement.data(mesh, devices=tuple(claimed[:mesh])))
     svc = AnomalyService(cfg, schedule=sched, device=device)
     if train_steps:
         fit_cfg = TimeseriesConfig(features=svc.features,

@@ -1,4 +1,4 @@
-"""Serving placement report of the port: ``python -m repro_torch.launch.dryrun --placement data=1 --arch <id>``.
+"""Serving placement report of the port: ``python -m repro_torch.launch.dryrun --placement data=N --arch <id>``.
 
 Counterpart of ``placement_report`` in ``repro/launch/dryrun.py``: an
 offline roofline of one gateway placement — micro-batch lanes per shard,
@@ -10,8 +10,8 @@ no capture.  The floor is the paper's FPGA cycle model
 (``core/latency.py``), a prior for the batching controller, not a time
 measured on a GPU.
 
-Only ``data=1`` constructs in the port (several GPUs wait for
-``ROADMAP.md``, queue 1, item 10).  The reference's dry-run of compiled
+Any ``data=N`` is reported, as the reference does: the report needs no
+device.  The reference's dry-run of compiled
 cells (``lower_cell``, ``run_cell``) reads XLA programs and belongs to
 the LM families, item 11: without ``--placement`` this launcher exits
 naming it.

@@ -23,7 +23,8 @@ Modes, as in the reference launcher:
   (``repro_torch.gateway.workers``) — N spawned worker processes share one
   ``SO_REUSEPORT`` port, each with its own engine and CUDA context on the
   current device (``cuda:0``; ``--device`` reaches every worker's
-  factory); the supervisor respawns crashes and coordinates the SIGTERM
+  factory, and ``--mesh data=K`` gives each worker a K-way placement); the
+  supervisor respawns crashes and coordinates the SIGTERM
   drain, printing ``[workers] listening on ...`` when every worker serves
   and ``[workers] drained: ...`` (clean exits, dropped tickets) when it
   stops.  ``--store-dir`` makes the front durable (a snapshot shard per
@@ -40,10 +41,14 @@ With ``--train-steps N`` each mode first fits the service for N steps
 on benign windows (``AnomalyService.fit``, batch 64 at ``--seq-len``),
 calibrates its threshold on them and prints the ``fitted`` line.
 
+``--mesh data=N`` lays every mode's engine out on ``Placement.data(N)``:
+pool slots and micro-batch rows split over N devices, the visible GPUs
+(fewer than N raise), or with ``--device cpu`` N emulated CPU devices (the
+counterpart of the reference's ``XLA_FLAGS`` device-count passthrough).
+The ready lines then print ``mesh=Nxdata``.
+
 The device defaults to the GPU and never falls back to the CPU:
-``--device cpu`` asks for it.  ``--mesh`` (a data placement over several
-GPUs) is not ported yet; it exits with an error that names the
-``ROADMAP.md`` item that will port it.
+``--device cpu`` asks for it.
 """
 from __future__ import annotations
 
@@ -59,10 +64,21 @@ from repro_torch import resolve_device
 from repro_torch.config import get_config, list_archs, reduced_config
 from repro_torch.core.latency import PAPER_RH_M
 from repro_torch.data import TimeseriesConfig, make_batch
-from repro_torch.engine import AnomalyService, available_schedules
-from repro_torch.engine.placement import MULTI_GPU_ITEM
+from repro_torch.engine import AnomalyService, EngineConfig, Placement, available_schedules
 
-NOT_PORTED = {"mesh": MULTI_GPU_ITEM}
+
+def engine_cfg_for(args):
+    """The engine selection for this invocation: the bare schedule name,
+    or a full EngineConfig carrying the ``--mesh`` placement (e.g.
+    ``--mesh data=2`` splits pool slots and micro-batch rows 2-way)."""
+    if not args.mesh:
+        return args.schedule
+    return EngineConfig(schedule=args.schedule, placement=Placement.from_spec(args.mesh))
+
+
+def mesh_ways(args) -> int:
+    """Data shards per engine that ``--mesh`` asks for (1 without it)."""
+    return Placement.from_spec(args.mesh).data_shards if args.mesh else 1
 
 
 def parse_autoscale(spec):
@@ -111,7 +127,7 @@ def fit_and_calibrate(svc, args) -> dict:
 
 
 def serve_lstm_ae(cfg, args) -> None:
-    svc = AnomalyService(cfg, schedule=args.schedule, device=args.device)
+    svc = AnomalyService(cfg, schedule=engine_cfg_for(args), device=args.device)
     if args.train_steps:
         metrics = fit_and_calibrate(svc, args)
         print(f"[serve] fitted {cfg.name}: mse={metrics['mse']:.4f}, "
@@ -146,7 +162,7 @@ def serve_gateway(cfg, args) -> None:
     micro-batched one-shot request stream, then print its telemetry."""
     from repro_torch.gateway import drive_stream_churn
 
-    svc = AnomalyService(cfg, schedule=args.schedule, device=args.device)
+    svc = AnomalyService(cfg, schedule=engine_cfg_for(args), device=args.device)
     feats = cfg.lstm_ae.input_features
     if args.train_steps:
         fit_and_calibrate(svc, args)
@@ -200,7 +216,7 @@ def serve_http(cfg, args) -> None:
     then drain: every pending ticket is answered before the process exits."""
     from repro_torch.gateway.server import GatewayServer
 
-    svc = AnomalyService(cfg, schedule=args.schedule, device=args.device)
+    svc = AnomalyService(cfg, schedule=engine_cfg_for(args), device=args.device)
     if args.train_steps:
         fit_and_calibrate(svc, args)
         print(f"[http] fitted {cfg.name}: threshold={svc.threshold:.4f}", flush=True)
@@ -227,6 +243,8 @@ def serve_http(cfg, args) -> None:
     server = GatewayServer(gw, host=args.host, port=args.port)
 
     def _ready(srv) -> None:
+        mesh = (f", mesh={gw.placement.data_shards}x{gw.placement.data_axis}"
+                if gw.placement.is_sharded else "")
         durable = f", store={args.store_dir}" if args.store_dir else ""
         control = ""
         if gw.control is not None:
@@ -237,7 +255,7 @@ def serve_http(cfg, args) -> None:
               f"protocols=bp1+json "
               f"(device={svc.device}, schedule={gw.engine.schedule.tag}, "
               f"capacity={gw.pool.capacity}, max_batch={gw.batcher.max_batch}, "
-              f"max_wait_ms={gw.batcher.max_wait_ms}{durable}{control})", flush=True)
+              f"max_wait_ms={gw.batcher.max_wait_ms}{mesh}{durable}{control})", flush=True)
 
     try:
         asyncio.run(server.run_until_signal(on_ready=_ready))
@@ -261,11 +279,13 @@ def serve_workers(cfg, args) -> None:
     each worker, on ``--device``; with ``--train-steps`` every worker fits
     from the same seed on its own device, so all workers serve the same
     params without shipping arrays across processes).  The supervisor
-    makes no CUDA call."""
+    makes no CUDA call.  ``--mesh data=K`` lays each worker's engine out on
+    a K-way placement of its own devices (``default_gateway_factory``)."""
     import functools
 
     from repro_torch.gateway.workers import WorkerFront, default_gateway_factory
 
+    ways = mesh_ways(args)
     autoscale = parse_autoscale(args.autoscale)
     n_workers = args.workers
     if autoscale:
@@ -277,7 +297,7 @@ def serve_workers(cfg, args) -> None:
             reduced=args.reduced, train_steps=args.train_steps,
             train_seq_len=args.seq_len, capacity=args.capacity,
             max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-            warm_seq_len=args.seq_len,
+            mesh=ways, warm_seq_len=args.seq_len,
             priority_classes=args.priority_classes,
             tenant_rate=args.tenant_rate, device=args.device,
         ),
@@ -306,7 +326,7 @@ def serve_workers(cfg, args) -> None:
             control = (f" slo_p95_ms={args.slo_p95_ms}{bounds} "
                        f"priority_classes={args.priority_classes}")
         print(f"[workers] listening on {f.host}:{f.port}{scrape} "
-              f"protocols=bp1+json workers={n_workers} mesh=1xdata "
+              f"protocols=bp1+json workers={n_workers} mesh={ways}xdata "
               f"(schedule={args.schedule}, capacity={args.capacity} and "
               f"max_batch={args.max_batch} per worker){control}", flush=True)
 
@@ -324,7 +344,8 @@ def serve_workers(cfg, args) -> None:
           f"sessions_lost={summary['sessions_lost']}", flush=True)
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags (``main`` acts on them)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--batch", type=int, default=4)
@@ -380,14 +401,23 @@ def main(argv=None) -> None:
                          "zero-drop drain)")
     ap.add_argument("--control-tick-s", type=float, default=1.0,
                     help="control-plane tick interval (seconds)")
-    ap.add_argument("--mesh", default=None, metavar="data=N", help="not ported yet")
+    ap.add_argument("--mesh", default=None, metavar="data=N",
+                    help="lay pool slots and micro-batch rows out over N devices "
+                         "(the visible GPUs; with --device cpu, N emulated CPU "
+                         "devices); with --workers, per worker")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full-config", dest="reduced", action="store_false")
     args = ap.parse_args(argv)
+    if args.mesh:
+        try:
+            Placement.from_spec(args.mesh)
+        except ValueError as exc:
+            ap.error(str(exc))
+    return args
 
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag) is not None:
-            ap.error(f"--{flag.replace('_', '-')} is not ported to repro_torch yet: {item}")
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     # fail before any work when no GPU is visible; the supervisor of
     # --workers checks without initialising CUDA (its workers use the card)
     if not args.workers:

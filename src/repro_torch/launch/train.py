@@ -9,9 +9,10 @@ position), and a heartbeat monitor that names stragglers.
 
 The port's registry holds only the four LSTM-AE models, so ``--arch``
 admits only those.  One device: the GPU by default (raises without one),
-``--device cpu`` on request.  The reference's production mesh and sharded
-step need several GPUs and wait for ``ROADMAP.md``, queue 1, items 10 and
-11.
+``--device cpu`` on request.  The reference builds a production mesh and
+shards its step only at 256 devices or more (``pick_mesh``); that mesh and
+the sharded step come with the LM families' sharding rules (``ROADMAP.md``,
+queue 1, item 11).
 """
 from __future__ import annotations
 

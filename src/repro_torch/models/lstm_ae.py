@@ -32,8 +32,8 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, schedule: str = "wave
     # lazy import: the engine imports this module
     from repro_torch.engine.schedules import resolve_forward
 
-    forward = resolve_forward(schedule, cfg)
     xs = batch["series"].transpose(0, 1)
+    forward = resolve_forward(schedule, cfg, device=xs.device)
     recon = forward(params, xs)
     err = torch.mean(torch.square(recon.float() - xs.float()), dim=(0, 2))
     return err, {}

@@ -4,8 +4,11 @@ accumulation and int8 + error-feedback gradient compression.
 Counterpart of ``repro/training/step.py``.  The reference differentiates
 with ``jax.value_and_grad`` through plain JAX ops (no kernel, no
 ``custom_vjp``); here autograd runs through plain PyTorch ops on the
-params' device.  The step is eager; one device only (a ``mesh`` or
-sharding ``rules`` raise until the multi-GPU slice).
+params' device.  The step is eager and unsharded: a ``mesh`` or sharding
+``rules`` raise.  The reference shards its step only over a mesh that
+``launch/train.py::pick_mesh`` builds at 256 devices or more, with the LM
+families' rules (``distributed/sharding.py``), so the sharded step waits
+for them (``ROADMAP.md``, queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -15,7 +18,6 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.config.core import TrainConfig
-from repro_torch.engine.placement import MULTI_GPU_ITEM
 from repro_torch.optim import (
     AdamWState,
     adamw_update,
@@ -65,8 +67,9 @@ def build_train_step(api: Any, tc: TrainConfig, mesh=None, rules=None):
     and ``loss_chunk`` keywords.  Metrics come back as 0-d tensors."""
     if mesh is not None or rules is not None:
         raise NotImplementedError(
-            f"a train step over a mesh or sharding rules needs several GPUs, which "
-            f"is not ported yet: {MULTI_GPU_ITEM}")
+            "a train step over a mesh or sharding rules is not ported yet: it "
+            "comes with the LM families' sharding rules, ROADMAP.md, queue 1, "
+            "item 11 (the reference builds a training mesh only at 256 devices)")
     loss_kwargs = dict(remat=(tc.remat != "none"), loss_chunk=tc.loss_chunk)
 
     def grads_of(params: Params, batch: dict) -> tuple[Params, dict]:

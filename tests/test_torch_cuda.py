@@ -1104,7 +1104,7 @@ def test_server_thread_runs_on_the_gateway_device(cuda):
     assert on_loop == 1
     assert score == pytest.approx(float(eager.score(w[None])[0]), rel=1e-4, abs=1e-6)
     assert all(p.graph is not None for p in svc.engine._graphs.programs.values())
-    assert gw.pool._state["h"][0].device == dev
+    assert gw.pool._blocks[0].state["h"][0].device == dev
 
 
 # -- the multi-worker front on the card ---------------------------------------
@@ -1212,3 +1212,163 @@ def test_claim_of_cuda_1_sets_the_workers_device(cuda, tmp_path):
     finally:
         f.shutdown()
     assert [p.read_text() for p in report.iterdir()] == ["cuda:1"]
+
+
+# -- multi-GPU placement and the stage pipeline on the card -------------------
+#
+# One card stands in for several devices by naming it more than once
+# (``devices=("cuda:0",) * n``), each shard or stage on its own stream; the
+# distinct-GPU cases skip inside the test with fewer than two GPUs.
+
+
+def _multi_engine(placement, arch="lstm-ae-f32-d6", schedule="fused", seed=0):
+    from repro_torch.engine import EngineConfig
+
+    cfg = get_config(arch)
+    params = init_lstm_ae(torch.Generator().manual_seed(seed), cfg, "cuda")
+    return build_engine(cfg, EngineConfig(schedule, placement=placement), params=params,
+                        device="cuda:0")
+
+
+@pytest.mark.cuda
+def test_data2_engine_on_one_card_runs_k1_per_shard_bit_equal(cuda):
+    """``Placement.data(2)`` over cuda:0 twice: every row program equals the
+    single placement's bit for bit, one captured graph per shard, and K1
+    runs 2 x depth x T times per request (once per shard's rows)."""
+    from repro_torch.engine import Placement
+    from repro_torch.kernels.ops import reset_launch_counts
+
+    two = _multi_engine(Placement.data(2, devices=("cuda:0", "cuda:0")))
+    one = two.with_placement(Placement.single())
+    series = torch.randn(64, 16, 32, generator=torch.Generator().manual_seed(1))
+    lengths = torch.randint(1, 17, (64,), generator=torch.Generator().manual_seed(2))
+    for name, batch in (("score", {"series": series}), ("reconstruct", {"series": series}),
+                        ("score_masked", {"series": series, "lengths": lengths})):
+        want = getattr(one, name)(batch)
+        getattr(two, name)(batch)                       # the captures
+        reset_launch_counts()
+        got = getattr(two, name)(batch)
+        torch.cuda.synchronize()
+        assert launch_counts()["lstm_cell"] == 2 * 6 * 16
+        assert torch.equal(got, want), name
+    per = two.profile_info()["per_program"]
+    assert per["score@shard0"]["compiles"] == per["score@shard1"]["compiles"] == 1
+    assert "score" not in per
+    state = one.init_stream_state(64)
+    ys = [e.stream_masked(series[:, 0], state, torch.arange(64) % 3 > 0) for e in (one, two)]
+    assert all(torch.allclose(a, b, rtol=1e-6, atol=1e-7)
+               for a, b in zip(tree_leaves(ys[0]), tree_leaves(ys[1])))
+
+
+@pytest.mark.cuda
+def test_data2_bind_after_capture_refreshes_every_shard(cuda):
+    from repro_torch.engine import Placement
+
+    two = _multi_engine(Placement.data(2, devices=("cuda:0", "cuda:0")))
+    series = torch.randn(8, 5, 32, generator=torch.Generator().manual_seed(3))
+    two.score({"series": series})
+    other = init_lstm_ae(torch.Generator().manual_seed(9), get_config("lstm-ae-f32-d6"), "cuda")
+    two.bind(other)
+    fresh = build_engine(get_config("lstm-ae-f32-d6"), "fused", params=other, device="cuda:0")
+    assert torch.equal(two.score({"series": series}), fresh.score({"series": series}))
+    assert two.profile_info()["per_program"]["score@shard1"]["compiles"] == 1   # in place
+
+
+@pytest.mark.cuda
+def test_data2_gateway_on_one_card(cuda):
+    from repro_torch.engine import AnomalyService, Placement
+
+    svc = AnomalyService("lstm-ae-f32-d2", schedule="fused", device="cuda")
+    gws = svc.open_gateway(capacity=8, max_batch=8,
+                           placement=Placement.data(2, devices=("cuda:0", "cuda:0")))
+    gwu = svc.open_gateway(capacity=8, max_batch=8)
+    rng = np.random.default_rng(4)
+    data = rng.standard_normal((8, 6, 32)).astype(np.float32)
+    for i in range(8):
+        gws.admit(i), gwu.admit(i)
+    assert gws.pool.per_device_active() == [4, 4]
+    for t in range(6):
+        rs, ru = gws.step({i: data[i, t] for i in range(8)}), gwu.step({i: data[i, t] for i in range(8)})
+        for i in range(8):
+            assert rs[i] == pytest.approx(ru[i], rel=1e-6, abs=1e-7)
+    assert gws.pool.captures == 2
+    windows = [data[i, : 3 + i % 4] for i in range(8)]
+    np.testing.assert_array_equal(gws.score(windows), gwu.score(windows))
+    assert len(gws.stats()["gauge_vecs"]["queue.device_fill"]) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_pipeline_on_one_card_matches_sequential(cuda, shape, monkeypatch):
+    """The stage pipeline over cuda:0 with a stream per cell agrees with
+    ``sequential``, and its FIFO holds exactly one step on the card too."""
+    from repro_torch.core import temporal as tt
+    from repro_torch.core.lstm import lstm_ae_sequential
+    from repro_torch.launch.mesh import make_host_mesh
+
+    seen: dict = {}
+    real = tt._stage_step
+
+    def record(s, k, layers, cur, h, c, pwl, in_max, h_max):
+        inp = cur.clone()
+        out = real(s, k, layers, cur, h, c, pwl, in_max, h_max)
+        seen[(s, k)] = (inp, out.clone())
+        return out
+
+    monkeypatch.setattr(tt, "_stage_step", record)
+    cfg = get_config("lstm-ae-f32-d6")
+    params = init_lstm_ae(torch.Generator().manual_seed(5), cfg, "cuda")
+    xs = torch.randn(11, 64, 32, generator=torch.Generator().manual_seed(6)).cuda()
+    mesh = make_host_mesh(shape, ("data", "model"), devices=("cuda:0",) * (shape[0] * shape[1]))
+    sp, counts, _ = tt.build_stage_params(params, cfg, shape[1])
+    ys = tt.pipelined_forward(sp, counts, xs, mesh=mesh, cfg=cfg)
+    torch.testing.assert_close(ys, lstm_ae_sequential(params, xs), rtol=1e-4, atol=1e-5)
+    torch.cuda.synchronize()
+    if shape[0] == 1:
+        for (s, k), (inp, _) in seen.items():
+            if s > 0:
+                assert torch.equal(inp, seen[(s - 1, k - 1)][1]), (s, k)
+
+
+@pytest.mark.cuda
+def test_pipelined_engine_on_one_card(cuda):
+    from repro_torch.core.lstm import lstm_ae_sequential
+    from repro_torch.engine import EngineConfig, Placement
+
+    cfg = get_config("lstm-ae-f32-d6")
+    params = init_lstm_ae(torch.Generator().manual_seed(7), cfg, "cuda")
+    series = torch.randn(8, 9, 32, generator=torch.Generator().manual_seed(8)).cuda()
+    want = lstm_ae_sequential(params, series.transpose(0, 1)).transpose(0, 1)
+    for pl in (Placement(devices=("cuda:0",) * 2), Placement.data(2, devices=("cuda:0",) * 4)):
+        e = build_engine(cfg, EngineConfig("pipelined", n_stages=2, placement=pl), params=params,
+                         device="cuda:0")
+        assert e.schedule.tag == "pipelined"
+        torch.testing.assert_close(e.reconstruct({"series": series}), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_data2_over_two_gpus(cuda):
+    """Without ``devices=``, ``Placement.data(2)`` takes cuda:0 and cuda:1
+    (bit-equal to one GPU), and the (1, 2) pipeline runs across them with a
+    peer copy as its FIFO hop; with one GPU the placement raises."""
+    from repro_torch.core import temporal as tt
+    from repro_torch.core.lstm import lstm_ae_sequential
+    from repro_torch.engine import Placement
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="1 GPU\\(s\\) are visible; pass devices="):
+            _multi_engine(Placement.data(2))
+        pytest.skip(f"needs two GPUs; {torch.cuda.device_count()} visible")
+    two = _multi_engine(Placement.data(2))
+    assert two.shard_devices == [torch.device("cuda:0"), torch.device("cuda:1")]
+    series = torch.randn(16, 7, 32, generator=torch.Generator().manual_seed(9))
+    one = two.with_placement(Placement.single())
+    assert torch.equal(two.score({"series": series}), one.score({"series": series}))
+    cfg = get_config("lstm-ae-f32-d6")
+    params = init_lstm_ae(torch.Generator().manual_seed(10), cfg, "cuda")
+    xs = torch.randn(9, 6, 32, generator=torch.Generator().manual_seed(11)).cuda()
+    sp, counts, _ = tt.build_stage_params(params, cfg, 2)
+    ys = tt.pipelined_forward(sp, counts, xs, mesh=make_host_mesh((1, 2), ("data", "model")),
+                              cfg=cfg)
+    torch.testing.assert_close(ys, lstm_ae_sequential(params, xs), rtol=1e-4, atol=1e-5)

@@ -213,7 +213,7 @@ def test_checkpoints_restore_across_packages_bf16_included(tmp_path):
 def test_checkpoint_restore_refuses_shardings_and_mismatch(tmp_path):
     tree = _tree()
     path = save_checkpoint(tmp_path, 0, tree)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         restore_checkpoint(path, tree, shardings={"layers": None})
     with pytest.raises(ValueError, match="shape mismatch"):
         restore_checkpoint(path, {**tree, "step": np.zeros(2)})
@@ -322,11 +322,12 @@ def test_restore_writes_the_pool_rows_in_place(svc, tmp_path):
         tok = dur.step(sid, data[t])[2]
     dur.suspend(sid)
     pool = gw.pool
-    before = [(leaf, leaf.data_ptr()) for leaf in pool._leaves()]
-    sums = (pool._sq_sum, pool._steps)
+    (blk,) = pool._blocks
+    before = [(leaf, leaf.data_ptr()) for leaf in blk.leaves()]
+    sums = (blk.sq_sum, blk.steps)
     assert dur.resume(tok)["seq"] == 3
-    assert [(leaf, leaf.data_ptr()) for leaf in pool._leaves()] == before
-    assert (pool._sq_sum, pool._steps) == sums
+    assert [(leaf, leaf.data_ptr()) for leaf in blk.leaves()] == before
+    assert (blk.sq_sum, blk.steps) == sums
     np.testing.assert_array_equal(
         [dur.step(sid, data[t])[0] for t in range(3, 6)],
         _solo_errors_via_pool(svc, data)[3:])

@@ -18,6 +18,7 @@ from repro_torch.config import ModelConfig, get_config  # noqa: E402
 from repro_torch.engine import (  # noqa: E402
     Engine,
     EngineConfig,
+    Placement,
     Schedule,
     available_schedules,
     build_engine,
@@ -135,9 +136,18 @@ def test_pipelined_resolves_to_wavefront_on_one_gpu():
     assert (engine.schedule.name, engine.schedule.resolved) == ("pipelined", "wavefront")
     assert engine.schedule.tag == "pipelined->wavefront"
     assert engine.schedule.latency_kind == "dataflow"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*Multi-GPU"):
-        build_engine(get_config("lstm-ae-f32-d6"), EngineConfig("pipelined", n_stages=2),
+    # two explicit stages on the CPU emulate two devices: the pipeline runs
+    two = build_engine(get_config("lstm-ae-f32-d6"), EngineConfig("pipelined", n_stages=2),
+                       device="cpu")
+    assert two.schedule.tag == "pipelined" and two.schedule.prejitted
+    # too few devices is refused, never degraded to fewer stages or shards
+    with pytest.raises(ValueError, match=r"needs 2 devices \(1 data x 2 stages\), have 1"):
+        build_engine(get_config("lstm-ae-f32-d6"),
+                     EngineConfig("pipelined", n_stages=2, placement=Placement(devices=("cpu",))),
                      device="cpu")
+    with pytest.raises(ValueError, match="needs at least 4 devices"):
+        build_engine(get_config("lstm-ae-f32-d6"),
+                     EngineConfig("pipelined", placement=Placement.data(2)), device="cpu")
 
 
 def test_fused_schedule_keeps_sequential_accounting():

@@ -242,13 +242,27 @@ def test_dryrun_placement_report_matches_reference(tmp_path, argv, capsys):
         capsys.readouterr().out.replace(str(tmp_path / "ref"), "OUT")
 
 
-def test_dryrun_refuses_what_is_not_ported(tmp_path):
+def test_dryrun_refuses_what_is_not_ported(tmp_path, capsys):
+    """Without ``--placement`` the launcher exits (the dry-run of compiled
+    cells waits for the LM families); ``--placement data=2`` reports as the
+    reference's ``placement_report`` does, printed lines included."""
+    from repro.launch.dryrun import placement_report as ref_report
     from repro_torch.launch import dryrun
 
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", ARCH])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dryrun.main(["--placement", "data=2", "--arch", ARCH, "--out", str(tmp_path)])
+    capsys.readouterr()
+    dryrun.main(["--placement", "data=2", "--arch", ARCH, "--out", str(tmp_path / "port")])
+    printed = capsys.readouterr().out
+    ref_report(argparse.Namespace(arch=ARCH, placement="data=2", reduced=True, max_batch=16,
+                                  seq_len=64, slo_p95_ms=None, target_rps=None,
+                                  out=str(tmp_path / "ref")))
+    name = f"placement__{ARCH}__data2.json"
+    got = json.loads((tmp_path / "port" / name).read_text())
+    assert got == json.loads((tmp_path / "ref" / name).read_text())
+    assert got["data_shards"] == 2 and got["rows_per_shard"] == 8
+    assert printed.replace(str(tmp_path / "port"), "OUT") == \
+        capsys.readouterr().out.replace(str(tmp_path / "ref"), "OUT")
 
 
 # -- serve: the control-plane flags and --mesh -------------------------------
@@ -277,13 +291,18 @@ def test_serve_control_config_matches_reference():
 
 
 def test_serve_mesh_is_the_only_flag_not_ported(capsys):
+    """``--mesh`` is ported: ``--mesh data=2 --device cpu`` serves from an
+    engine on two emulated CPU devices; a spec with another axis exits."""
     from repro_torch.launch import serve
 
+    serve.main(["--arch", ARCH, "--mesh", "data=2", "--device", "cpu", "--requests", "2",
+                "--batch", "4", "--seq-len", "8"])
+    out = capsys.readouterr().out
+    assert f"[serve] {ARCH}-reduced [wavefront]: 2 requests" in out
     with pytest.raises(SystemExit):
-        serve.main(["--arch", ARCH, "--mesh", "data=2", "--device", "cpu"])
-    err = capsys.readouterr().err
-    assert "--mesh is not ported" in err and "item 10" in err
-    assert list(serve.NOT_PORTED) == ["mesh"]
+        serve.main(["--arch", ARCH, "--mesh", "model=2", "--device", "cpu"])
+    assert "axes supported: data" in capsys.readouterr().err
+    assert not hasattr(serve, "NOT_PORTED")
 
 
 def test_serve_http_runs_the_control_plane(tmp_path):

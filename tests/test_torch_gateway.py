@@ -480,8 +480,12 @@ def test_engine_placement_and_profile(svc):
     assert eng.placement == Placement.single()
     assert eng.with_placement(Placement.single()) is eng
     assert AnomalyGateway(svc, capacity=1, placement=Placement.single()).engine is eng
-    with pytest.raises(NotImplementedError, match="item 10"):
-        AnomalyGateway(svc, capacity=1, placement=Placement.data(2))
+    # another placement: the gateway's own engine, rows over two emulated CPUs
+    gw2 = AnomalyGateway(svc, capacity=1, placement=Placement.data(2))
+    assert gw2.engine is not eng and gw2.engine.placement == Placement.data(2)
+    assert gw2.engine.shard_devices == [torch.device("cpu")] * 2
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        AnomalyGateway(svc, capacity=1, placement=Placement.data(2, devices=("cpu",)))
     for bad in (1, "data=1"):
         with pytest.raises(TypeError, match="placement must be a Placement"):
             AnomalyGateway(svc, capacity=1, placement=bad)

@@ -153,7 +153,19 @@ def test_placement_single_matches():
 
 
 def test_placement_beyond_one_gpu_raises():
-    for make in (lambda: Placement.data(2), lambda: Placement.from_spec("data=4"),
-                 lambda: Placement(data_shards=3)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-            make()
+    """A data placement constructs as the reference's does; laying it out
+    over more GPUs than are visible raises, naming ``devices=`` as the way
+    to emulate them, and never degrades to fewer shards."""
+    for mine, ref in ((Placement.data(2), JaxPlacement.data(2)),
+                      (Placement.from_spec("data=4"), JaxPlacement.from_spec("data=4")),
+                      (Placement(data_shards=3), JaxPlacement(data_shards=3))):
+        assert mine.is_sharded and repr(mine) == repr(ref)
+        assert mine.describe() == ref.describe()
+        assert [mine.pad_rows(n) for n in (1, 5, 30)] == [ref.pad_rows(n) for n in (1, 5, 30)]
+        n = mine.data_shards
+        if torch.cuda.device_count() < n:
+            with pytest.raises(ValueError, match=r"GPU\(s\) are visible; pass devices="):
+                mine.mesh("cuda")
+        with pytest.raises(ValueError, match=f"needs {n} devices.*1 devices are named"):
+            Placement.data(n, devices=("cpu",)).mesh("cpu")
+        assert mine.mesh("cpu").devices == (torch.device("cpu"),) * n

@@ -139,27 +139,33 @@ def test_launcher_fits_then_opens_the_gateway(capsys):
     assert "[gateway] scored 4 one-shot requests" in out and "alerts=" in out
 
 
-@pytest.mark.parametrize("flag,item", [(["--workers", "2"], "item 10"),
-                                       (["--slo-p95-ms", "50"], "item 10"),
-                                       (["--priority-classes", "3"], "item 10"),
-                                       (["--tenant-rate", "100"], "item 10"),
-                                       (["--tenant-rate", "0"], "item 10"),
-                                       (["--slo-p95-ms", "0"], "item 10"),
-                                       (["--control-tick-s", "0"], "item 10"),
-                                       (["--autoscale", "1:4"], "item 10"),
-                                       (["--control-tick-s", "0.5"], "item 10")])
-def test_launcher_rejects_unported_modes(flag, item, capsys):
-    """Since the worker front and the control plane are ported, ``--mesh``
-    (several GPUs) is the one mode refused: with any of the former
-    flags beside it, the launcher names ``--mesh`` and its item, and
-    never the flag."""
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", "lstm-ae-f32-d2", "--device", "cpu", "--http", *flag,
-                    "--mesh", "data=2"])
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP.md" in err and item in err
-    assert "--mesh is not ported" in err and f"{flag[0]} is not ported" not in err
+@pytest.mark.parametrize("flag,field,want", [(["--workers", "2"], None, None),
+                                             (["--slo-p95-ms", "50"], "slo_p95_ms", 50.0),
+                                             (["--priority-classes", "3"], "priority_classes", 3),
+                                             (["--tenant-rate", "100"], "tenant_rate", 100.0),
+                                             (["--tenant-rate", "0"], "tenant_rate", 0.0),
+                                             (["--slo-p95-ms", "0"], "slo_p95_ms", 0.0),
+                                             (["--control-tick-s", "0"], None, None),
+                                             (["--autoscale", "1:4"], "autoscale_max", 4),
+                                             (["--control-tick-s", "0.5"], None, None)])
+def test_launcher_rejects_unported_modes(flag, field, want):
+    """Every mode is ported, ``--mesh`` too: with any control-plane or
+    worker flag beside ``--mesh data=2 --device cpu``, the launcher accepts
+    the pair and builds a ``Placement.data(2)`` engine config (per worker
+    under ``--workers``) with the flag's control settings."""
+    from repro_torch.engine import Placement
+
+    args = serve.parse_args(["--arch", "lstm-ae-f32-d2", "--device", "cpu", "--http", *flag,
+                             "--mesh", "data=2"])
+    ecfg = serve.engine_cfg_for(args)
+    assert ecfg.placement == Placement.data(2) and ecfg.schedule == "wavefront"
+    assert serve.mesh_ways(args) == 2
+    ccfg = serve.control_cfg_for(args, autoscale=serve.parse_autoscale(args.autoscale))
+    if field is None:
+        assert ccfg is None
+        assert (args.workers, args.control_tick_s) in ((2, 1.0), (0, float(flag[1])))
+    else:
+        assert getattr(ccfg, field) == want and ccfg.tick_interval_s == args.control_tick_s
 
 
 def test_launcher_http_without_a_gpu_raises():

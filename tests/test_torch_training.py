@@ -292,7 +292,7 @@ def test_grad_compression_in_train_step():
 
 
 def test_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         build_train_step(_port_api(), TrainConfig(), mesh=object())
 
 

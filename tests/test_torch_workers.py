@@ -398,12 +398,22 @@ def test_scale_up_then_scale_down_drains_clean():
 # -- no CPU fallback --------------------------------------------------------
 
 
-def test_factory_needs_a_device_or_cpu():
+def test_factory_needs_a_device_or_cpu(monkeypatch):
     """The factory resolves ``device=None`` to the GPU and raises without
-    one; ``mesh > 1`` raises naming the multi-GPU item; a front whose
-    factory raises fails its start with the worker's error."""
-    with pytest.raises(NotImplementedError, match="item 10"):
+    one; ``mesh=2`` on the CPU lays the gateway out over two emulated CPU
+    devices, and a worker whose device claim names fewer CUDA devices than
+    ``mesh`` raises; a front whose factory raises fails its start with the
+    worker's error."""
+    from repro_torch.engine import Placement
+    from repro_torch.gateway import claims
+
+    gw = default_gateway_factory(ARCH, mesh=2, device="cpu", capacity=4, max_batch=3)
+    assert gw.placement == Placement.data(2) and gw.batcher.lanes == 4
+    assert gw.engine.shard_devices == [torch.device("cpu")] * 2
+    monkeypatch.setattr(claims, "_process_claim", ("cuda:0",))
+    with pytest.raises(ValueError, match=r"mesh=2 needs 2 CUDA devices.*\['cuda:0'\]"):
         default_gateway_factory(ARCH, mesh=2, device="cpu")
+    monkeypatch.undo()
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: the default device resolves")
     with pytest.raises(RuntimeError, match="no CUDA device"):
