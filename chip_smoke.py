@@ -24,7 +24,13 @@ toolkit.  It
    (within 1e-5 / 1e-6, and whether bit-equal); at the end of the run
    (11.) one ``torch.profiler`` pass per request each gives the launch
    calls the host makes and the device's busy time;
-5. streams a few timesteps and checks them against batch scoring;
+5. streams a few timesteps and checks them against batch scoring, then
+   drives the Engine's per-call params on the main path's engine (``[with]``
+   lines): ``serving.build_score_step(engine)(params, batch)`` bit-equal to
+   the bound ``score``, with K1's launches counted around it (6 x 64),
+   ``score_with`` under other params leaving the bound scores and programs
+   as they were, and each of the five ``*_with`` forms captured once,
+   bit-equal to its bound form and timed beside it;
 5a. trains: ``AnomalyService("lstm-ae-f64-d6", "fused").fit`` at the
    ``stream_64`` shape (B=4096, T=64, F=64) for 20 steps on the card (ms
    per step, the loss of every step; the first step's loss must fall on
@@ -116,6 +122,21 @@ toolkit.  It
    checked on views 4 bytes off 16 (the 4-byte copy path), and each check
    logs its copy path; drives its path, ``ops.flash_attention_op``, once at
    that shape in bf16;
+10a. serves the dense transformer LM at full width (``[lm]`` lines):
+   tinyllama-1.1b with params drawn on the card from seed 0, held to the
+   CPU on one prompt (B=1, S=32) in bf16 (rtol = atol = 6e-2, the
+   reference's bf16 bar) and, cut to 2 layers, in f32 (1e-4); one decode
+   step from a stitched prefix cache against the teacher-forced logits
+   (B=2, S=64); then prefill at B=8, S=2048 and 128 greedy tokens eager
+   and with the decode step captured (``serving.GreedyDecoder``): tokens
+   identical, whether the last logits and the caches are bit-equal, prefill
+   ms and decode ms per token and tokens/s beside their bounds, the host's
+   launch calls per token each way and the device's busy share over the
+   captured decode (``torch.profiler``), peak memory, and no K1-K4 launch
+   on the path (the reference's transformer reaches no Pallas kernel);
+   the launcher ``serve --arch tinyllama-1.1b --full-config`` once as a
+   subprocess; phi-3-vision-4.2b's vision-stub prefill at full width, cut
+   to 2 layers, card against CPU, its decode cache sized to S + 576;
 11. profiles one fused request of step 4 per engine, captured and eager
    (the last phase: its profiler passes follow every capture of the run):
    the K1 kernels the device ran, by name, must be 6 x 64 in each, and the
@@ -242,6 +263,25 @@ WORKERS_CONNS = 8
 WORKERS_PASSES = 3
 WORKERS_SLO_MS = 4.0
 WORKERS_FIT_STEPS = 2
+
+# the dense transformer LM served at full width (src/repro_torch/configs/
+# tinyllama_1_1b.py: 22 layers, d_model 2048, 32 heads / 4 kv heads of 64,
+# d_ff 5632, vocab 32000), params drawn on the card from seed 0.  The card
+# is held to the CPU on one prompt (B=1, S=32) in bf16 at the reference's
+# bf16 bar (tests/test_serving_consistency.py:53) and, at 2 layers, in f32
+# (TF32 off) at LM_F32_TOL; decode against prefill at B=2, S=64; then served
+# at B=8, S=2048 (kv_chunk 1024) with 128 greedy tokens, eager and captured
+LM_ARCH = "tinyllama-1.1b"
+LM_BF16_TOL = 6e-2
+LM_F32_TOL = 1e-4
+LM_CPU_B, LM_CPU_S = 1, 32
+LM_CONSISTENCY_B, LM_CONSISTENCY_S = 2, 64
+LM_SERVE_B, LM_SERVE_S, LM_DECODE, LM_KV_CHUNK = 8, 2048, 128, 1024
+LM_PROFILE_TOKENS = 4       # decode tokens per profiler pass (each token runs ~2,150 kernels)
+LM_BUSY_TOKENS = 16
+# phi-3-vision-4.2b's backbone at full width, cut to 2 layers: its prefill
+# covers S + 576 patch positions, and the decode cache is sized from that
+LM_VISION_ARCH, LM_VISION_LAYERS, LM_VISION_DECODE = "phi-3-vision-4.2b", 2, 4
 
 
 def log(msg: str) -> None:
@@ -2737,6 +2777,358 @@ def check_streaming(torch, svc, series, results) -> None:
     results["streaming"] = {"rows": rows.shape[0], "steps": steps}
     log(f"[stream] {steps} stream_step calls on {rows.shape[0]} rows agree with reconstruct and score")
 
+def drive_with_forms(torch, svc, series, results, card) -> None:
+    """The Engine's per-call params on the main path (f64-d6, fused, B=8192,
+    T=64): ``build_score_step`` bit-equal to the bound ``score`` with K1's
+    launches counted around it; ``score_with`` under other params leaves
+    the bound program's scores and capture as they were; each ``*_with``
+    captured once and bit-equal to its bound form, timed beside it."""
+    from repro_torch.core.lstm import init_lstm_ae
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.serving import build_score_step
+    from repro_torch.utils import tree_leaves
+
+    engine = svc.engine
+    depth, t_len = len(svc.cfg.lstm_ae.layer_sizes()), series.shape[1]
+    x = series.to("cuda")
+    batch = {"series": x}
+    bound = engine.score(batch)
+    bound_programs = {k: v for k, v in engine._graphs.programs.items() if k[0] == "score"}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = build_score_step(engine)(svc.params, batch)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches["lstm_cell"] != depth * t_len or sum(launches.values()) != depth * t_len:
+        raise AssertionError(f"build_score_step launched {launches}, expected "
+                             f"{depth * t_len} K1 launches")
+    if not torch.equal(got, bound):
+        raise AssertionError("build_score_step's scores differ from the bound score's")
+    captures = engine._graphs.captures
+    other = init_lstm_ae(torch.Generator().manual_seed(1), svc.cfg, "cuda")
+    moved = float((engine.score_with(other, batch) - bound).abs().max())
+    after = {k: v for k, v in engine._graphs.programs.items() if k[0] == "score"}
+    if not torch.equal(engine.score(batch), bound) or moved == 0.0:
+        raise AssertionError("score_with under other params changed the bound score, "
+                             "or computed the bound params' scores")
+    if after != bound_programs or engine._graphs.captures != captures:
+        raise AssertionError("score_with under other params recaptured a program")
+    b = x.shape[0]
+    lengths = torch.full((b,), t_len, dtype=torch.int32, device="cuda")
+    lengths[::2] = t_len // 2
+    state = engine.init_stream_state(b)
+    mask = torch.arange(b, device="cuda") % 2 == 0
+    forms = {"reconstruct": ("reconstruct", (batch,)), "score": ("score", (batch,)),
+             "score_masked": ("score_masked", ({"series": x, "lengths": lengths},)),
+             "stream": ("step", (x[:, 0], state)),
+             "stream_masked": ("mstep", (x[:, 0], state, mask))}
+    rows = {}
+    for form, (program, args) in forms.items():
+        bound_out = getattr(engine, form)(*args)
+        with_out = getattr(engine, f"{form}_with")(svc.params, *args)
+        if not all(torch.equal(a, c) for a, c in zip(tree_leaves(with_out),
+                                                     tree_leaves(bound_out))):
+            raise AssertionError(f"{form}_with differs from the bound {form}")
+        rows[form] = {
+            "bound_ms": host_ms(torch, lambda: getattr(engine, form)(*args), iters=10),
+            "with_ms": host_ms(torch, lambda: getattr(engine, f"{form}_with")(svc.params, *args),
+                               iters=10),
+            "captures": sum(1 for key in engine._graphs.programs if key[0] == f"{program}_with")}
+        if rows[form]["captures"] != 1:
+            raise AssertionError(f"{form}_with: {rows[form]['captures']} captured programs, "
+                                 f"expected 1")
+    results["with_forms"] = {"k1_launches": launches["lstm_cell"],
+                             "max_abs_diff_other_params": moved, "forms": rows}
+    log(f"[with] {svc.cfg.name} [fused] B={b} T={t_len}: build_score_step(engine)(params, "
+        f"batch) bit-equal to the bound score, {launches['lstm_cell']} K1 launches (counts "
+        f"set to 0 just before); score_with(other params) moved the scores by up to "
+        f"{moved:.3g}, and the bound score after it is bit-equal, no program recaptured "
+        f"[{card}]")
+    for form, row in rows.items():
+        log(f"[with] {form}_with: {row['captures']} capture, bit-equal to {form}; "
+            f"{row['with_ms']:.3f} ms/call against the bound form's {row['bound_ms']:.3f} "
+            f"(input on the card) [{card}]")
+
+
+def lm_layer_params(cfg) -> int:
+    """Params of one dense transformer layer (attention, SwiGLU MLP, norms)."""
+    hd = cfg.resolved_head_dim()
+    attn = 2 * cfg.d_model * cfg.num_heads * hd + 2 * cfg.d_model * cfg.num_kv_heads * hd
+    norms = 2 * cfg.d_model if cfg.norm == "rmsnorm" else 0
+    return attn + 3 * cfg.d_model * cfg.d_ff + norms
+
+
+def lm_prefill_bound(cfg, b: int, s: int) -> tuple[float, float]:
+    """(FLOP, bytes) of one prefill: the layers' products over b*s tokens,
+    causal attention over the visible (query, key) pairs (QK^T and PV), the
+    last position's unembed; the f32 weights read once, the tokens read and
+    the bf16 K/V cache and bf16 logits written once."""
+    hd = cfg.resolved_head_dim()
+    linear = 2.0 * b * s * cfg.num_layers * (lm_layer_params(cfg) - 2 * cfg.d_model)
+    attn = 4.0 * hd * cfg.num_heads * cfg.num_layers * b * s * (s + 1) / 2
+    unembed = 2.0 * b * cfg.d_model * cfg.vocab_size
+    weights = 4.0 * (cfg.num_layers * lm_layer_params(cfg) + cfg.d_model * cfg.vocab_size
+                     + cfg.d_model)
+    nbytes = (weights + 4.0 * b * s * cfg.d_model          # the embedding rows gathered
+              + 2.0 * 2 * cfg.num_layers * b * s * cfg.num_kv_heads * hd + 2.0 * b * cfg.vocab_size)
+    return linear + attn + unembed, nbytes
+
+
+def lm_decode_bound(cfg, b: int, cache_len: int) -> tuple[float, float]:
+    """(FLOP, bytes) of one decode token at ``cache_len`` cached positions:
+    the f32 weights read once (layers, final norm, unembed; B rows of the
+    table), the bf16 cache read up to the new position and the new K/V rows
+    and the logits written once."""
+    hd = cfg.resolved_head_dim()
+    n_w = cfg.num_layers * lm_layer_params(cfg) + cfg.d_model * cfg.vocab_size + cfg.d_model
+    flops = 2.0 * b * (n_w - cfg.d_model) + 4.0 * b * cfg.num_heads * hd * (cache_len + 1) \
+        * cfg.num_layers
+    kv = 2.0 * 2 * cfg.num_layers * b * cfg.num_kv_heads * hd
+    nbytes = 4.0 * n_w + 4.0 * b * cfg.d_model + kv * (cache_len + 1) + 2.0 * b * cfg.vocab_size
+    return flops, nbytes
+
+
+def bound_of(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the operations over ``peak_flops``
+    and the bytes over HBM bandwidth."""
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def drive_lm(torch, results, card) -> None:
+    """The dense transformer LM served end to end at full width on the card
+    (``[lm]`` lines): card against CPU, decode against prefill, the serving
+    flow eager and captured with its times beside their bounds, launch
+    calls per token, the device's busy share, peak memory; the launcher
+    once as a subprocess; the vision stub's prefill.  The LM path launches
+    none of K1-K4: the reference's transformer reaches no Pallas kernel."""
+    import gc
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, build_prefill_step, stitch_prefill_cache
+    from repro_torch.utils import tree_leaves, tree_map
+
+    out = results["lm"] = {"arch": LM_ARCH}
+    cfg = get_config(LM_ARCH)
+    api = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator("cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(t.numel() for t in tree_leaves(params))
+    log(f"[lm] {cfg.name}: {out['params']:,} params in f32 drawn on the card from seed 0 in "
+        f"{out['init_s']:.2f} s; compute {cfg.compute_dtype}, decode cache bf16 [{card}]")
+
+    # 1. card against CPU on one prompt, bf16 at full depth, f32 at 2 layers
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    toks = torch.randint(0, cfg.vocab_size, (LM_CPU_B, LM_CPU_S), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    for tag, c, tol in (("bf16", cfg, LM_BF16_TOL),
+                        ("f32", cfg.with_overrides(num_layers=2, compute_dtype="float32"),
+                         LM_F32_TOL)):
+        a = build_model(c)
+        # the first c.num_layers layers' stacked params (views)
+        p_card, p_cpu = (dict(p, layers=tree_map(lambda t: t[:c.num_layers], p["layers"]))
+                         for p in (params, cpu_params))
+        t0 = time.perf_counter()
+        want, _ = a.prefill(p_cpu, {"tokens": toks})
+        cpu_s = time.perf_counter() - t0
+        got, _ = a.prefill(p_card, {"tokens": toks.cuda()})
+        got = got.float().cpu()
+        err = float((got - want.float()).abs().max())
+        torch.testing.assert_close(got, want.float(), rtol=tol, atol=tol)
+        out[f"card_vs_cpu_{tag}"] = {"max_abs_err": err, "tol": tol, "cpu_s": cpu_s}
+        log(f"[lm] card against CPU, prefill B={LM_CPU_B} S={LM_CPU_S} {tag} (layers "
+            f"{c.num_layers}, widths of {cfg.name}): logits max abs err {err:.3g} within rtol = "
+            f"atol = {tol} (CPU prefill {cpu_s:.1f} s) [{card}]")
+    del cpu_params
+
+    # 2. decode consistent with prefill on the card at full width
+    toks = torch.randint(0, cfg.vocab_size, (LM_CONSISTENCY_B, LM_CONSISTENCY_S + 1),
+                         dtype=torch.int32, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(2))
+    full, _ = api.prefill(params, {"tokens": toks})
+    _, pre = api.prefill(params, {"tokens": toks[:, :-1]})
+    cache = stitch_prefill_cache(api, pre, LM_CONSISTENCY_S + 1)
+    dec, _ = api.decode(params, toks[:, -1:], cache,
+                        torch.tensor(LM_CONSISTENCY_S, dtype=torch.int32, device="cuda"))
+    err = float((dec.float() - full.float()).abs().max())
+    torch.testing.assert_close(dec.float(), full.float(), rtol=LM_BF16_TOL, atol=LM_BF16_TOL)
+    out["decode_vs_prefill_max_abs_err"] = err
+    log(f"[lm] decode against prefill at B={LM_CONSISTENCY_B} S={LM_CONSISTENCY_S}: the "
+        f"stitched prefix cache and one decode step give the teacher-forced logits (max abs "
+        f"err {err:.3g}, rtol = atol = {LM_BF16_TOL}) [{card}]")
+    del full, pre, cache, dec
+
+    # 3. serve: prefill at B=8, S=2048, then 128 greedy tokens eager and captured
+    b, s, n = LM_SERVE_B, LM_SERVE_S, LM_DECODE
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32, device="cuda",
+                                     generator=torch.Generator("cuda").manual_seed(3))}
+    step = build_prefill_step(api, kv_chunk=LM_KV_CHUNK)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    prefill_ms = []
+    for _ in range(2):          # the first call also loads cuBLAS's kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, pre = step(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    covered = pre["k"].shape[2]
+    caches = {}
+    decoders = {"eager": GreedyDecoder(api, jit=False), "captured": GreedyDecoder(api)}
+    runs = {}
+    for name, decoder in decoders.items():
+        # captured: the capture and 127 replays, then 128 replays
+        for call in range(2 if name == "captured" else 1):
+            caches[name] = stitch_prefill_cache(api, pre, covered + n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens, _ = decoder(params, caches[name], first, covered, n)
+            torch.cuda.synchronize()
+            runs.setdefault(name, []).append(((time.perf_counter() - t0) * 1e3, tokens))
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the LM path launched port kernels {counts}; it runs none")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    eager_tokens, captured_tokens = runs["eager"][-1][1], runs["captured"][-1][1]
+    if not (torch.equal(eager_tokens, captured_tokens) and
+            torch.equal(runs["captured"][0][1], captured_tokens)):
+        raise AssertionError("captured greedy tokens differ from the eager loop's")
+    logits_equal = torch.equal(decoders["eager"].logits, decoders["captured"].logits)
+    cache_equal = all(torch.equal(x, y) for x, y in zip(tree_leaves(caches["eager"]),
+                                                        tree_leaves(caches["captured"])))
+    if decoders["captured"].captures != 1:
+        raise AssertionError(f"{decoders['captured'].captures} decode captures, expected 1")
+    pf_flops, pf_bytes = lm_prefill_bound(cfg, b, s)
+    pf_bound, pf_by = bound_of(pf_flops, pf_bytes, PEAK_BF16_FLOPS)
+    mid = covered + n // 2
+    dc_flops, dc_bytes = lm_decode_bound(cfg, b, mid)
+    dc_bound, dc_by = bound_of(dc_flops, dc_bytes, PEAK_BF16_FLOPS)
+    # what the plain path adds per token: apply_linear casts every f32
+    # weight to bf16 at use (read 4 bytes, write 2, read 2 again), and
+    # decode_attention upcasts the bf16 cache to f32 (write 4, read 4)
+    weights = 4.0 * (cfg.num_layers * lm_layer_params(cfg) + cfg.d_model * cfg.vocab_size)
+    kv = dc_bytes - 4.0 * (cfg.num_layers * lm_layer_params(cfg) + cfg.d_model * cfg.vocab_size)
+    cast_ms = (weights * 2.0 + kv * 4.0) / PEAK_BYTES * 1e3
+    out.update({
+        "prefill_ms": prefill_ms[1], "prefill_first_ms": prefill_ms[0],
+        "prefill_bound_ms": pf_bound, "prefill_bound_by": pf_by, "prefill_flops": pf_flops,
+        "decode_bound_ms_per_token": dc_bound, "decode_bound_by": dc_by,
+        "decode_cast_floor_ms_per_token": cast_ms,
+        "logits_bit_equal": logits_equal, "cache_bit_equal": cache_equal,
+        "captures": decoders["captured"].captures, "replays": decoders["captured"].replays})
+    log(f"[lm] prefill B={b} S={s} (kv_chunk {LM_KV_CHUNK}, eager): {prefill_ms[1]:.1f} ms "
+        f"(first call {prefill_ms[0]:.1f} ms); bound {pf_bound:.2f} ms by {pf_by} "
+        f"({pf_flops/1e12:.2f} TFLOP of products at the bf16 dense peak), "
+        f"{pf_flops / (prefill_ms[1] / 1e3) / 1e12:.1f} TFLOP/s achieved [{card}]")
+    for name in ("eager", "captured"):
+        ms = runs[name][-1][0]
+        out[name] = {"decode_ms_per_token": ms / n, "tokens_per_s": b * n / (ms / 1e3)}
+        capture = ""
+        if name == "captured":
+            out[name]["capture_call_ms_per_token"] = runs[name][0][0] / n
+            capture = f" (the call that captured: {runs[name][0][0] / n:.3f} ms/token)"
+        log(f"[lm] decode {name} B={b}, {n} tokens from position {covered}: "
+            f"{ms / n:.3f} ms/token, {b * n / (ms / 1e3):,.0f} tokens/s{capture}; "
+            f"bound {dc_bound:.3f} ms/token by {dc_by} (the f32 weights and the cache read once "
+            f"per token) [{card}]")
+    log(f"[lm] captured tokens equal the eager loop's ({n} tokens x {b} rows, both captured "
+        f"calls); last "
+        f"logits bit-equal: {logits_equal}, caches bit-equal: {cache_equal}; "
+        f"{decoders['captured'].captures} capture, {decoders['captured'].replays} replays; port "
+        f"kernel launches over the LM path {counts} (none, as the reference's transformer "
+        f"reaches no Pallas kernel) [{card}]")
+    log(f"[lm] what separates decode from its bound: the per-call f32->bf16 weight casts of "
+        f"apply_linear and the f32 upcast of the bf16 cache in decode_attention move "
+        f"{(weights * 2.0 + kv * 4.0) / 1e9:.2f} GB more per token, {cast_ms:.3f} ms at HBM "
+        f"bandwidth; peak memory {out['peak_memory_gb']:.2f} GB "
+        f"(torch.cuda.max_memory_allocated) [{card}]")
+
+    # launch calls the host makes per token, and the device's busy share
+    for name, decoder in decoders.items():
+        cache = stitch_prefill_cache(api, pre, covered + n)
+        torch.cuda.synchronize()
+        lp = host_launches(torch, lambda: decoder(params, cache, first, covered,
+                                                  LM_PROFILE_TOKENS))
+        out[name]["host_calls_per_token"] = lp["host_total"] / LM_PROFILE_TOKENS
+        out[name]["device_ops_per_token"] = lp["device_ops"] / LM_PROFILE_TOKENS
+        log(f"[lm] decode {name}: {lp['host_total'] / LM_PROFILE_TOKENS:.1f} launch calls per "
+            f"token on the host ({lp['host_calls']} over {LM_PROFILE_TOKENS} tokens, the loop's "
+            f"copies in and out included), {lp['device_ops'] / LM_PROFILE_TOKENS:.1f} device "
+            f"kernels/copies per token (one torch.profiler pass) [{card}]")
+    cache = stitch_prefill_cache(api, pre, covered + n)
+    busy = device_busy_over(torch, lambda: decoders["captured"](params, cache, first, covered,
+                                                                LM_BUSY_TOKENS))
+    out["captured"]["busy"] = busy
+    log(f"[lm] captured decode of {LM_BUSY_TOKENS} tokens (the cache's copies in and out "
+        f"included) under the profiler: {busy['wall_ms']:.1f} ms, the "
+        f"device busy {busy['device_busy_ms']:.1f} ms (idle share {busy['idle_share']:.3f}) "
+        f"[{card}]")
+    del logits, pre, cache, caches, decoders, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the entry point, once, in a process of its own
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH, "--full-config",
+           "--batch", str(b), "--seq-len", str(s), "--decode-tokens", str(n)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")]
+    m = re.search(r"prefill\((\d+)x(\d+)\)=([\d.]+)ms, (\d+) tokens decoded in ([\d.]+)ms "
+                  r"\(([\d,]+) tok/s\)", proc.stdout)
+    if proc.returncode != 0 or m is None or not any("sample continuation" in ln for ln in lines):
+        raise AssertionError(f"serve --arch {LM_ARCH} (rc {proc.returncode}): "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    out["launcher"] = {"prefill_ms": float(m.group(3)), "decode_ms": float(m.group(5)),
+                       "tokens_per_s": float(m.group(6).replace(",", "")),
+                       "wall_s": time.perf_counter() - t0, "lines": lines}
+    for ln in lines:
+        log(f"[lm] launcher: {ln} [{card}]")
+    log(f"[lm] launcher {' '.join(cmd[2:])}: rc 0 in {out['launcher']['wall_s']:.1f} s "
+        f"(its decode time includes the capture) [{card}]")
+
+    # 5. the vision stub's prefill at full width, cut to 2 layers
+    vcfg = get_config(LM_VISION_ARCH).with_overrides(num_layers=LM_VISION_LAYERS)
+    vapi = build_model(vcfg)
+    vparams = vapi.init(torch.Generator("cuda").manual_seed(4), device="cuda")
+    gen = torch.Generator().manual_seed(5)
+    vbatch = {"tokens": torch.randint(0, vcfg.vocab_size, (LM_CPU_B, LM_CPU_S),
+                                      dtype=torch.int32, generator=gen),
+              "image_embeds": torch.randn((LM_CPU_B, vcfg.vision_patches, vcfg.d_model),
+                                          generator=gen).to(torch.bfloat16)}
+    want, wcache = vapi.prefill(tree_map(lambda t: t.cpu(), vparams), vbatch)
+    got, gcache = vapi.prefill(vparams, {k: v.cuda() for k, v in vbatch.items()})
+    err = float((got.float().cpu() - want.float()).abs().max())
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=LM_BF16_TOL, atol=LM_BF16_TOL)
+    covered = gcache["k"].shape[2]
+    if covered != LM_CPU_S + vcfg.vision_patches or wcache["k"].shape != gcache["k"].shape:
+        raise AssertionError(f"the vision-stub prefill covered {covered} positions")
+    vcache = stitch_prefill_cache(vapi, gcache, covered + LM_VISION_DECODE)
+    vfirst = torch.argmax(got[:, -1], dim=-1).to(torch.int32)[:, None]
+    vtokens, _ = GreedyDecoder(vapi)(vparams, vcache, vfirst, covered, LM_VISION_DECODE)
+    ecache = stitch_prefill_cache(vapi, gcache, covered + LM_VISION_DECODE)
+    etokens, _ = GreedyDecoder(vapi, jit=False)(vparams, ecache, vfirst, covered,
+                                                 LM_VISION_DECODE)
+    if not torch.equal(vtokens, etokens):
+        raise AssertionError("vision stub: captured tokens differ from eager ones")
+    out["vision"] = {"max_abs_err": err, "covered": covered}
+    log(f"[lm] {LM_VISION_ARCH} at full width, {LM_VISION_LAYERS} layers: prefill of "
+        f"{LM_CPU_S} tokens + {vcfg.vision_patches} patches covers {covered} positions, card "
+        f"against CPU max abs err {err:.3g} (rtol = atol = {LM_BF16_TOL}); decode cache sized "
+        f"{covered} + {LM_VISION_DECODE}, captured tokens equal eager {vtokens[0].tolist()} "
+        f"[{card}]")
+    del vparams, gcache, vcache, ecache
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2787,6 +3179,7 @@ def main(argv=None) -> int:
     main_launches = results["serve"][0]["k1_launches"]
     small = drive_service(torch, "lstm-ae-f32-d2", 1024, 64, 3, results, card)
     check_streaming(torch, svc, first, results)
+    drive_with_forms(torch, svc, first, results, card)
     drive_fit(torch, results, card)
 
     check_k2(torch, results)
@@ -2804,6 +3197,7 @@ def main(argv=None) -> int:
     check_k4(torch, results)
     k4 = time_k4(torch, results, card)
     k4_launches = drive_k4_path(torch, results, card)
+    drive_lm(torch, results, card)
     for out, (fused, eag, request) in zip(results["serve"], ((svc, eager, first), small)):
         compare_launches(torch, out["arch"], fused, eag, request.to("cuda"), out, card)
     # the main path's count (captured launches x replays) against the K1

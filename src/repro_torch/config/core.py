@@ -1,14 +1,46 @@
-"""Config system of the port: the paper's LSTM-AE family as frozen dataclasses.
+"""Config system of the port: every architecture is a frozen dataclass.
 
-A copy of the parts of the JAX package's ``repro/config/core.py`` that the
-LSTM-AE slice reads, and its ``TrainConfig``.  The port imports nothing of that package, so the
-copy is held to it by ``tests/test_torch_*.py``.
+A copy of the JAX package's ``repro/config/core.py``: the LSTM-AE family,
+the LM families' ``ModelConfig`` fields with ``MoEConfig``, ``SSMConfig``
+and ``RWKVConfig`` (data only: the port serves the dense transformer so
+far), the LSTM-AE shapes and ``TrainConfig``.  The port imports nothing of
+that package, so the copy is held to it field for field by
+``tests/test_torch_*.py``.  One difference of wording: the reference's
+``LSTMAEConfig`` docstring calls the per-layer hidden sizes
+``feature_sizes``; both packages' method is ``layer_sizes``, and the
+port's raises ``ValueError`` where the reference asserts.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    every: int = 1           # apply MoE on layers where (layer_idx % every == every-1)
+    capacity_factor: float = 1.25
+    impl: str = "scatter"    # "scatter" (ragged, prod) | "dense" (GShard oracle)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-style selective SSM hyper-params (used by jamba)."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: Optional[int] = None  # default ceil(d_model/16)
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64     # rank of the data-dependent decay LoRA
+    token_shift: bool = True
+    scan_impl: str = "steps"  # "steps" (exact per-step scan) | "chunked"
 
 
 @dataclass(frozen=True)
@@ -40,11 +72,59 @@ class LSTMAEConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The fields of the reference ``ModelConfig`` that the LSTM-AE path reads."""
+    """Every field of the reference ``ModelConfig``.  The port runs the
+    families "lstm_ae" and "transformer" (dense; ``moe`` set raises)."""
     name: str
-    family: str              # only "lstm_ae" is served by the port so far
+    family: str              # transformer | rwkv6 | jamba | whisper | lstm_ae
     num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: Optional[int] = None
+    norm: str = "rmsnorm"    # rmsnorm | layernorm | nonparametric_ln
+    activation: str = "swiglu"  # swiglu | gelu
+    rope_theta: float = 10000.0
+    max_seq_len: int = 524_288
+    tie_embeddings: bool = False
+    qkv_bias: bool = False
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     lstm_ae: Optional[LSTMAEConfig] = None
+    # hybrid interleave: attention on layers where (idx % attn_every == attn_offset)
+    attn_every: int = 1
+    attn_offset: int = 0
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq_len: int = 0     # post-conv frame count (stub frontend)
+    # modality frontend stub: none | audio_stub | vision_stub
+    frontend: str = "none"
+    vision_patches: int = 576    # phi-3-vision: 24x24 CLIP patch tokens (stub)
+    # sub-quadratic? (controls long_500k applicability)
+    subquadratic: bool = False
+    # numerics
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    # decode layer loop: "scan" (one stacked cache) or "unroll" (a tuple of
+    # per-layer caches)
+    decode_loop: str = "scan"
+    # training only: pins the layer entry's sharding in the reference
+    bwd_constrain: bool = False
+
+    def resolved_head_dim(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // max(1, self.num_heads)
+
+    def is_attn_layer(self, idx: int) -> bool:
+        return idx % self.attn_every == self.attn_offset
+
+    def is_moe_layer(self, idx: int) -> bool:
+        if self.moe is None:
+            return False
+        return idx % self.moe.every == self.moe.every - 1
 
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

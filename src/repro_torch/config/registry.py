@@ -2,7 +2,9 @@
 
 Each ``repro_torch/configs/<id>.py`` module defines ``CONFIG`` (the paper's
 configuration) and ``reduced()`` (a smoke-test-sized config of the same
-family).  The port serves the paper's four LSTM-AE models.
+family).  The port serves the paper's four LSTM-AE models and the dense
+transformer LMs; the MoE, RWKV-6, Jamba and Whisper configs come with
+their families (ROADMAP.md, queue 1, items 11c-11f).
 """
 from __future__ import annotations
 
@@ -11,6 +13,13 @@ import importlib
 from repro_torch.config.core import ModelConfig
 
 _ARCH_MODULES: dict[str, str] = {
+    # dense decoder-only transformers of the reference's assigned pool
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
+    # the paper's own models (Section 4.1)
     "lstm-ae-f32-d2": "repro_torch.configs.lstm_ae_f32_d2",
     "lstm-ae-f32-d6": "repro_torch.configs.lstm_ae_f32_d6",
     "lstm-ae-f64-d2": "repro_torch.configs.lstm_ae_f64_d2",

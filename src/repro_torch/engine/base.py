@@ -8,6 +8,7 @@ config and parameters to a *named* execution schedule from the registry in
     recon  = engine.reconstruct(batch)    # (B, T, F)
     errors = engine.score(batch)          # (B,) per-sequence MSE
     y, st  = engine.stream(x_t, st)       # one timestep, carried state
+    errors = engine.score_with(p, batch)  # the same under params p
     est    = engine.latency_model(T)      # Eq-1 accounting for this schedule
 
 Inputs may be CPU tensors or numpy arrays; they are moved to the engine's
@@ -16,6 +17,12 @@ device, and results stay there.  On a CUDA device with
 graph per input signature at its first call and replayed after
 (``engine/capture.py``), the counterpart of the reference's ``jax.jit``; on
 the CPU, or with ``jit=False``, programs run eagerly.
+
+Each form also takes params per call (``reconstruct_with``, ``score_with``,
+``score_masked_with``, ``stream_with``, ``stream_masked_with``: the form the
+serving steps use).  Those are programs of their own, captured like the
+bound forms, with the params as inputs that each call copies in: they never
+touch the engine's weights, so a later bound call is unchanged.
 
 The engine carries a :class:`~repro_torch.engine.placement.Placement`.
 Under ``Placement.data(N)`` the row programs (reconstruct, score,
@@ -343,18 +350,39 @@ class Engine:
             outs.append(out)
         return outs
 
-    def _run_rows(self, name: str, program, args: tuple, batch: bool):
-        """Program ``name`` over the rows of ``args`` (leading dims):
-        data-parallel over the shards when there are shards for it and the
-        rows divide, else the unsharded program."""
+    def _run_rows(self, name: str, program, args: tuple, batch: bool, params=None):
+        """Program ``name``, ``program(params, *args)``, over the rows of
+        ``args`` (leading dims): data-parallel over the shards when there are
+        shards for it and the rows divide, else the unsharded program.
+
+        ``params`` None is a bound form: the program reads the engine's own
+        weights (a captured one by address; each shard its replica).  Else
+        it is a ``*_with`` form, program ``{name}_with``: the caller's
+        params are one more input, so a captured program copies them into
+        static inputs of its own at each call (each shard into its own).
+        Neither the engine's weights nor its bound programs change, and a
+        later bound call computes what it computed before."""
         n = args[0].shape[0]
         prejitted = batch and self.schedule.prejitted
-        shards = len(self._shards)
-        params = self._require_params()
-        if not shards or prejitted or n % shards:
-            if batch and self.schedule.prepare is not None:
-                params = self._prepared
-            return self.run_program(name, functools.partial(program, params), args,
+        prepare = self.schedule.prepare if batch else None
+        sharded = bool(self._shards) and not prejitted and n % len(self._shards) == 0
+        if params is not None:
+            def with_params(*a):   # the params ride last among the inputs
+                return program(a[-1] if prepare is None else prepare(a[-1]), *a[:-1])
+
+            name = f"{name}_with"
+            if not sharded:
+                return self.run_program(name, with_params, args + (params,),
+                                        capture=not prejitted)
+            blocks = [tree_map(functools.partial(_rows, rows=rows), args) + (params,)
+                      for rows in self.placement.row_blocks(n)]
+            outs = self.run_on_shards(name, lambda i, *a: with_params(*a), blocks)
+            return tree_map(lambda *parts: torch.cat(parts), *outs)
+        weights = self._require_params()
+        if not sharded:
+            if prepare is not None:
+                weights = self._prepared
+            return self.run_program(name, functools.partial(program, weights), args,
                                     capture=not prejitted)
         blocks = [tree_map(functools.partial(_rows, rows=rows), args)
                   for rows in self.placement.row_blocks(n)]
@@ -398,22 +426,39 @@ class Engine:
         denom = torch.clamp(lengths, min=1).float()
         return torch.where(valid, sq, 0.0).sum(dim=1) / denom
 
+    def reconstruct_with(self, params: Params, batch: dict) -> torch.Tensor:
+        """batch {"series": (B, T, F)} -> reconstruction (B, T, F) under
+        ``params`` (tensors or arrays) instead of the bound ones."""
+        return self._run_rows("reconstruct", self._reconstruct, (batch["series"],),
+                              batch=True, params=params)
+
+    def score_with(self, params: Params, batch: dict) -> torch.Tensor:
+        """batch {"series": (B, T, F)} -> per-sequence reconstruction MSE (B,)
+        — the anomaly score of the paper's application — under ``params``.
+        Under a sharded placement the rows are scored data-parallel over the
+        shards."""
+        return self._run_rows("score", self._score, (batch["series"],), batch=True,
+                              params=params)
+
+    def score_masked_with(self, params: Params, batch: dict) -> torch.Tensor:
+        """batch {"series": (B, T, F), "lengths": (B,) int} -> per-sequence
+        MSE over each row's first ``lengths[i]`` timesteps, under ``params``.
+        The stack is causal, so end-padding does not perturb the valid
+        timesteps — the gateway's bucketed-scoring primitive (which pads B
+        to a per-device multiple under a sharded placement)."""
+        return self._run_rows("score_masked", self._score_masked,
+                              (batch["series"], batch["lengths"]), batch=True, params=params)
+
     def reconstruct(self, batch: dict) -> torch.Tensor:
-        """batch {"series": (B, T, F)} -> reconstruction (B, T, F)."""
+        """:meth:`reconstruct_with` under the bound params (the engine's own copy)."""
         return self._run_rows("reconstruct", self._reconstruct, (batch["series"],), batch=True)
 
     def score(self, batch: dict) -> torch.Tensor:
-        """batch {"series": (B, T, F)} -> per-sequence reconstruction MSE (B,)
-        — the anomaly score of the paper's application.  Under a sharded
-        placement the rows are scored data-parallel over the shards."""
+        """:meth:`score_with` under the bound params (the engine's own copy)."""
         return self._run_rows("score", self._score, (batch["series"],), batch=True)
 
     def score_masked(self, batch: dict) -> torch.Tensor:
-        """batch {"series": (B, T, F), "lengths": (B,) int} -> per-sequence
-        MSE over each row's first ``lengths[i]`` timesteps.  The stack is
-        causal, so end-padding does not perturb the valid timesteps — the
-        gateway's bucketed-scoring primitive (which pads B to a per-device
-        multiple under a sharded placement)."""
+        """:meth:`score_masked_with` under the bound params (the engine's own copy)."""
         return self._run_rows("score_masked", self._score_masked,
                               (batch["series"], batch["lengths"]), batch=True)
 
@@ -435,16 +480,28 @@ class Engine:
                   for k in ("h", "c")}
         return y_t, merged
 
+    def stream_with(self, params: Params, x_t, state: Params) -> tuple[torch.Tensor, Params]:
+        """One streaming timestep x_t (B, F) -> (reconstruction (B, F), state)
+        under ``params``.  A single timestep admits no temporal parallelism,
+        so every schedule streams through the same cell loop."""
+        return self._run_rows("step", self._stream_step, (x_t, state), batch=False,
+                              params=params)
+
+    def stream_masked_with(self, params: Params, x_t, state: Params,
+                           mask) -> tuple[torch.Tensor, Params]:
+        """Pooled step under ``params``: x_t (B, F), mask (B,) bool ->
+        (y_t (B, F), state) where only masked rows' (h, c) advance (others
+        carry unchanged).  The gateway's session pool steps all its slots
+        through the bound form."""
+        return self._run_rows("mstep", self._masked_stream_step, (x_t, state, mask),
+                              batch=False, params=params)
+
     def stream(self, x_t, state: Params) -> tuple[torch.Tensor, Params]:
-        """One streaming timestep x_t (B, F) -> (reconstruction (B, F), state).
-        A single timestep admits no temporal parallelism, so every schedule
-        streams through the same cell loop."""
+        """:meth:`stream_with` under the bound params (the engine's own copy)."""
         return self._run_rows("step", self._stream_step, (x_t, state), batch=False)
 
     def stream_masked(self, x_t, state: Params, mask) -> tuple[torch.Tensor, Params]:
-        """Pooled step: x_t (B, F), mask (B,) bool -> (y_t (B, F), state)
-        where only masked rows' (h, c) advance (others carry unchanged).
-        The gateway's session pool steps all its slots through this."""
+        """:meth:`stream_masked_with` under the bound params (the engine's own copy)."""
         return self._run_rows("mstep", self._masked_stream_step, (x_t, state, mask), batch=False)
 
     # -- analytics --------------------------------------------------------

@@ -40,6 +40,9 @@ def placement_report(args) -> dict:
     if not args.arch:
         raise SystemExit("--placement needs --arch")
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.lstm_ae is None:
+        raise SystemExit(f"--placement reports the LSTM-AE gateway; {args.arch} is an "
+                         f"LM: {CELLS_ITEM}")
     pl = Placement.from_spec(args.placement)
     lanes = pl.pad_rows(args.max_batch)
     rows_per_shard = lanes // pl.data_shards

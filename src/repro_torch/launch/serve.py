@@ -47,6 +47,18 @@ pool slots and micro-batch rows split over N devices, the visible GPUs
 counterpart of the reference's ``XLA_FLAGS`` device-count passthrough).
 The ready lines then print ``mesh=Nxdata``.
 
+An LM arch (``--arch tinyllama-1.1b``; the dense transformers so far)
+runs ``serve_lm``: params drawn on the device from seed 0, random prompt
+tokens (``--batch`` x ``--seq-len``; under the vision stub also random
+patch embeddings) from seed 1, a prefill, the prefill's KV cache stitched
+into a decode cache of every position the prefill covered plus
+``--decode-tokens``, then greedy decoding from there with the decode step
+captured into a CUDA graph (``serving.GreedyDecoder``; the CPU runs it
+eagerly).  It prints the reference's two ``[serve]`` lines.  The reference
+decodes against a zeroed cache instead (ROADMAP.md, queue 3).
+``--gateway``, ``--http``, ``--workers`` and ``--mesh`` serve the LSTM-AE
+only and refuse an LM arch.
+
 The device defaults to the GPU and never falls back to the CPU:
 ``--device cpu`` asks for it.
 """
@@ -65,6 +77,8 @@ from repro_torch.config import get_config, list_archs, reduced_config
 from repro_torch.core.latency import PAPER_RH_M
 from repro_torch.data import TimeseriesConfig, make_batch
 from repro_torch.engine import AnomalyService, EngineConfig, Placement, available_schedules
+from repro_torch.models import build_model
+from repro_torch.serving import GreedyDecoder, build_prefill_step, stitch_prefill_cache
 
 
 def engine_cfg_for(args):
@@ -344,12 +358,58 @@ def serve_workers(cfg, args) -> None:
           f"sessions_lost={summary['sessions_lost']}", flush=True)
 
 
+def serve_lm(cfg, args) -> None:
+    """Prefill a random prompt batch, then greedy-decode ``--decode-tokens``
+    tokens against the prefill's own KV cache."""
+    device = resolve_device(args.device)
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=device).manual_seed(0), device=device)
+    b, s = args.batch, args.seq_len
+    gen = torch.Generator(device=device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device=device, dtype=torch.int32)}
+    if cfg.frontend == "vision_stub":
+        batch["image_embeds"] = torch.randn((b, cfg.vision_patches, cfg.d_model),
+                                            generator=gen, device=device).to(torch.bfloat16)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.perf_counter()
+    logits, prefill_cache = build_prefill_step(api)(params, batch)
+    sync()
+    t_prefill = time.perf_counter() - t0
+
+    covered = prefill_cache["k"].shape[2]          # S, plus the patches under the stub
+    cache = stitch_prefill_cache(api, prefill_cache, covered + args.decode_tokens)
+    del prefill_cache
+    first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    sync()
+    t0 = time.perf_counter()
+    out_tokens, _ = GreedyDecoder(api)(params, cache, first, covered, args.decode_tokens)
+    sync()
+    t_decode = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU"
+    print(f"[serve] device {device} ({name})")
+    print(f"[serve] {cfg.name}: prefill({b}x{s})={t_prefill*1e3:.1f}ms, "
+          f"{args.decode_tokens} tokens decoded in {t_decode*1e3:.1f}ms "
+          f"({b*args.decode_tokens/t_decode:,.0f} tok/s)", flush=True)
+    print(f"[serve] sample continuation: {out_tokens[0, :8].tolist()}", flush=True)
+
+
+LSTM_AE_MODES = ("gateway", "http", "workers", "mesh")
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     """The launcher's flags (``main`` acts on them)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--decode-tokens", type=int, default=16,
+                    help="LM archs: tokens to greedy-decode after the prefill")
     ap.add_argument("--requests", type=int, default=20)
     ap.add_argument("--schedule", default="wavefront", choices=available_schedules(),
                     help="LSTM-AE execution schedule (engine registry name)")
@@ -418,6 +478,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family != "lstm_ae":
+        asked = [f"--{m}" for m in LSTM_AE_MODES if getattr(args, m)]
+        if asked:
+            raise SystemExit(f"{' '.join(asked)}: LSTM-AE serving only; {args.arch} is a "
+                             f"{cfg.family} LM, served by prefill and greedy decoding")
     # fail before any work when no GPU is visible; the supervisor of
     # --workers checks without initialising CUDA (its workers use the card)
     if not args.workers:
@@ -425,8 +491,9 @@ def main(argv=None) -> None:
     elif args.device is None or torch.device(args.device).type == "cuda":
         if not torch.cuda.is_available():
             resolve_device(args.device)  # raises, naming --device cpu
-    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    if args.workers:
+    if cfg.family != "lstm_ae":
+        serve_lm(cfg, args)
+    elif args.workers:
         serve_workers(cfg, args)
     elif args.http:
         serve_http(cfg, args)

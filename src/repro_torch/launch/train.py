@@ -7,8 +7,8 @@ checkpoints every ``--ckpt-every`` steps with a resume from the newest
 one in ``--ckpt-dir`` (params, optimizer state and the iterator's
 position), and a heartbeat monitor that names stragglers.
 
-The port's registry holds only the four LSTM-AE models, so ``--arch``
-admits only those.  One device: the GPU by default (raises without one),
+Only the four LSTM-AE models train: an LM ``--arch`` exits naming
+ROADMAP.md, queue 1, item 11b (LM training).  One device: the GPU by default (raises without one),
 ``--device cpu`` on request.  The reference builds a production mesh and
 shards its step only at 256 devices or more (``pick_mesh``); that mesh and
 the sharded step come with the LM families' sharding rules (``ROADMAP.md``,
@@ -17,11 +17,9 @@ queue 1, item 11).
 from __future__ import annotations
 
 import argparse
-import functools
 import os
 import tempfile
 import time
-import types
 
 import torch
 
@@ -31,7 +29,7 @@ from repro_torch.config import TrainConfig, get_config, list_archs, reduced_conf
 from repro_torch.core.lstm import init_lstm_ae
 from repro_torch.data import TimeseriesConfig, TimeseriesIterator
 from repro_torch.distributed import HeartbeatMonitor
-from repro_torch.models.lstm_ae import train_loss
+from repro_torch.models import build_model
 from repro_torch.training import build_train_step, init_train_state
 from repro_torch.utils import tree_leaves
 
@@ -57,6 +55,9 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family != "lstm_ae":
+        raise SystemExit(f"{args.arch}: LM training is not ported yet: ROADMAP.md, "
+                         f"queue 1, item 11b")
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      grad_compression=args.grad_compression,
                      loss_chunk=min(2048, args.seq_len))
@@ -65,7 +66,7 @@ def main(argv=None) -> None:
     n_params = sum(p.numel() for p in tree_leaves(state.params))
     print(f"[train] {cfg.name}: {n_params:,} params, mesh=none, device={device}", flush=True)
 
-    api = types.SimpleNamespace(loss=functools.partial(train_loss, cfg=cfg))
+    api = build_model(cfg)
     step_fn = build_train_step(api, tc)
     it = TimeseriesIterator(TimeseriesConfig(
         features=cfg.lstm_ae.input_features, seq_len=args.seq_len,

@@ -1,0 +1,85 @@
+"""Uniform model API: one entry point per family.
+
+Counterpart of ``repro/models/api.py``.  ``build_model(cfg)`` returns a
+:class:`ModelAPI` with:
+
+- init(generator, device=None) -> params, drawn on ``device`` (default
+  cuda) from ``generator``, which must live on that device for the
+  transformer (the LSTM-AE draws on the CPU and moves its params)
+- loss(params, batch) -> (scalar, metrics)
+- prefill(params, batch) -> (logits/scores, cache)
+- decode(params, token, cache, cache_len) -> (logits, cache)
+- init_cache(batch, max_len, device=None) -> decode state
+
+The port builds the "transformer" (dense) and "lstm_ae" families.  The
+others raise ``NotImplementedError`` naming the ROADMAP item that ports
+them, and so does the transformer's ``loss`` until LM training is ported.
+The reference's ``param_specs``/``cache_specs`` (sharding) and its
+``input_specs``/``cache_struct``/``param_struct`` (the dry-run launcher)
+come with ROADMAP.md, queue 1, item 11g.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config.core import ModelConfig
+from repro_torch.core.lstm import init_lstm_ae
+from repro_torch.models import lstm_ae as lstm_ae_m
+from repro_torch.models import transformer as tf_m
+from repro_torch.utils import Params
+
+UNPORTED_FAMILIES = {
+    "rwkv6": "ROADMAP.md, queue 1, item 11d (models/rwkv6.py, layers/rwkv.py)",
+    "jamba": "ROADMAP.md, queue 1, item 11e (models/jamba.py, layers/mamba.py)",
+    "whisper": "ROADMAP.md, queue 1, item 11f (models/whisper.py)",
+}
+LM_TRAINING_ITEM = "ROADMAP.md, queue 1, item 11b (LM training)"
+
+
+@dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    init: Callable[..., Params]
+    loss: Callable[..., tuple[torch.Tensor, dict]]
+    prefill: Callable[..., tuple[torch.Tensor, Params]]
+    decode: Optional[Callable[..., tuple[torch.Tensor, Params]]]
+    init_cache: Optional[Callable[..., Params]]
+
+
+def _transformer_loss(cfg: ModelConfig):
+    def loss(params, batch, **_):
+        raise NotImplementedError(
+            f"{cfg.name}: the transformer's train loss is not ported yet: {LM_TRAINING_ITEM}")
+    return loss
+
+
+def build_model(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family == "transformer":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen, device=None: tf_m.init_transformer(gen, cfg, resolve_device(device)),
+            loss=_transformer_loss(cfg),
+            prefill=lambda p, b, **kw: tf_m.prefill(p, b, cfg, **kw),
+            decode=lambda p, t, c, n: tf_m.decode_step(p, t, c, n, cfg),
+            init_cache=lambda batch, max_len, device=None: tf_m.init_decode_cache(
+                cfg, batch, max_len, device=resolve_device(device)),
+        )
+    if cfg.family == "lstm_ae":
+        # prefill runs a named engine schedule: pass schedule=... through kw
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen, device=None: init_lstm_ae(gen, cfg, device),
+            loss=lambda p, b, **kw: lstm_ae_m.train_loss(p, b, cfg, **kw),
+            prefill=lambda p, b, **kw: lstm_ae_m.prefill(p, b, cfg, **kw),
+            decode=lambda p, t, c, n: lstm_ae_m.decode_step(p, t, c, n, cfg),
+            init_cache=lambda batch, max_len, device=None: lstm_ae_m.init_stream_state(
+                cfg, batch, device=device),
+        )
+    if cfg.family in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: {UNPORTED_FAMILIES[cfg.family]}")
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -61,10 +61,10 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
 def build_train_step(api: Any, tc: TrainConfig, mesh=None, rules=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
-    ``api`` is any object whose ``loss(params, batch, **kw)`` returns
-    ``(loss, metrics)`` (the reference takes its ``ModelAPI``, which the
-    port does not have yet); it is called with the reference's ``remat``
-    and ``loss_chunk`` keywords.  Metrics come back as 0-d tensors."""
+    ``api`` is a ``ModelAPI`` (``repro_torch.models.build_model``), or any
+    object whose ``loss(params, batch, **kw)`` returns ``(loss, metrics)``;
+    it is called with the reference's ``remat`` and ``loss_chunk``
+    keywords.  Metrics come back as 0-d tensors."""
     if mesh is not None or rules is not None:
         raise NotImplementedError(
             "a train step over a mesh or sharding rules is not ported yet: it "

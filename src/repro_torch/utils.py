@@ -19,18 +19,20 @@ Params = Any  # nested dict / tuple / list of tensors
 
 def truncated_normal_init(
     shape: tuple[int, ...], fan_in: int | None = None,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | None = None, device=None,
 ) -> torch.Tensor:
-    """He-style truncated normal (std = 1/sqrt(fan_in), cut at 2 std) on the CPU.
+    """He-style truncated normal (std = 1/sqrt(fan_in), cut at 2 std), drawn
+    on ``device`` (default: the CPU) from ``generator``, which must live on
+    that device.
 
     The distribution of ``repro.utils.truncated_normal_init``; the values
     differ, because ``torch.Generator`` and ``jax.random`` draw other bits."""
     if fan_in is None:
         fan_in = shape[0] if len(shape) >= 1 else 1
     std = 1.0 / math.sqrt(max(1, fan_in))
-    t = torch.empty(shape, dtype=torch.float32)
+    t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t * std
+    return t.mul_(std)
 
 
 def tree_map(fn, tree: Params, *rest: Params) -> Params:

@@ -1372,3 +1372,102 @@ def test_data2_over_two_gpus(cuda):
     ys = tt.pipelined_forward(sp, counts, xs, mesh=make_host_mesh((1, 2), ("data", "model")),
                               cfg=cfg)
     torch.testing.assert_close(ys, lstm_ae_sequential(params, xs), rtol=1e-4, atol=1e-5)
+
+
+# -- the Engine's per-call params and the LM's captured decode step --------
+
+WITH_FORMS = ("reconstruct", "score", "score_masked", "stream", "stream_masked")
+WITH_PROGRAM = {"reconstruct": "reconstruct", "score": "score", "score_masked": "score_masked",
+                "stream": "step", "stream_masked": "mstep"}
+
+
+def _with_call(engine, form, params, series):
+    """``engine.<form>`` (params None) or ``engine.<form>_with(params, ...)``,
+    outputs flattened."""
+    b = series.shape[0]
+    if form in ("stream", "stream_masked"):
+        args = (series[:, 0], engine.init_stream_state(b))
+        if form == "stream_masked":
+            args += (torch.arange(b) % 2 == 0,)
+    else:
+        batch = {"series": series}
+        if form == "score_masked":
+            batch["lengths"] = torch.arange(b, dtype=torch.int32) % series.shape[1]
+        args = (batch,)
+    out = getattr(engine, form)(*args) if params is None else \
+        getattr(engine, f"{form}_with")(params, *args)
+    return tree_leaves(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", WITH_FORMS)
+def test_with_forms_captured_leave_bound_programs(cuda, form):
+    """Each ``*_with`` is a captured program of its own, bit-equal to an
+    engine bound to those params; it neither recaptures nor changes the
+    bound program, whose next call is bit-equal to its first."""
+    cfg = get_config("lstm-ae-f32-d6")
+    p1 = init_lstm_ae(torch.Generator().manual_seed(0), cfg, "cuda")
+    p2 = init_lstm_ae(torch.Generator().manual_seed(1), cfg, "cuda")
+    engine = build_engine(cfg, "fused", params=p1, device=cuda)
+    other = build_engine(cfg, "fused", params=p2, device=cuda)
+    series = torch.randn(8, 7, 32, generator=torch.Generator().manual_seed(2))
+    before = _with_call(engine, form, None, series)
+    (bound_key,) = engine._graphs.programs
+    bound_prog = engine._graphs.programs[bound_key]
+    for call in range(2):
+        got = _with_call(engine, form, p2, series)
+        assert all(torch.equal(g, w) for g, w in zip(got, _with_call(other, form, None, series)))
+    names = [key[0] for key in engine._graphs.programs]
+    assert names == [WITH_PROGRAM[form], f"{WITH_PROGRAM[form]}_with"]
+    assert engine._graphs.programs[bound_key] is bound_prog and engine._graphs.captures == 2
+    after = _with_call(engine, form, None, series)
+    assert all(torch.equal(a, b) for a, b in zip(after, before)) and engine._graphs.captures == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", WITH_FORMS)
+def test_with_forms_data2_on_one_card(cuda, form):
+    """``*_with`` under ``Placement.data(2)`` over cuda:0 twice: captured
+    per shard, bit-equal to the single placement's."""
+    from repro_torch.engine import Placement
+
+    two = _multi_engine(Placement.data(2, devices=("cuda:0",) * 2))
+    one = two.with_placement(Placement.single())
+    p2 = init_lstm_ae(torch.Generator().manual_seed(5), two.cfg, "cuda")
+    series = torch.randn(8, 7, 32, generator=torch.Generator().manual_seed(6))
+    for call in range(2):
+        got = _with_call(two, form, p2, series)
+        assert all(torch.equal(g, w) for g, w in zip(got, _with_call(one, form, p2, series)))
+    for shard in two._shards:
+        assert [key[0] for key in shard.graphs.programs] == \
+            [f"{WITH_PROGRAM[form]}_with@shard{shard.index}"]
+        assert shard.graphs.captures == 1 and shard.graphs.replays == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decode_loop", ["scan", "unroll"])
+def test_captured_greedy_decode_equals_eager(cuda, decode_loop):
+    """The LM's decode step captured once and replayed per token gives the
+    eager loop's tokens, last logits and cache bit for bit; a second loop
+    at the same signature replays without a recapture."""
+    from repro_torch.config import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, stitch_prefill_cache
+
+    api = build_model(reduced_config("tinyllama-1.1b").with_overrides(decode_loop=decode_loop))
+    params = api.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, api.cfg.vocab_size, (3, 9), generator=torch.Generator(cuda).manual_seed(1),
+                         device=cuda, dtype=torch.int32)
+    logits, pre = api.prefill(params, {"tokens": toks})
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    eager = GreedyDecoder(api, jit=False)
+    captured = GreedyDecoder(api)
+    want, want_cache = eager(params, stitch_prefill_cache(api, pre, 9 + 6), first, 9, 6)
+    for call in range(2):
+        got, got_cache = captured(params, stitch_prefill_cache(api, pre, 9 + 6), first, 9, 6)
+        assert torch.equal(got, want) and torch.equal(captured.logits, eager.logits)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got_cache),
+                                                     tree_leaves(want_cache)))
+    assert captured.captures == 1 and captured.replays == 2 * 6 - 1
+    assert eager.captures == 0
+
