@@ -138,12 +138,26 @@ toolkit.  It
    subprocess; phi-3-vision-4.2b's vision-stub prefill at full width, cut
    to 2 layers, card against CPU, its decode cache sized to S + 576;
 11. profiles one fused request of step 4 per engine, captured and eager
-   (the last phase: its profiler passes follow every capture of the run):
+   (its profiler passes follow every capture of the run):
    the K1 kernels the device ran, by name, must be 6 x 64 in each, and the
    main path's launch count must be 3 requests x that figure; then splits
    one fit step of 5a into its parts, each timed alone (the host's batch,
    its copy to the card, the train step) with one profiler pass over the
    train step; and profiles a bp1 pass and one socket flush of 8a.
+12. trains the dense LM at full width, last (``[lm-train]`` lines; its
+   profiled train step records over 10,000 kernels, and 11's K1 counts
+   are not to follow it): one
+   value_and_grad of ``train_loss`` at 2 layers, B=1, S=32, card against
+   CPU in f32 (TF32 off) and bf16, every grad leaf by relative Frobenius
+   error; remat against no remat at 2 layers, B=4, S=2048 (losses
+   bit-equal, peak memory of each); then tinyllama-1.1b with 22 layers
+   for 8 AdamW steps at B=4, S=2048 from ``LMIterator``: ms a step and
+   tokens/s beside the bound, peak memory, one profiled step's device
+   kernels and idle share, every loss finite, and no K1-K4 launch and no
+   ``scaled_dot_product_attention`` call over the phase; the launcher
+   ``train --arch tinyllama-1.1b --full-config`` for 6 steps with a
+   checkpoint every 3 and again for 8 over the same directory, which
+   resumes from step 6.
 
 The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
@@ -282,6 +296,24 @@ LM_BUSY_TOKENS = 16
 # phi-3-vision-4.2b's backbone at full width, cut to 2 layers: its prefill
 # covers S + 576 patch positions, and the decode cache is sized from that
 LM_VISION_ARCH, LM_VISION_LAYERS, LM_VISION_DECODE = "phi-3-vision-4.2b", 2, 4
+# LM training at full width (``[lm-train]`` lines): one value_and_grad of
+# train_loss at 2 layers, B=1, S=32, card against CPU; in f32 (TF32 off)
+# the loss at rtol = atol = LM_F32_TOL and each grad leaf by its relative
+# Frobenius error at LM_TRAIN_F32_GRAD_REL; in bf16 the loss at the
+# reference's bf16 bar and each grad leaf at LM_TRAIN_BF16_GRAD_REL
+# (1.3e-2 to 1.5e-2 between the JAX package and the port on the CPU,
+# tests/test_torch_lm_training.py; 1.06e-2 card against CPU on an H100,
+# PERF.md section 6).  Remat against no remat at 2 layers,
+# B=4, S=2048: the same loss bit for bit, grads within LM_TRAIN_REMAT_REL
+# (the table's gather backward accumulates in an order of its own).  Then
+# 22 layers at B=4, S=2048 from LMIterator, AdamW in f32, and the launcher
+# twice over one checkpoint directory.
+LM_TRAIN_LAYERS = 2
+LM_TRAIN_F32_GRAD_REL = 1e-4
+LM_TRAIN_BF16_GRAD_REL = 5e-2
+LM_TRAIN_REMAT_REL = 1e-5
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 4, 2048, 8
+LM_TRAIN_LAUNCH_STEPS, LM_TRAIN_CKPT_EVERY = (6, 8), 3
 
 
 def log(msg: str) -> None:
@@ -1908,10 +1940,12 @@ def serve_mesh_http(torch) -> str:
     return ready.strip()
 
 
-def device_busy_over(torch, fn) -> dict:
+def device_busy_over(torch, fn, names: bool = False) -> dict:
     """Wall time of one ``fn()`` and the time the device was busy in it (the
     union of its kernels', copies' and memsets' intervals), from one
-    ``torch.profiler`` pass."""
+    ``torch.profiler`` pass; with ``names`` also every event's name seen
+    (host operators and device kernels) and the device time (ms) summed
+    per device kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1927,8 +1961,16 @@ def device_busy_over(torch, fn) -> dict:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "device_ops": len(spans),
-            "idle_share": 1.0 - busy_us / 1e3 / wall_ms}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "device_ops": len(spans),
+           "idle_share": 1.0 - busy_us / 1e3 / wall_ms}
+    if names:
+        out["names"] = sorted({e.name for e in prof.events()})
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        out["device_ms_by_name"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+    return out
 
 
 def profile_transport_flush(torch, gw, oneshot, results, card) -> None:
@@ -3130,6 +3172,255 @@ def drive_lm(torch, results, card) -> None:
     torch.cuda.empty_cache()
 
 
+def lm_train_bound(cfg, b: int, s: int, n_params: int) -> tuple[float, float]:
+    """(FLOP, bytes) of one train step at b x s tokens: 6 FLOP per product
+    weight per token (the forward's product and the backward's two: the
+    layers' matrices and the unembedding; the table's gather has none),
+    causal attention's QK^T and PV over the visible (query, key) pairs
+    three times over (forward, and the backward's two); the f32 params and
+    AdamW's two moments read once and written once (24 bytes a param) and
+    the tokens and labels read once.  The recompute of remat is the
+    implementation's choice and is not counted."""
+    hd = cfg.resolved_head_dim()
+    product = cfg.num_layers * (lm_layer_params(cfg) - 2 * cfg.d_model) \
+        + cfg.d_model * cfg.vocab_size
+    linear = 6.0 * product * b * s
+    attn = 3 * 4.0 * hd * cfg.num_heads * cfg.num_layers * b * s * (s + 1) / 2
+    return linear + attn, 24.0 * n_params + 2 * 8.0 * b * s
+
+
+def lm_value_and_grad(torch, api, params, batch, **kw):
+    """(loss, grads in ``tree_leaves`` order) of ``api.loss``."""
+    from repro_torch.utils import tree_leaves, tree_map
+
+    tracked = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = api.loss(tracked, batch, **kw)
+    return loss.detach(), torch.autograd.grad(loss, tree_leaves(tracked))
+
+
+def rel_fro(torch, got, want) -> float:
+    """||got - want|| / ||want|| (Frobenius), in f32."""
+    want = want.float()
+    return float(torch.linalg.vector_norm(got.float() - want)
+                 / torch.clamp(torch.linalg.vector_norm(want), min=1e-30))
+
+
+def drive_lm_train(torch, results, card) -> None:
+    """LM training at full width on the card (``[lm-train]`` lines): card
+    against CPU for one value_and_grad of ``train_loss`` at 2 layers in f32
+    and bf16; remat against no remat at 2 layers; 22 layers trained for
+    LM_TRAIN_STEPS steps at B=4, S=2048 from ``LMIterator`` with ms per
+    step, tokens/s, the bound, peak memory, device kernels per step and the
+    idle share over one profiled step; the launcher twice over one
+    checkpoint directory (the second run resumes).  Like serving, the path
+    launches none of K1-K4 and calls no library attention (both counted)."""
+    import gc
+    import math
+    import tempfile
+    from pathlib import Path
+
+    import torch.nn.functional as F
+
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data import LMDataConfig, LMIterator, host_slice, make_lm_batch
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.training import build_train_step, init_train_state
+    from repro_torch.utils import tree_leaves, tree_map
+
+    out = results["lm_train"] = {"arch": LM_ARCH}
+    cfg = get_config(LM_ARCH)
+    t_phase = time.perf_counter()
+    sdpa = F.scaled_dot_product_attention
+    sdpa_calls = [0]
+
+    def counted_sdpa(*args, **kw):
+        sdpa_calls[0] += 1
+        return sdpa(*args, **kw)
+
+    F.scaled_dot_product_attention = counted_sdpa
+    reset_launch_counts()
+    try:
+        # 1. card against CPU: one value_and_grad at 2 layers, full width
+        cfg2 = cfg.with_overrides(num_layers=LM_TRAIN_LAYERS)
+        params = build_model(cfg2).init(torch.Generator("cuda").manual_seed(0), device="cuda")
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        batch = make_lm_batch(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_CPU_S,
+                                           global_batch=LM_CPU_B), 0)
+        card_batch = {k: v.cuda() for k, v in batch.items()}
+        for tag, dtype, loss_tol, grad_tol in (
+                ("f32", "float32", LM_F32_TOL, LM_TRAIN_F32_GRAD_REL),
+                ("bf16", "bfloat16", LM_BF16_TOL, LM_TRAIN_BF16_GRAD_REL)):
+            a = build_model(cfg2.with_overrides(compute_dtype=dtype))
+            t0 = time.perf_counter()
+            want, wgrads = lm_value_and_grad(torch, a, cpu_params, batch, loss_chunk=LM_CPU_S)
+            cpu_s = time.perf_counter() - t0
+            got, ggrads = lm_value_and_grad(torch, a, params, card_batch, loss_chunk=LM_CPU_S)
+            errs = [rel_fro(torch, g.cpu(), w) for g, w in zip(ggrads, wgrads)]
+            loss_err = abs(float(got) - float(want))
+            torch.testing.assert_close(got.cpu(), want, rtol=loss_tol, atol=loss_tol)
+            if max(errs) > grad_tol:
+                raise AssertionError(f"[lm-train] {tag} grads card vs CPU: relative errors "
+                                     f"{errs} past {grad_tol}")
+            out[f"card_vs_cpu_{tag}"] = {"loss_abs_err": loss_err, "loss": float(want),
+                                         "grad_rel_fro_max": max(errs), "grad_rel_fro": errs,
+                                         "loss_tol": loss_tol, "grad_tol": grad_tol,
+                                         "cpu_s": cpu_s}
+            log(f"[lm-train] card against CPU, value_and_grad of train_loss B={LM_CPU_B} "
+                f"S={LM_CPU_S} {tag} (layers {LM_TRAIN_LAYERS}, widths of {cfg.name}, TF32 off): "
+                f"loss {float(want):.6f}, abs err {loss_err:.3g} (rtol = atol = {loss_tol}); "
+                f"{len(errs)} grad leaves, relative Frobenius error max {max(errs):.3g} (bar "
+                f"{grad_tol}) (CPU {cpu_s:.1f} s) [{card}]")
+        del cpu_params, wgrads, ggrads
+
+        # 2. remat against no remat, 2 layers at the training shape
+        a = build_model(cfg2)
+        big = {k: v.cuda() for k, v in make_lm_batch(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_S, global_batch=LM_TRAIN_B), 0).items()}
+        runs = {}
+        for remat in (True, False):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss, grads = lm_value_and_grad(torch, a, params, big, remat=remat,
+                                            loss_chunk=min(2048, LM_TRAIN_S))
+            torch.cuda.synchronize()
+            runs[remat] = (loss, grads, (torch.cuda.max_memory_allocated() - base) / 1e9)
+        errs = [rel_fro(torch, g, w) for g, w in zip(runs[True][1], runs[False][1])]
+        if not torch.equal(runs[True][0], runs[False][0]) or max(errs) > LM_TRAIN_REMAT_REL:
+            raise AssertionError(f"[lm-train] remat changed the numbers: losses "
+                                 f"{float(runs[True][0])} / {float(runs[False][0])}, grads {errs}")
+        out["remat"] = {"loss": float(runs[True][0]), "grad_rel_fro_max": max(errs),
+                        "extra_peak_gb_remat": runs[True][2],
+                        "extra_peak_gb_no_remat": runs[False][2]}
+        log(f"[lm-train] remat against no remat at {LM_TRAIN_LAYERS} layers, B={LM_TRAIN_B} "
+            f"S={LM_TRAIN_S} bf16: losses bit-equal ({float(runs[True][0]):.6f}), grads "
+            f"relative Frobenius error max {max(errs):.3g} (bar {LM_TRAIN_REMAT_REL}); peak "
+            f"memory above the params {runs[True][2]:.2f} GB with remat, {runs[False][2]:.2f} GB "
+            f"without [{card}]")
+        del params, big, runs, grads, loss
+
+        # 3. full width, 22 layers: LM_TRAIN_STEPS AdamW steps from LMIterator
+        gc.collect()
+        torch.cuda.empty_cache()
+        b, s = LM_TRAIN_B, LM_TRAIN_S
+        api = build_model(cfg)
+        tc = TrainConfig(learning_rate=1e-3, total_steps=LM_TRAIN_STEPS, loss_chunk=min(2048, s))
+        state = init_train_state(api.init(torch.Generator("cuda").manual_seed(0), device="cuda"),
+                                 tc)
+        n_params = sum(t.numel() for t in tree_leaves(state.params))
+        step = build_train_step(api, tc)
+        it = LMIterator(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b))
+        t0 = time.perf_counter()
+        host_batches = [host_slice(next(it)) for _ in range(LM_TRAIN_STEPS + 1)]
+        data_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for hb in host_batches[:LM_TRAIN_STEPS]:
+            batch = {k: v.to("cuda") for k, v in hb.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[lm-train] a loss is not finite: {losses}")
+        steady = ms[1:]
+        mean_ms, median_ms = statistics.mean(steady), statistics.median(steady)
+        flops, nbytes = lm_train_bound(cfg, b, s, n_params)
+        bound_ms, bound_by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
+        last = {k: v.to("cuda") for k, v in host_batches[-1].items()}
+        holder = {"state": state}
+        del state
+
+        def one_step():
+            holder["state"], _ = step(holder["state"], last)
+
+        busy = device_busy_over(torch, one_step, names=True)
+        library = [n for n in busy.pop("names")
+                   if any(k in n for k in ("scaled_dot_product", "fmha", "flash"))]
+        out.update({
+            "params": n_params, "batch": b, "seq_len": s, "steps": LM_TRAIN_STEPS,
+            "ms": ms, "losses": losses, "ms_per_step_mean": mean_ms,
+            "ms_per_step_median": median_ms, "tokens_per_s": b * s / (mean_ms / 1e3),
+            "data_ms_per_batch": data_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops": flops, "bytes": nbytes, "peak_memory_gb": peak_gb,
+            "profiled_step": busy, "library_attention_names": library})
+        log(f"[lm-train] {cfg.name} at full width ({n_params:,} params, f32 master weights, "
+            f"bf16 compute, remat={tc.remat}, AdamW f32), B={b} S={s}, loss_chunk "
+            f"{tc.loss_chunk}: {LM_TRAIN_STEPS} steps from LMIterator, losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)} (all finite); first step {ms[0]:.1f} ms, "
+            f"steps 2-{LM_TRAIN_STEPS} mean {mean_ms:.1f} ms, median {median_ms:.1f} ms, "
+            f"{b * s / (mean_ms / 1e3):,.0f} tokens/s; LMIterator on the host "
+            f"{data_ms:.1f} ms a batch (outside the timed step) [{card}]")
+        log(f"[lm-train] bound {bound_ms:.2f} ms a step by {bound_by} ({flops / 1e12:.2f} TFLOP "
+            f"at the bf16 dense peak against {nbytes / 1e9:.1f} GB of state at HBM bandwidth, "
+            f"{nbytes / PEAK_BYTES * 1e3:.2f} ms); {mean_ms / bound_ms:.1f}x the bound, "
+            f"{flops / (mean_ms / 1e3) / 1e12:.1f} TFLOP/s achieved; peak memory {peak_gb:.2f} "
+            f"GB (torch.cuda.max_memory_allocated) [{card}]")
+        log(f"[lm-train] one profiled step: {busy['wall_ms']:.1f} ms, {busy['device_ops']} device "
+            f"kernels/copies/memsets, the device busy {busy['device_busy_ms']:.1f} ms (idle share "
+            f"{busy['idle_share']:.3f}); library attention ops or kernels seen: "
+            f"{library or 'none'} [{card}]")
+        top = list(busy["device_ms_by_name"].items())[:8]
+        log(f"[lm-train] the profiled step's device time by kernel, the largest 8 of "
+            f"{len(busy['device_ms_by_name'])} names: " + "; ".join(
+                f"{name[:72]} {t:.1f} ms ({t / busy['device_busy_ms']:.1%})" for name, t in top)
+            + f" [{card}]")
+        del holder, last, host_batches, step, batch, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        F.scaled_dot_product_attention = sdpa
+    counts = launch_counts()
+    if any(counts.values()) or sdpa_calls[0] or library:
+        raise AssertionError(f"[lm-train] the LM training path launched port kernels {counts} "
+                             f"or library attention ({sdpa_calls[0]} SDPA calls, {library}); "
+                             f"it runs neither")
+    out["port_kernel_launches"], out["sdpa_calls"] = dict(counts), sdpa_calls[0]
+    log(f"[lm-train] port kernel launches over the phase {dict(counts)}, "
+        f"scaled_dot_product_attention calls {sdpa_calls[0]}: none, as the reference's "
+        f"transformer trains through plain jnp [{card}]")
+
+    # 4. the launcher twice over one checkpoint directory
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out["launcher"] = []
+    with tempfile.TemporaryDirectory() as ckpt:
+        for steps in LM_TRAIN_LAUNCH_STEPS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+                   "--full-config", "--steps", str(steps), "--batch", str(b), "--seq-len",
+                   str(s), "--ckpt-every", str(LM_TRAIN_CKPT_EVERY), "--ckpt-dir", ckpt]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, env=env,
+                                  cwd=ROOT)
+            wall = time.perf_counter() - t0
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[train]")]
+            done = re.search(r"done: ([\d.]+)s, ([\d,]+) tok/s", proc.stdout)
+            if proc.returncode != 0 or done is None or "nan" in proc.stdout:
+                raise AssertionError(f"launch.train --steps {steps} (rc {proc.returncode}): "
+                                     f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+            ckpt_gb = sum(f.stat().st_size for f in Path(ckpt).rglob("*") if f.is_file()) / 1e9
+            out["launcher"].append({"steps": steps, "wall_s": wall, "lines": lines,
+                                    "loop_s": float(done.group(1)),
+                                    "tokens_per_s": float(done.group(2).replace(",", "")),
+                                    "ckpt_dir_gb": ckpt_gb})
+            for ln in lines:
+                log(f"[lm-train] launcher: {ln} [{card}]")
+            log(f"[lm-train] launcher {' '.join(cmd[3:-2])}: rc 0 in {wall:.1f} s; checkpoint "
+                f"directory {ckpt_gb:.1f} GB [{card}]")
+    first, second = (r["lines"] for r in out["launcher"])
+    resumed = f"[train] resumed from step {LM_TRAIN_LAUNCH_STEPS[0]}"
+    if any("resumed" in ln for ln in first) or resumed not in second:
+        raise AssertionError(f"[lm-train] the launcher did not resume: {first} {second}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm-train] the second launcher run printed '{resumed}'; phase {out['phase_s']:.1f} s "
+        f"[{card}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every measurement to this file")
@@ -3209,6 +3500,9 @@ def main(argv=None) -> int:
     if main_launches != main["requests"] * measured:
         raise AssertionError(f"the main path counted {main_launches} K1 launches over "
                              f"{main['requests']} requests; the device ran {measured} per request")
+    # after the profiled passes above: a profiled train step records over
+    # 10,000 device kernels, and the K1 counts above must not follow it
+    drive_lm_train(torch, results, card)
 
     kernels = {"kernels": [{
         "name": "lstm_cell",

@@ -14,7 +14,7 @@ package restores in the other.  ``treedef`` in ``meta.json`` describes the
 tree for a reader and is never parsed; restores follow the target's
 structure.  Only whole, unsharded leaves are restored: restoring onto
 sharded placements comes with the sharded train step (``ROADMAP.md``,
-queue 1, item 11).
+queue 1, item 11g).
 """
 from __future__ import annotations
 
@@ -229,11 +229,11 @@ def restore_checkpoint(
     arrays, whose shapes must match).  Each leaf comes back as a tensor of
     its saved dtype, on the target leaf's device (the CPU for an array).
     ``shardings`` (a placement per leaf) is refused until the sharded
-    train step exists (``ROADMAP.md``, queue 1, item 11)."""
+    train step exists (``ROADMAP.md``, queue 1, item 11g)."""
     if shardings is not None:
         raise NotImplementedError(
             "restoring onto sharded placements is not ported yet: it comes "
-            "with the sharded train step, ROADMAP.md, queue 1, item 11"
+            "with the sharded train step, ROADMAP.md, queue 1, item 11g"
         )
     path = Path(path)
     with np.load(path / "leaves.npz") as data:

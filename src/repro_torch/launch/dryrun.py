@@ -13,7 +13,7 @@ measured on a GPU.
 Any ``data=N`` is reported, as the reference does: the report needs no
 device.  The reference's dry-run of compiled
 cells (``lower_cell``, ``run_cell``) reads XLA programs and belongs to
-the LM families, item 11: without ``--placement`` this launcher exits
+the LM families, item 11g: without ``--placement`` this launcher exits
 naming it.
 """
 from __future__ import annotations
@@ -28,7 +28,7 @@ from repro_torch.core.latency import PAPER_RH_M, serving_floor_ms
 from repro_torch.engine import Placement
 from repro_torch.gateway.queue import bucket_for
 
-CELLS_ITEM = "ROADMAP.md, queue 1, item 11 (compiled cells of the LM families)"
+CELLS_ITEM = "ROADMAP.md, queue 1, item 11g (compiled cells of the LM families)"
 
 
 def placement_report(args) -> dict:

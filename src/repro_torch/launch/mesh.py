@@ -4,7 +4,7 @@ Counterpart of ``make_host_mesh`` in ``repro/launch/mesh.py``, returning
 the port's :class:`~repro_torch.engine.placement.DeviceMesh`.  A function,
 never a module-level constant: importing this module touches no device.
 The reference's ``make_production_mesh`` (16x16 and larger) comes with the
-LM families (``ROADMAP.md``, queue 1, item 11).
+LM families (``ROADMAP.md``, queue 1, item 11g).
 """
 from __future__ import annotations
 

@@ -1,18 +1,21 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train --arch <id>``.
 
-Counterpart of the LSTM-AE path of ``repro/launch/train.py``: the config
-registry, the train step (autograd + AdamW, ``--grad-compression``), the
-checkpointable ``TimeseriesIterator`` of benign windows, async
-checkpoints every ``--ckpt-every`` steps with a resume from the newest
-one in ``--ckpt-dir`` (params, optimizer state and the iterator's
-position), and a heartbeat monitor that names stragglers.
+Counterpart of ``repro/launch/train.py``: the config registry, the train
+step (autograd + AdamW, ``--grad-compression``), the data pipeline (the
+checkpointable ``TimeseriesIterator`` of benign windows for the LSTM-AE,
+``LMIterator`` for an LM, each batch sliced per process by
+``host_slice``), async checkpoints every ``--ckpt-every`` steps with a
+resume from the newest one in ``--ckpt-dir`` (params, optimizer state and
+the iterator's position), and a heartbeat monitor that names stragglers.
+An LM trains with per-layer recompute (``TrainConfig.remat="layer"``) and
+``loss_chunk=min(2048, seq_len)``; the vision stub trains on text, as the
+reference's iterator gives no ``image_embeds``.
 
-Only the four LSTM-AE models train: an LM ``--arch`` exits naming
-ROADMAP.md, queue 1, item 11b (LM training).  One device: the GPU by default (raises without one),
-``--device cpu`` on request.  The reference builds a production mesh and
-shards its step only at 256 devices or more (``pick_mesh``); that mesh and
-the sharded step come with the LM families' sharding rules (``ROADMAP.md``,
-queue 1, item 11).
+One device: the GPU by default (raises without one), ``--device cpu`` on
+request.  The reference builds a production mesh and shards its step only
+at 256 devices or more (``pick_mesh``); that mesh and the sharded step
+come with the LM families' sharding rules (``ROADMAP.md``, queue 1, item
+11g).
 """
 from __future__ import annotations
 
@@ -26,12 +29,41 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import AsyncCheckpointer, latest_checkpoint, restore_checkpoint
 from repro_torch.config import TrainConfig, get_config, list_archs, reduced_config
-from repro_torch.core.lstm import init_lstm_ae
-from repro_torch.data import TimeseriesConfig, TimeseriesIterator
+from repro_torch.data import (
+    LMDataConfig,
+    LMIterator,
+    TimeseriesConfig,
+    TimeseriesIterator,
+    host_slice,
+)
 from repro_torch.distributed import HeartbeatMonitor
 from repro_torch.models import build_model
 from repro_torch.training import build_train_step, init_train_state
 from repro_torch.utils import tree_leaves
+
+SHARDING_ITEM = "ROADMAP.md, queue 1, item 11g (the production mesh and the sharded step)"
+
+
+def pick_mesh():
+    """The reference's production mesh needs 256 devices or more; below
+    that it trains on one device (``None``)."""
+    if torch.cuda.device_count() >= 256:
+        raise NotImplementedError(f"a production training mesh is not ported yet: {SHARDING_ITEM}")
+    return None
+
+
+def make_iterator(cfg, args):
+    """(iterator, batch builder) for ``cfg``'s family, as the reference's."""
+    if cfg.family == "lstm_ae":
+        it = TimeseriesIterator(TimeseriesConfig(
+            features=cfg.lstm_ae.input_features, seq_len=args.seq_len,
+            batch=args.batch, anomaly_rate=0.0,
+        ))
+        return it, lambda b: {"series": b[0]}
+    it = LMIterator(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq_len, global_batch=args.batch,
+    ))
+    return it, lambda b: b
 
 
 def main(argv=None) -> None:
@@ -55,23 +87,19 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    if cfg.family != "lstm_ae":
-        raise SystemExit(f"{args.arch}: LM training is not ported yet: ROADMAP.md, "
-                         f"queue 1, item 11b")
+    api = build_model(cfg)
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      grad_compression=args.grad_compression,
                      loss_chunk=min(2048, args.seq_len))
-    params = init_lstm_ae(torch.Generator().manual_seed(0), cfg, device)
-    state = init_train_state(params, tc)
+    pick_mesh()   # raises at 256 devices or more, as not ported yet
+    # the LSTM-AE draws on the CPU and moves its params; an LM draws on its device
+    gen_device = "cpu" if cfg.family == "lstm_ae" else device
+    state = init_train_state(api.init(torch.Generator(gen_device).manual_seed(0), device), tc)
     n_params = sum(p.numel() for p in tree_leaves(state.params))
     print(f"[train] {cfg.name}: {n_params:,} params, mesh=none, device={device}", flush=True)
 
-    api = build_model(cfg)
     step_fn = build_train_step(api, tc)
-    it = TimeseriesIterator(TimeseriesConfig(
-        features=cfg.lstm_ae.input_features, seq_len=args.seq_len,
-        batch=args.batch, anomaly_rate=0.0,
-    ))
+    it, to_batch = make_iterator(cfg, args)
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                              f"repro_torch_ckpt_{args.arch}")
     ckpt = AsyncCheckpointer(ckpt_dir, keep=3)
@@ -87,7 +115,8 @@ def main(argv=None) -> None:
     t_start = time.perf_counter()
     for step in range(start, args.steps):
         t0 = time.perf_counter()
-        batch = {"series": next(it)[0].to(device)}
+        batch = host_slice(to_batch(next(it)))
+        batch = {k: v.to(device) for k, v in batch.items()}
         state, metrics = step_fn(state, batch)
         monitor.report("host0", time.perf_counter() - t0)
         if step % 10 == 0 or step == args.steps - 1:

@@ -11,9 +11,10 @@ Counterpart of ``repro/models/api.py``.  ``build_model(cfg)`` returns a
 - decode(params, token, cache, cache_len) -> (logits, cache)
 - init_cache(batch, max_len, device=None) -> decode state
 
-The port builds the "transformer" (dense) and "lstm_ae" families.  The
-others raise ``NotImplementedError`` naming the ROADMAP item that ports
-them, and so does the transformer's ``loss`` until LM training is ported.
+The port builds the "transformer" (dense) and "lstm_ae" families; the
+transformer's ``loss`` is ``train_loss`` (a MoE config raises naming item
+11c).  The others raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 The reference's ``param_specs``/``cache_specs`` (sharding) and its
 ``input_specs``/``cache_struct``/``param_struct`` (the dry-run launcher)
 come with ROADMAP.md, queue 1, item 11g.
@@ -37,7 +38,6 @@ UNPORTED_FAMILIES = {
     "jamba": "ROADMAP.md, queue 1, item 11e (models/jamba.py, layers/mamba.py)",
     "whisper": "ROADMAP.md, queue 1, item 11f (models/whisper.py)",
 }
-LM_TRAINING_ITEM = "ROADMAP.md, queue 1, item 11b (LM training)"
 
 
 @dataclass(frozen=True)
@@ -50,19 +50,12 @@ class ModelAPI:
     init_cache: Optional[Callable[..., Params]]
 
 
-def _transformer_loss(cfg: ModelConfig):
-    def loss(params, batch, **_):
-        raise NotImplementedError(
-            f"{cfg.name}: the transformer's train loss is not ported yet: {LM_TRAINING_ITEM}")
-    return loss
-
-
 def build_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "transformer":
         return ModelAPI(
             cfg=cfg,
             init=lambda gen, device=None: tf_m.init_transformer(gen, cfg, resolve_device(device)),
-            loss=_transformer_loss(cfg),
+            loss=lambda p, b, **kw: tf_m.train_loss(p, b, cfg, **kw),
             prefill=lambda p, b, **kw: tf_m.prefill(p, b, cfg, **kw),
             decode=lambda p, t, c, n: tf_m.decode_step(p, t, c, n, cfg),
             init_cache=lambda batch, max_len, device=None: tf_m.init_decode_cache(

@@ -4,16 +4,22 @@ Counterpart of ``repro/models/transformer.py`` for the dense configs
 (olmo / phi4-mini / tinyllama / internlm2 / phi-3-vision's backbone).  The
 layers' params are stacked along a leading layer dim, the reference's
 ``vmap`` layout ``(L, ...)``, and run in a Python loop over that dim (the
-reference's ``lax.scan``).  A config with ``moe`` set raises: the MoE layer
-is ROADMAP.md, queue 1, item 11c.  ``train_loss`` comes with LM training
-(item 11b); ``remat`` and ``bwd_constrain`` only matter there and are
-accepted and ignored here.
+reference's ``lax.scan``).  ``forward`` takes each layer's params from one
+``torch.unbind`` of every stacked leaf, whose backward stacks the layer
+grads once; with ``remat`` and grad enabled each layer runs under a
+non-reentrant ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint(layer_fn)``), so the backward holds one layer's
+activations at a time.  ``train_loss`` is the next-token loss through
+``chunked_xent_loss``.  A config with ``moe`` set raises: the MoE layer is
+ROADMAP.md, queue 1, item 11c.  ``bwd_constrain`` only pins a sharding in
+the reference, which comes with item 11g; it is not read here.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.core import ModelConfig
 from repro_torch.layers.attention import (
@@ -23,6 +29,7 @@ from repro_torch.layers.attention import (
     init_kv_cache,
 )
 from repro_torch.layers.embeddings import (
+    chunked_xent_loss,
     embed_tokens,
     init_embedding,
     init_unembed,
@@ -80,6 +87,27 @@ def _layer(params: Params, i: int) -> Params:
     return tree_map(lambda a: a[i], params["layers"])
 
 
+def _unstack(tree: Params, n: int) -> list[Params]:
+    """A dict tree of stacked (n, ...) leaves -> n trees of views, from one
+    ``unbind`` per leaf: its backward stacks the n layer grads once, where
+    ``a[i]`` per layer would scatter each into a zeroed full-stack buffer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _layer_fn(lp: Params, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+              causal: bool, kv_chunk: int, q_chunks: int):
+    hn = apply_norm(lp["ln1"], h, cfg.norm)
+    attn_out, kv = apply_attention(
+        lp["attn"], hn, cfg=cfg, causal=causal, positions=positions,
+        kv_chunk=kv_chunk, q_chunks=q_chunks, return_kv=True)
+    h = h + attn_out
+    hn = apply_norm(lp["ln2"], h, cfg.norm)
+    return h + apply_mlp(lp["mlp"], hn, cfg), kv
+
+
 def forward(
     params: Params,
     h: torch.Tensor,
@@ -96,21 +124,19 @@ def forward(
 
     Returns (h, aux_loss) or, with ``collect_cache``, (h, aux, {"k","v"}
     stacked (L, B, S, Hkv, hd)) for prefill.  The dense stack's aux loss is
-    0; ``remat`` is the reference's training option and has no effect here.
+    0.  ``remat`` recomputes each layer in the backward (only when grad is
+    enabled: without it nothing is saved anyway).
     """
     _require_dense(cfg)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
+    layer_args = (positions, cfg, causal, kv_chunk, q_chunks)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
-        hn = apply_norm(lp["ln1"], h, cfg.norm)
-        attn_out, (k, v) = apply_attention(
-            lp["attn"], hn, cfg=cfg, causal=causal, positions=positions,
-            kv_chunk=kv_chunk, q_chunks=q_chunks, return_kv=True)
-        h = h + attn_out
-        hn = apply_norm(lp["ln2"], h, cfg.norm)
-        h = h + apply_mlp(lp["mlp"], hn, cfg)
+    for lp in _unstack(params["layers"], cfg.num_layers):
+        if remat and torch.is_grad_enabled():
+            h, (k, v) = checkpoint(_layer_fn, lp, h, *layer_args, use_reentrant=False)
+        else:
+            h, (k, v) = _layer_fn(lp, h, *layer_args)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -128,6 +154,31 @@ def embed_inputs(params: Params, batch: dict, cfg: ModelConfig, dtype) -> torch.
         img = batch["image_embeds"].to(dtype)  # (B, P, D) precomputed patches
         h = torch.cat([img, h], dim=1)
     return h
+
+
+def train_loss(
+    params: Params,
+    batch: dict,
+    cfg: ModelConfig,
+    *,
+    remat: bool = True,
+    loss_chunk: int = 2048,
+    kv_chunk: int = 1024,
+    q_chunks: int = 1,
+    aux_weight: float = 0.01,
+) -> tuple[torch.Tensor, dict]:
+    """Next-token LM loss.  batch: tokens (B, S), labels (B, S) [-1 = pad],
+    optionally image_embeds (B, P, D) under the vision stub, whose P patch
+    positions get label -1.  Returns (total, {"xent", "aux"})."""
+    h = embed_inputs(params, batch, cfg, _dtype(cfg))
+    labels = batch["labels"]
+    if cfg.frontend == "vision_stub" and "image_embeds" in batch:
+        pad = torch.full((labels.shape[0], batch["image_embeds"].shape[1]), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    h, aux = forward(params, h, cfg, remat=remat, kv_chunk=kv_chunk, q_chunks=q_chunks)
+    loss = chunked_xent_loss(_unembed_w(params, cfg), h, labels, chunk=loss_chunk)
+    return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
 
 def prefill(

@@ -4,11 +4,14 @@ accumulation and int8 + error-feedback gradient compression.
 Counterpart of ``repro/training/step.py``.  The reference differentiates
 with ``jax.value_and_grad`` through plain JAX ops (no kernel, no
 ``custom_vjp``); here autograd runs through plain PyTorch ops on the
-params' device.  The step is eager and unsharded: a ``mesh`` or sharding
-``rules`` raise.  The reference shards its step only over a mesh that
-``launch/train.py::pick_mesh`` builds at 256 devices or more, with the LM
-families' rules (``distributed/sharding.py``), so the sharded step waits
-for them (``ROADMAP.md``, queue 1, item 11).
+params' device.  It takes the LSTM-AE's tree (tuples of layers) and the
+LM's (stacked layer leaves, a tied table read twice) alike: grads come
+back per leaf, accumulated in f32 over ``microbatch`` row blocks and
+compressed per leaf under ``int8_ef``.  The step is eager and unsharded:
+a ``mesh`` or sharding ``rules`` raise.  The reference shards its step
+only over a mesh that ``launch/train.py::pick_mesh`` builds at 256
+devices or more, with the LM families' rules (``distributed/sharding.py``),
+so the sharded step waits for them (``ROADMAP.md``, queue 1, item 11g).
 """
 from __future__ import annotations
 
@@ -69,7 +72,7 @@ def build_train_step(api: Any, tc: TrainConfig, mesh=None, rules=None):
         raise NotImplementedError(
             "a train step over a mesh or sharding rules is not ported yet: it "
             "comes with the LM families' sharding rules, ROADMAP.md, queue 1, "
-            "item 11 (the reference builds a training mesh only at 256 devices)")
+            "item 11g (the reference builds a training mesh only at 256 devices)")
     loss_kwargs = dict(remat=(tc.remat != "none"), loss_chunk=tc.loss_chunk)
 
     def grads_of(params: Params, batch: dict) -> tuple[Params, dict]:

@@ -1471,3 +1471,111 @@ def test_captured_greedy_decode_equals_eager(cuda, decode_loop):
     assert captured.captures == 1 and captured.replays == 2 * 6 - 1
     assert eager.captures == 0
 
+
+
+# -- LM training on the card -------------------------------------------------
+
+LM_TRAIN_F32 = dict(rtol=1e-4, atol=1e-5)   # tests/test_torch_lm_training.py's f32 bar
+LM_TRAIN_BF16_LOSS = 6e-2
+LM_TRAIN_BF16_GRAD_REL = 5e-2               # relative Frobenius error per grad leaf
+
+
+def _lm_value_and_grad(api, params, batch, **kw):
+    """(loss, grads in tree_leaves order) of ``api.loss``."""
+    from repro_torch.utils import tree_map
+
+    leaves = []
+    tracked = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
+    tree_map(leaves.append, tracked)
+    loss, _ = api.loss(tracked, batch, **kw)
+    grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+    return loss.detach(), [grads[id(p)] for p in tree_leaves(tracked)]
+
+
+def _lm_setup(arch, dtype, device, b=2, s=12):
+    from repro_torch.config import reduced_config
+    from repro_torch.data import LMDataConfig, make_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_map
+
+    api = build_model(reduced_config(arch).with_overrides(compute_dtype=dtype))
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = make_lm_batch(LMDataConfig(vocab_size=api.cfg.vocab_size, seq_len=s,
+                                       global_batch=b), 0)
+    batch["labels"][:, -2:] = -1
+    if api.cfg.frontend == "vision_stub":
+        batch["image_embeds"] = torch.randn(b, api.cfg.vision_patches, api.cfg.d_model,
+                                            generator=torch.Generator().manual_seed(1))
+    on = tree_map(lambda t: t.to(device), params), {k: v.to(device) for k, v in batch.items()}
+    return api, (params, batch), on
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "olmo-1b", "phi-3-vision-4.2b"])
+def test_lm_train_loss_card_matches_cpu(cuda, arch, dtype):
+    """``train_loss`` and every grad leaf on the card against the CPU (TF32
+    off): f32 at the CPU parity bar, bf16 the loss at 6e-2 and each grad
+    leaf by relative Frobenius error; olmo-1b ties its table."""
+    api, cpu, card = _lm_setup(arch, dtype, cuda)
+    want, wgrads = _lm_value_and_grad(api, *cpu, loss_chunk=5)
+    got, ggrads = _lm_value_and_grad(api, *card, loss_chunk=5)
+    if dtype == "float32":
+        torch.testing.assert_close(got.cpu(), want, **LM_TRAIN_F32)
+        for g, w in zip(ggrads, wgrads):
+            torch.testing.assert_close(g.cpu(), w, **LM_TRAIN_F32)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=LM_TRAIN_BF16_LOSS,
+                                   atol=LM_TRAIN_BF16_LOSS)
+        errs = [float(torch.linalg.vector_norm(g.cpu() - w) / torch.linalg.vector_norm(w))
+                for g, w in zip(ggrads, wgrads)]
+        assert max(errs) < LM_TRAIN_BF16_GRAD_REL, errs
+
+
+@pytest.mark.cuda
+def test_lm_remat_on_card(cuda):
+    """Per-layer recompute on the card: the same loss bit for bit, the
+    grads within 1e-5 relative (the table's gather backward accumulates
+    in an order of its own)."""
+    api, _, card = _lm_setup("tinyllama-1.1b", "bfloat16", cuda)
+    lr, gr = _lm_value_and_grad(api, *card, remat=True, loss_chunk=5)
+    ln, gn = _lm_value_and_grad(api, *card, remat=False, loss_chunk=5)
+    assert torch.equal(lr, ln)
+    for a, b in zip(gr, gn):
+        assert float(torch.linalg.vector_norm(a - b)) <= 1e-5 * float(torch.linalg.vector_norm(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [{}, {"microbatch": 2}, {"grad_compression": "int8_ef"}])
+def test_lm_train_step_card_matches_cpu(cuda, form):
+    """One AdamW step of the reduced tinyllama in f32 (plain, microbatched,
+    int8_ef) on the card against the CPU: metrics at rtol 1e-5, params at
+    atol 1e-6 except where the CPU's |g| is below 100 eps (AdamW's first
+    update g/(|g|+eps) turns on the grads' last bits there: one update,
+    2 lr) or an int8 level flipped (at most 0.1% of the elements)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.training import build_train_step, init_train_state
+
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10, loss_chunk=8, **form)
+    api, cpu, card = _lm_setup("tinyllama-1.1b", "float32", cuda, b=4, s=16)
+    step = build_train_step(api, tc)
+    want, wm = step(init_train_state(cpu[0], tc), cpu[1])
+    got, gm = step(init_train_state(card[0], tc), card[1])
+    for k in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(gm[k].cpu(), wm[k], rtol=1e-5, atol=0)
+    lr = float(wm["lr"])
+    flips = ([(e.cpu() - w).abs() > 1e-7 for e, w in zip(tree_leaves(got.ef), tree_leaves(want.ef))]
+             if want.ef is not None else None)
+    if flips is not None:
+        assert sum(int(f.sum()) for f in flips) <= 1e-3 * sum(f.numel() for f in flips)
+    for n, (p, w, mu) in enumerate(zip(tree_leaves(got.params), tree_leaves(want.params),
+                                       tree_leaves(want.opt.mu))):
+        diff = (p.cpu() - w).abs()
+        tiny = mu.abs() / (1 - tc.beta1) < 1e-6
+        if flips is not None:
+            tiny = tiny | flips[n]
+        assert _max0(diff[~tiny]) <= 1e-6 and _max0(diff[tiny]) <= 2 * lr
+
+
+def _max0(t) -> float:
+    return float(t.max()) if t.numel() else 0.0

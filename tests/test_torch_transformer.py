@@ -304,12 +304,17 @@ def test_build_model_refuses_unported_families(family):
 
 
 def test_moe_and_lm_loss_raise():
+    """The MoE config raises naming item 11c; the dense LM's loss is
+    ported (tests/test_torch_lm_training.py) and comes back finite."""
     cfg = reduced_config("tinyllama-1.1b")
     moe = cfg.with_overrides(moe=MoEConfig(4, 2))
     with pytest.raises(NotImplementedError, match="item 11c"):
         build_model(moe).init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        build_model(cfg).loss({}, {})
+    api = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    loss, metrics = api.loss(api.init(torch.Generator().manual_seed(0), device="cpu"),
+                             {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert loss.shape == () and torch.isfinite(loss) and set(metrics) == {"xent", "aux"}
 
 
 # ---------------- the model ----------------
