@@ -157,7 +157,23 @@ toolkit.  It
    ``scaled_dot_product_attention`` call over the phase; the launcher
    ``train --arch tinyllama-1.1b --full-config`` for 6 steps with a
    checkpoint every 3 and again for 8 over the same directory, which
-   resumes from step 6.
+   resumes from step 6;
+13. drives the MoE transformer at full width, after ``[lm-train]`` (``[moe]``
+   lines): moonshot-v1-16b-a3b cut to 2 layers, card against CPU on one
+   prompt (B=1, S=32) in f32 (TF32 off, 1e-4) and bf16 (6e-2) at every
+   position's logits and greedy token (ties within two ulps counted, not
+   held), each layer's routing agreement, and one value_and_grad of
+   ``train_loss`` (the [lm-train] bars); one decode step against the
+   prefill (B=2, S=64, f32, capacity_factor 16) by greedy token; moonshot
+   served at 24 of its 48 layers and dbrx-132b at 2 of its 40: prefill at
+   B=8, S=2048 (drop share and aux per layer), 128 (dbrx: 32) greedy
+   tokens eager and captured with identical tokens, ms beside the bounds
+   (the experts the run routed to, and every expert), launch calls and
+   device kernels per token, peak memory; moonshot at 2 layers trained 6
+   AdamW steps at B=4, S=2048 (ms a step beside the bound, xent and aux
+   per step, peak memory); ``serve`` and ``train --steps 4`` for
+   moonshot at their reduced default as subprocesses; no K1-K4 launch and
+   no ``scaled_dot_product_attention`` call over the phase.
 
 The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
@@ -169,6 +185,7 @@ measurement to PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -314,6 +331,27 @@ LM_TRAIN_BF16_GRAD_REL = 5e-2
 LM_TRAIN_REMAT_REL = 1e-5
 LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 4, 2048, 8
 LM_TRAIN_LAUNCH_STEPS, LM_TRAIN_CKPT_EVERY = (6, 8), 3
+# the MoE transformer at full width (``[moe]`` lines): moonshot-v1-16b-a3b
+# (src/repro_torch/configs/moonshot_v1_16b_a3b.py: 48 layers, d_model 2048,
+# 16 heads of 128, 64 experts of d_ff 1408, top-6, vocab 163,840; one layer
+# is 570.6e6 f32 params, 2.28 GB) and dbrx-132b (40 layers, d_model 6144,
+# 48 heads / 8 kv heads of 128, 16 experts of d_ff 10,752, top-4, vocab
+# 100,352; one layer 13.04 GB), params in f32 drawn on the card from seed 0.
+# Widths are never cut; depth is: card against CPU (B=1, S=32, the [lm]
+# bars) and decode against prefill (B=2, S=64, capacity_factor 16) at
+# MOE_CHECK_LAYERS layers; moonshot served at MOE_SERVE_LAYERS of its 48
+# (57.45 GB of params; with the prefill's transients or the captured decode's
+# two caches the reckoned peak is about 66 GB) and dbrx at MOE_DBRX_LAYERS of
+# its 40 (31.0 GB); moonshot trained at MOE_TRAIN_LAYERS layers (29 GB of
+# params, grads and AdamW moments).
+MOE_ARCH, MOE_DBRX_ARCH = "moonshot-v1-16b-a3b", "dbrx-132b"
+MOE_CHECK_LAYERS, MOE_SERVE_LAYERS, MOE_DBRX_LAYERS, MOE_TRAIN_LAYERS = 2, 24, 2, 2
+MOE_CONSISTENCY_CF = 16.0
+MOE_SERVE_B, MOE_SERVE_S, MOE_DECODE, MOE_DBRX_DECODE = 8, 2048, 128, 32
+MOE_PROFILE_TOKENS = 2      # decode tokens per profiler pass
+MOE_TOP_KERNELS = 6         # kernel names logged per profiled pass
+MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 2048, 6
+MOE_LAUNCH_TRAIN_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -3421,6 +3459,484 @@ def drive_lm_train(torch, results, card) -> None:
         f"[{card}]")
 
 
+def moe_layer_params(cfg) -> tuple[int, int]:
+    """(params of one MoE transformer layer, those of its experts):
+    attention, norms, router and the experts' gate, up and down."""
+    hd = cfg.resolved_head_dim()
+    attn = 2 * cfg.d_model * cfg.num_heads * hd + 2 * cfg.d_model * cfg.num_kv_heads * hd
+    norms = {"rmsnorm": 2, "layernorm": 4}.get(cfg.norm, 0) * cfg.d_model
+    experts = 3 * cfg.moe.num_experts * cfg.d_model * cfg.d_ff
+    return attn + norms + cfg.d_model * cfg.moe.num_experts + experts, experts
+
+
+def moe_serve_bound(cfg, b: int, s: int, past: int, kept_pairs: float,
+                    touched: float) -> tuple[float, float]:
+    """(FLOP, bytes) of one forward of b x s new tokens after ``past``
+    cached positions with the logits of the last position (a prefill: past
+    0; a decode step: s 1).  FLOP: the attention, router and unembed
+    products, the expert products of the ``kept_pairs`` (token, choice)
+    pairs routed and not dropped (summed over the layers), causal attention
+    over the visible (query, key) pairs.  Bytes: the f32 weights read once,
+    of the experts only the ``touched`` ones (summed over the layers) that
+    received a token, the embedding rows gathered, the bf16 K/V of the past
+    positions read and of the new ones written, the bf16 logits written."""
+    hd, nl, d = cfg.resolved_head_dim(), cfg.num_layers, cfg.d_model
+    layer, experts = moe_layer_params(cfg)
+    one_expert = experts // cfg.moe.num_experts
+    dense = layer - experts                      # attention, norms, router
+    flops = (2.0 * b * s * nl * dense + 2.0 * one_expert * kept_pairs
+             + 4.0 * hd * cfg.num_heads * nl * b * (s * past + s * (s + 1) / 2)
+             + 2.0 * b * d * cfg.vocab_size)
+    nbytes = (4.0 * (nl * dense + one_expert * touched + d * cfg.vocab_size + d)
+              + 4.0 * b * s * d + 2.0 * 2 * nl * b * cfg.num_kv_heads * hd * (past + s)
+              + 2.0 * b * cfg.vocab_size)
+    return flops, nbytes
+
+
+def moe_train_bound(cfg, b: int, s: int, n_params: int, kept_pairs: float) -> tuple[float, float]:
+    """(FLOP, bytes) of one train step: 6 FLOP per product weight per token
+    for the attention, router and unembed products and per expert weight per
+    kept (token, choice) pair, causal attention three times over (forward
+    and the backward's two); the f32 params and AdamW's moments read and
+    written once (24 bytes a param), tokens and labels read once."""
+    hd, nl = cfg.resolved_head_dim(), cfg.num_layers
+    layer, experts = moe_layer_params(cfg)
+    flops = (6.0 * b * s * (nl * (layer - experts) + cfg.d_model * cfg.vocab_size)
+             + 6.0 * (experts // cfg.moe.num_experts) * kept_pairs
+             + 3 * 4.0 * hd * cfg.num_heads * nl * b * s * (s + 1) / 2)
+    return flops, 24.0 * n_params + 2 * 8.0 * b * s
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Every (weights, indices, probs) that ``layers.moe._router`` returns
+    while open, one entry per call (a layer), kept on the device."""
+    from repro_torch.layers import moe as moe_m
+
+    real, calls = moe_m._router, []
+
+    def recorded(params, x, top_k):
+        out = real(params, x, top_k)
+        calls.append(tuple(t.detach() for t in out))
+        return out
+
+    moe_m._router = recorded
+    try:
+        yield calls
+    finally:
+        moe_m._router = real
+
+
+def routing_stats(torch, cfg, calls) -> dict:
+    """Per layer (one router call each): the share of (token, choice) pairs
+    over capacity (dropped), the pairs kept, the distinct experts that
+    received a token, and the layer's aux loss."""
+    from repro_torch.layers.moe import _aux_loss, capacity
+
+    e = cfg.moe.num_experts
+    drop, kept, touched, aux = [], [], [], []
+    for _, idx, probs in calls:
+        counts = torch.bincount(idx.reshape(-1), minlength=e)
+        dropped = int(torch.clamp(counts - capacity(idx.shape[0], cfg), min=0).sum())
+        drop.append(dropped / idx.numel())
+        kept.append(idx.numel() - dropped)
+        touched.append(int((counts > 0).sum()))
+        aux.append(float(_aux_loss(probs, idx, e)))
+    return {"drop_share": drop, "kept_pairs": kept, "touched_experts": touched, "aux": aux}
+
+
+def greedy_decided(torch, logits, ulp_bits: int):
+    """Rows whose top two logits lie more than two ulps of ``ulp_bits``
+    mantissa bits apart (else a tie no order of arithmetic decides)."""
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top2[..., 0].abs().clamp(min=1e-30))) - ulp_bits)
+    return (top2[..., 0] - top2[..., 1]) > 2 * ulp
+
+
+def moe_all_logits(torch, api, params, tokens):
+    """The model's logits at every position (B, S, V): the prefill's forward,
+    unembedded at each position."""
+    from repro_torch.layers.embeddings import unembed_logits
+    from repro_torch.models import transformer as tf_m
+
+    cfg = api.cfg
+    h = tf_m.embed_inputs(params, {"tokens": tokens}, cfg, getattr(torch, cfg.compute_dtype))
+    h, _ = tf_m.forward(params, h, cfg, remat=False)
+    return unembed_logits(params["unembed"]["w"], h)
+
+
+def moe_check_cpu(torch, cfg, params, out, card) -> None:
+    """Card against CPU at MOE_CHECK_LAYERS layers: the logits at every
+    position of one prompt in f32 (TF32 off) and bf16, the routing of each
+    layer, and one value_and_grad of ``train_loss`` in f32 and bf16."""
+    from repro_torch.data import LMDataConfig, make_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_map
+
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    toks = torch.randint(0, cfg.vocab_size, (LM_CPU_B, LM_CPU_S), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    batch = make_lm_batch(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_CPU_S,
+                                       global_batch=LM_CPU_B), 0)
+    for tag, dtype, tol, bits, grad_tol in (
+            ("f32", "float32", LM_F32_TOL, 23, LM_TRAIN_F32_GRAD_REL),
+            ("bf16", "bfloat16", LM_BF16_TOL, 7, LM_TRAIN_BF16_GRAD_REL)):
+        a = build_model(cfg.with_overrides(compute_dtype=dtype))
+        t0 = time.perf_counter()
+        with recorded_routing() as want_routes:
+            want = moe_all_logits(torch, a, cpu_params, toks).float()
+        with recorded_routing() as got_routes:
+            got = moe_all_logits(torch, a, params, toks.cuda()).float().cpu()
+        agree = [float((torch.sort(w[1], -1).values == torch.sort(g[1].cpu(), -1).values)
+                       .all(-1).float().mean()) for w, g in zip(want_routes, got_routes)]
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        decided = greedy_decided(torch, want, bits)
+        if not decided.any() or not torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided]):
+            raise AssertionError(f"[moe] {tag} greedy tokens card vs CPU differ: "
+                                 f"{got.argmax(-1).tolist()} / {want.argmax(-1).tolist()}")
+        want_loss, wgrads = lm_value_and_grad(torch, a, cpu_params, batch, loss_chunk=LM_CPU_S)
+        got_loss, ggrads = lm_value_and_grad(torch, a, params, {k: v.cuda() for k, v in batch.items()},
+                                             loss_chunk=LM_CPU_S)
+        cpu_s = time.perf_counter() - t0
+        errs = [rel_fro(torch, g.cpu(), w) for g, w in zip(ggrads, wgrads)]
+        loss_err = abs(float(got_loss) - float(want_loss))
+        torch.testing.assert_close(got_loss.cpu(), want_loss, rtol=tol, atol=tol)
+        if max(errs) > grad_tol:
+            raise AssertionError(f"[moe] {tag} grads card vs CPU: relative errors {errs} past "
+                                 f"{grad_tol}")
+        out[f"card_vs_cpu_{tag}"] = {
+            "logits_max_abs_err": err, "tol": tol, "greedy_positions": LM_CPU_S,
+            "greedy_ties": int((~decided).sum()), "routing_agree_per_layer": agree,
+            "loss": float(want_loss), "loss_abs_err": loss_err, "grad_rel_fro_max": max(errs),
+            "grad_tol": grad_tol, "s": cpu_s}
+        log(f"[moe] card against CPU, {cfg.name} at {cfg.num_layers} layers (full width) {tag}, "
+            f"B={LM_CPU_B} S={LM_CPU_S}: logits at every position max abs err {err:.3g} (rtol = "
+            f"atol = {tol}); greedy tokens equal at {int(decided.sum())} of {LM_CPU_S} positions, "
+            f"{int((~decided).sum())} within two ulps (ties, not held); routing agreement per "
+            f"layer {', '.join(f'{x:.4f}' for x in agree)}; train_loss {float(want_loss):.6f}, "
+            f"abs err {loss_err:.3g}, {len(errs)} grad leaves, relative Frobenius error max "
+            f"{max(errs):.3g} (bar {grad_tol}) ({cpu_s:.1f} s) [{card}]")
+    del cpu_params, wgrads, ggrads
+
+
+def moe_decode_vs_prefill(torch, cfg, params, out, card) -> None:
+    """Decode against prefill at MOE_CHECK_LAYERS layers, f32 compute, the
+    prefix's K/V stitched into an f32 decode cache, capacity_factor 16:
+    the greedy token of one decode step equals the teacher-forced one."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_decode_cache
+
+    c = cfg.with_overrides(compute_dtype="float32",
+                           moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_CONSISTENCY_CF))
+    api = build_model(c)
+    b, s = LM_CONSISTENCY_B, LM_CONSISTENCY_S
+    toks = torch.randint(0, c.vocab_size, (b, s + 1), dtype=torch.int32, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(2))
+    full, _ = api.prefill(params, {"tokens": toks})
+    _, pre = api.prefill(params, {"tokens": toks[:, :-1]})
+    cache = init_decode_cache(c, b, s + 1, dtype=torch.float32, device="cuda")
+    for name in ("k", "v"):
+        cache[name][:, :, :s].copy_(pre[name])
+    dec, _ = api.decode(params, toks[:, -1:], cache, torch.tensor(s, dtype=torch.int32,
+                                                                  device="cuda"))
+    want, got = full[:, -1].float(), dec[:, -1].float()
+    decided = greedy_decided(torch, want, 23)
+    if not decided.all() or not torch.equal(got.argmax(-1), want.argmax(-1)):
+        raise AssertionError(f"[moe] decode against prefill: greedy {got.argmax(-1).tolist()} "
+                             f"against {want.argmax(-1).tolist()}")
+    err = float((got - want).abs().max())
+    out["decode_vs_prefill"] = {"max_abs_err": err, "tokens": want.argmax(-1).tolist()}
+    log(f"[moe] decode against prefill at B={b} S={s}, {c.num_layers} layers f32 (TF32 off), "
+        f"capacity_factor {MOE_CONSISTENCY_CF:g}, the prefix's K/V stitched into an f32 cache: "
+        f"greedy tokens {want.argmax(-1).tolist()} equal, logits max abs err {err:.3g} [{card}]")
+
+
+def moe_serve(torch, cfg, n: int, out: dict, card) -> None:
+    """``cfg`` served at full width: params drawn on the card, prefill at
+    MOE_SERVE_B x MOE_SERVE_S (routing recorded: drop share and aux per
+    layer), then ``n`` greedy tokens eager and captured from one stitched
+    cache (the decode rewrites only the positions past the prefix): tokens
+    identical; ms beside the bounds, launch calls and device kernels per
+    token, peak memory."""
+    import gc
+
+    from repro_torch.layers.moe import capacity
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, build_prefill_step, stitch_prefill_cache
+    from repro_torch.utils import tree_leaves
+
+    api = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator("cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    out.update({"layers": cfg.num_layers, "params": n_params, "init_s": time.perf_counter() - t0})
+    log(f"[moe] {cfg.name} at full width, {cfg.num_layers} of its layers: {n_params:,} params "
+        f"in f32 ({4 * n_params / 1e9:.2f} GB) drawn on the card from seed 0 in "
+        f"{out['init_s']:.2f} s; compute {cfg.compute_dtype}, decode cache bf16 [{card}]")
+    b, s = MOE_SERVE_B, MOE_SERVE_S
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32, device="cuda",
+                                     generator=torch.Generator("cuda").manual_seed(3))}
+    step = build_prefill_step(api, kv_chunk=LM_KV_CHUNK)
+    prefill_ms = []
+    for call in range(2):       # the first call also loads cuBLAS's kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if call == 0:
+            with recorded_routing() as calls:
+                logits, pre = step(params, batch)
+        else:
+            logits, pre = step(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    routes = routing_stats(torch, cfg, calls)
+    del calls, logits, pre
+    held = {}
+    busy = {"prefill": device_busy_over(torch, lambda: held.update(out=step(params, batch)),
+                                        names=True)}
+    logits, pre = held.pop("out")
+    first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    covered = pre["k"].shape[2]
+    cache = stitch_prefill_cache(api, pre, covered + n)
+    del pre
+    runs, decoders = {}, {"eager": GreedyDecoder(api, jit=False), "captured": GreedyDecoder(api)}
+    for name, decoder in decoders.items():
+        for call in range(2 if name == "captured" else 1):   # captured: capture, then replays
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "eager":
+                with recorded_routing() as calls:
+                    tokens, _ = decoder(params, cache, first, covered, n)
+            else:
+                tokens, _ = decoder(params, cache, first, covered, n)
+            torch.cuda.synchronize()
+            runs.setdefault(name, []).append(((time.perf_counter() - t0) * 1e3, tokens))
+    decode_routes = routing_stats(torch, cfg, calls)
+    del calls
+    if not all(torch.equal(t, runs["eager"][0][1]) for _, t in runs["captured"]):
+        raise AssertionError(f"[moe] {cfg.name}: captured greedy tokens differ from the eager "
+                             f"loop's")
+    if decoders["captured"].captures != 1:
+        raise AssertionError(f"[moe] {decoders['captured'].captures} decode captures, expected 1")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    pf_flops, pf_bytes = moe_serve_bound(cfg, b, s, 0, sum(routes["kept_pairs"]),
+                                         sum(routes["touched_experts"]))
+    pf_bound, pf_by = bound_of(pf_flops, pf_bytes, PEAK_BF16_FLOPS)
+    mid = covered + n // 2
+    pairs = b * cfg.moe.top_k * cfg.num_layers
+    touched = sum(decode_routes["touched_experts"]) / n          # a token's, over the layers
+    dc_flops, dc_bytes = moe_serve_bound(cfg, b, 1, mid, pairs, touched)
+    dc_bound, dc_by = bound_of(dc_flops, dc_bytes, PEAK_BF16_FLOPS)
+    all_flops, all_bytes = moe_serve_bound(cfg, b, 1, mid, pairs,
+                                           cfg.moe.num_experts * cfg.num_layers)
+    all_bound, _ = bound_of(all_flops, all_bytes, PEAK_BF16_FLOPS)
+    out.update({
+        "prefill_ms": prefill_ms[1], "prefill_first_ms": prefill_ms[0],
+        "prefill_bound_ms": pf_bound, "prefill_bound_by": pf_by, "prefill_flops": pf_flops,
+        "prefill_routing": routes, "decode_touched_experts_per_layer": touched / cfg.num_layers,
+        "decode_bound_ms_per_token": dc_bound, "decode_bound_by": dc_by,
+        "decode_bound_all_experts_ms_per_token": all_bound, "peak_memory_gb": peak_gb,
+        "captures": decoders["captured"].captures, "replays": decoders["captured"].replays})
+    log(f"[moe] {cfg.name} prefill B={b} S={s} (kv_chunk {LM_KV_CHUNK}, eager): "
+        f"{prefill_ms[1]:.1f} ms (first call {prefill_ms[0]:.1f} ms); bound {pf_bound:.2f} ms by "
+        f"{pf_by} ({pf_flops / 1e12:.2f} TFLOP of products at the bf16 dense peak, experts "
+        f"counted for the (token, choice) pairs kept), "
+        f"{pf_flops / (prefill_ms[1] / 1e3) / 1e12:.1f} TFLOP/s achieved [{card}]")
+    drops = ", ".join(f"{x:.4f}" for x in routes["drop_share"])
+    auxes = ", ".join(f"{x:.4f}" for x in routes["aux"])
+    log(f"[moe] {cfg.name} prefill routing per layer, {b * s} tokens top-{cfg.moe.top_k} of "
+        f"{cfg.moe.num_experts} experts, capacity {capacity(b * s, cfg)} a expert: drop share "
+        f"{drops}; aux {auxes} (sum {sum(routes['aux']):.4f}) [{card}]")
+    for name in ("eager", "captured"):
+        ms = runs[name][-1][0]
+        out[name] = {"decode_ms_per_token": ms / n, "tokens_per_s": b * n / (ms / 1e3)}
+        capture = ""
+        if name == "captured":
+            out[name]["capture_call_ms_per_token"] = runs[name][0][0] / n
+            capture = f" (the call that captured: {runs[name][0][0] / n:.3f} ms/token)"
+        log(f"[moe] {cfg.name} decode {name} B={b}, {n} tokens from position {covered}: "
+            f"{ms / n:.3f} ms/token, {b * n / (ms / 1e3):,.0f} tokens/s{capture}; bound "
+            f"{dc_bound:.3f} ms/token by {dc_by} (the f32 weights of the {touched / cfg.num_layers:.1f} "
+            f"experts a layer this run routed a token to, of {cfg.moe.num_experts}, and the rest "
+            f"read once), {all_bound:.3f} ms reading every expert [{card}]")
+    for name, decoder in decoders.items():
+        lp = host_launches(torch, lambda: decoder(params, cache, first, covered, MOE_PROFILE_TOKENS))
+        out[name]["host_calls_per_token"] = lp["host_total"] / MOE_PROFILE_TOKENS
+        out[name]["device_ops_per_token"] = lp["device_ops"] / MOE_PROFILE_TOKENS
+        log(f"[moe] {cfg.name} decode {name}: {lp['host_total'] / MOE_PROFILE_TOKENS:.1f} launch "
+            f"calls per token on the host, {lp['device_ops'] / MOE_PROFILE_TOKENS:.1f} device "
+            f"kernels/copies per token (one torch.profiler pass over {MOE_PROFILE_TOKENS} tokens, "
+            f"the cache's copies in and out included) [{card}]")
+    log(f"[moe] {cfg.name} captured tokens equal the eager loop's ({n} tokens x {b} rows, both "
+        f"captured calls); {decoders['captured'].captures} capture, "
+        f"{decoders['captured'].replays} replays; peak memory {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated) [{card}]")
+    busy["captured decode"] = device_busy_over(
+        torch, lambda: decoders["captured"](params, cache, first, covered, MOE_PROFILE_TOKENS),
+        names=True)
+    for tag, run in busy.items():
+        run.pop("names")
+        top = list(run["device_ms_by_name"].items())[:MOE_TOP_KERNELS]
+        out[f"profiled_{tag.replace(' ', '_')}"] = dict(run, device_ms_by_name=dict(top))
+        log(f"[moe] {cfg.name} one profiled {tag}"
+            f"{f' of {MOE_PROFILE_TOKENS} tokens' if 'decode' in tag else ''}: "
+            f"{run['wall_ms']:.1f} ms, {run['device_ops']} device kernels/copies, the device busy "
+            f"{run['device_busy_ms']:.1f} ms (idle share {run['idle_share']:.3f}); the largest "
+            f"{len(top)} of {len(run['device_ms_by_name'])} kernel names by device time: "
+            + "; ".join(f"{name[:64]} {t:.1f} ms" for name, t in top) + f" [{card}]")
+    del params, logits, cache, decoders, step, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def drive_moe(torch, results, card) -> None:
+    """The MoE transformer at full width on the card (``[moe]`` lines):
+    card against CPU and decode against prefill at MOE_CHECK_LAYERS layers
+    of moonshot-v1-16b-a3b; moonshot served at MOE_SERVE_LAYERS layers and
+    dbrx-132b at MOE_DBRX_LAYERS, eager and captured; moonshot trained at
+    MOE_TRAIN_LAYERS layers; both launchers at their reduced default.  Like
+    the dense LM, the path launches none of K1-K4 and calls no library
+    attention (both counted): the reference's MoE is plain jnp."""
+    import gc
+    import math
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data import LMDataConfig, LMIterator, host_slice
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.training import build_train_step, init_train_state
+    from repro_torch.utils import tree_leaves
+
+    out = results["moe"] = {"arch": MOE_ARCH, "dbrx": {"arch": MOE_DBRX_ARCH}}
+    cfg = get_config(MOE_ARCH)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] at the phase's start {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved on the card [{card}]")
+    sdpa = F.scaled_dot_product_attention
+    sdpa_calls = [0]
+
+    def counted_sdpa(*args, **kw):
+        sdpa_calls[0] += 1
+        return sdpa(*args, **kw)
+
+    F.scaled_dot_product_attention = counted_sdpa
+    reset_launch_counts()
+    try:
+        # 1-2. card against CPU, decode against prefill: 2 layers, full width
+        cfg2 = cfg.with_overrides(num_layers=MOE_CHECK_LAYERS)
+        params = build_model(cfg2).init(torch.Generator("cuda").manual_seed(0), device="cuda")
+        moe_check_cpu(torch, cfg2, params, out, card)
+        moe_decode_vs_prefill(torch, cfg2, params, out, card)
+        del params
+
+        # 3-4. serving, moonshot deep and dbrx at 2 layers
+        moe_serve(torch, cfg.with_overrides(num_layers=MOE_SERVE_LAYERS), MOE_DECODE,
+                  out.setdefault("serve", {}), card)
+        moe_serve(torch, get_config(MOE_DBRX_ARCH).with_overrides(num_layers=MOE_DBRX_LAYERS),
+                  MOE_DBRX_DECODE, out["dbrx"], card)
+
+        # 5. training, moonshot at 2 layers, full width
+        gc.collect()
+        torch.cuda.empty_cache()
+        b, s = MOE_TRAIN_B, MOE_TRAIN_S
+        api = build_model(cfg2)
+        tc = TrainConfig(learning_rate=1e-3, total_steps=MOE_TRAIN_STEPS, loss_chunk=min(2048, s))
+        state = init_train_state(api.init(torch.Generator("cuda").manual_seed(0), device="cuda"),
+                                 tc)
+        n_params = sum(t.numel() for t in tree_leaves(state.params))
+        step = build_train_step(api, tc)
+        it = LMIterator(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b))
+        batches = [{k: v.to("cuda") for k, v in host_slice(next(it)).items()}
+                   for _ in range(MOE_TRAIN_STEPS)]
+        with torch.no_grad(), recorded_routing() as calls:
+            api.prefill(state.params, {"tokens": batches[0]["tokens"]})
+        kept = sum(routing_stats(torch, cfg2, calls)["kept_pairs"])
+        del calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, metrics_seen = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics_seen.append({k: float(metrics[k]) for k in ("loss", "xent", "aux")})
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(v) for m in metrics_seen for v in m.values()):
+            raise AssertionError(f"[moe] a training metric is not finite: {metrics_seen}")
+        steady = ms[1:]
+        mean_ms = statistics.mean(steady)
+        flops, nbytes = moe_train_bound(cfg2, b, s, n_params, kept)
+        bound_ms, bound_by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
+        out["train"] = {"layers": MOE_TRAIN_LAYERS, "params": n_params, "batch": b, "seq_len": s,
+                        "ms": ms, "metrics": metrics_seen, "ms_per_step_mean": mean_ms,
+                        "tokens_per_s": b * s / (mean_ms / 1e3), "bound_ms": bound_ms,
+                        "bound_by": bound_by, "flops": flops, "peak_memory_gb": peak_gb}
+        xents = ", ".join(f"{m['xent']:.4f}" for m in metrics_seen)
+        auxes = ", ".join(f"{m['aux']:.4f}" for m in metrics_seen)
+        log(f"[moe] train {cfg2.name} at full width, {MOE_TRAIN_LAYERS} layers ({n_params:,} "
+            f"params, f32 master weights, bf16 compute, remat={tc.remat}, AdamW f32), B={b} "
+            f"S={s}: {MOE_TRAIN_STEPS} steps from LMIterator, xent {xents}, aux {auxes} (all "
+            f"finite); first step "
+            f"{ms[0]:.1f} ms, steps 2-{MOE_TRAIN_STEPS} mean {mean_ms:.1f} ms, "
+            f"{b * s / (mean_ms / 1e3):,.0f} tokens/s; bound {bound_ms:.2f} ms by {bound_by} "
+            f"({flops / 1e12:.2f} TFLOP at the bf16 dense peak, experts counted for the pairs "
+            f"kept; {nbytes / 1e9:.1f} GB of state at HBM bandwidth, "
+            f"{nbytes / PEAK_BYTES * 1e3:.2f} ms), {mean_ms / bound_ms:.1f}x the bound; peak "
+            f"memory {peak_gb:.2f} GB [{card}]")
+        del state, step, batches, metrics, api
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        F.scaled_dot_product_attention = sdpa
+    counts = launch_counts()
+    if any(counts.values()) or sdpa_calls[0]:
+        raise AssertionError(f"[moe] the MoE path launched port kernels {counts} or library "
+                             f"attention ({sdpa_calls[0]} SDPA calls); it runs neither")
+    out["port_kernel_launches"], out["sdpa_calls"] = dict(counts), sdpa_calls[0]
+    log(f"[moe] port kernel launches over the phase {dict(counts)}, scaled_dot_product_attention "
+        f"calls {sdpa_calls[0]}: none, as the reference's MoE transformer is plain jnp [{card}]")
+
+    # 6. the launchers, once each, at their reduced default
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out["launchers"] = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name, cmd in (
+                ("serve", ["repro_torch.launch.serve", "--arch", MOE_ARCH]),
+                ("train", ["repro_torch.launch.train", "--arch", MOE_ARCH, "--steps",
+                           str(MOE_LAUNCH_TRAIN_STEPS), "--ckpt-dir", ckpt])):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *cmd], capture_output=True, text=True,
+                                  timeout=300, env=env, cwd=ROOT)
+            wall = time.perf_counter() - t0
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(f"[{name}]")]
+            done = ("sample continuation" if name == "serve" else "[train] done")
+            if proc.returncode != 0 or done not in proc.stdout or "nan" in proc.stdout:
+                raise AssertionError(f"[moe] {' '.join(cmd)} (rc {proc.returncode}): "
+                                     f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+            out["launchers"][name] = {"rc": proc.returncode, "wall_s": wall, "lines": lines}
+            for ln in lines:
+                log(f"[moe] launcher: {ln} [{card}]")
+            log(f"[moe] launcher {' '.join(cmd[:3 if name == 'serve' else 5])}: rc 0 in "
+                f"{wall:.1f} s [{card}]")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[moe] phase {out['phase_s']:.1f} s [{card}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every measurement to this file")
@@ -3503,6 +4019,7 @@ def main(argv=None) -> int:
     # after the profiled passes above: a profiled train step records over
     # 10,000 device kernels, and the K1 counts above must not follow it
     drive_lm_train(torch, results, card)
+    drive_moe(torch, results, card)
 
     kernels = {"kernels": [{
         "name": "lstm_cell",

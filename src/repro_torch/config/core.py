@@ -2,9 +2,10 @@
 
 A copy of the JAX package's ``repro/config/core.py``: the LSTM-AE family,
 the LM families' ``ModelConfig`` fields with ``MoEConfig``, ``SSMConfig``
-and ``RWKVConfig`` (data only: the port serves the dense transformer so
-far), the LSTM-AE shapes and ``TrainConfig``.  The port imports nothing of
-that package, so the copy is held to it field for field by
+and ``RWKVConfig`` (the port runs the dense and MoE transformers so far;
+``SSMConfig`` and ``RWKVConfig`` are data only), the LSTM-AE shapes and
+``TrainConfig``.  The port imports nothing of that package, so the copy
+is held to it field for field by
 ``tests/test_torch_*.py``.  One difference of wording: the reference's
 ``LSTMAEConfig`` docstring calls the per-layer hidden sizes
 ``feature_sizes``; both packages' method is ``layer_sizes``, and the
@@ -73,7 +74,7 @@ class LSTMAEConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Every field of the reference ``ModelConfig``.  The port runs the
-    families "lstm_ae" and "transformer" (dense; ``moe`` set raises)."""
+    families "lstm_ae" and "transformer" (dense, or MoE with ``moe`` set)."""
     name: str
     family: str              # transformer | rwkv6 | jamba | whisper | lstm_ae
     num_layers: int = 0

@@ -2,9 +2,9 @@
 
 Each ``repro_torch/configs/<id>.py`` module defines ``CONFIG`` (the paper's
 configuration) and ``reduced()`` (a smoke-test-sized config of the same
-family).  The port serves the paper's four LSTM-AE models and the dense
-transformer LMs; the MoE, RWKV-6, Jamba and Whisper configs come with
-their families (ROADMAP.md, queue 1, items 11c-11f).
+family).  The port serves the paper's four LSTM-AE models and the
+transformer LMs, dense and MoE; the RWKV-6, Jamba and Whisper configs come
+with their families (ROADMAP.md, queue 1, items 11d-11f).
 """
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ import importlib
 from repro_torch.config.core import ModelConfig
 
 _ARCH_MODULES: dict[str, str] = {
+    # MoE decoder-only transformers
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     # dense decoder-only transformers of the reference's assigned pool
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",

@@ -11,10 +11,10 @@ Counterpart of ``repro/models/api.py``.  ``build_model(cfg)`` returns a
 - decode(params, token, cache, cache_len) -> (logits, cache)
 - init_cache(batch, max_len, device=None) -> decode state
 
-The port builds the "transformer" (dense) and "lstm_ae" families; the
-transformer's ``loss`` is ``train_loss`` (a MoE config raises naming item
-11c).  The others raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+The port builds the "transformer" (dense and MoE) and "lstm_ae"
+families; the transformer's ``loss`` is ``train_loss`` (a MoE config adds
+``aux_weight`` times its layers' summed load-balance loss).  The others
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 The reference's ``param_specs``/``cache_specs`` (sharding) and its
 ``input_specs``/``cache_struct``/``param_struct`` (the dry-run launcher)
 come with ROADMAP.md, queue 1, item 11g.

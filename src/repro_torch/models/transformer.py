@@ -1,17 +1,20 @@
-"""Decoder-only transformer LM, dense: GQA + RoPE, pre-norm.
+"""Decoder-only transformer LM: dense or MoE, GQA + RoPE, pre-norm.
 
-Counterpart of ``repro/models/transformer.py`` for the dense configs
-(olmo / phi4-mini / tinyllama / internlm2 / phi-3-vision's backbone).  The
-layers' params are stacked along a leading layer dim, the reference's
-``vmap`` layout ``(L, ...)``, and run in a Python loop over that dim (the
-reference's ``lax.scan``).  ``forward`` takes each layer's params from one
-``torch.unbind`` of every stacked leaf, whose backward stacks the layer
-grads once; with ``remat`` and grad enabled each layer runs under a
-non-reentrant ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint(layer_fn)``), so the backward holds one layer's
-activations at a time.  ``train_loss`` is the next-token loss through
-``chunked_xent_loss``.  A config with ``moe`` set raises: the MoE layer is
-ROADMAP.md, queue 1, item 11c.  ``bwd_constrain`` only pins a sharding in
+Counterpart of ``repro/models/transformer.py``: moonshot / dbrx (MoE) and
+olmo / phi4-mini / tinyllama / internlm2 / phi-3-vision's backbone
+(dense).  With ``cfg.moe`` set every layer's feed-forward is the MoE
+layer (``layers/moe.py``), whatever ``moe.every`` says, as in the
+reference (only jamba reads ``every``).  The layers' params are stacked
+along a leading layer dim, the reference's ``vmap`` layout ``(L, ...)``,
+and run in a Python loop over that dim (the reference's ``lax.scan``).
+Each layer's params come from one ``torch.unbind`` of every stacked leaf,
+whose backward stacks the layer grads once; with ``remat`` and grad
+enabled each layer runs under a non-reentrant ``torch.utils.checkpoint``
+(the reference's ``jax.checkpoint(layer_fn)``), so the backward holds one
+layer's activations at a time.  The recompute runs the same ops, so it
+routes as the forward did.  ``forward`` sums the MoE layers' aux losses;
+``train_loss`` is the next-token loss through ``chunked_xent_loss`` plus
+``aux_weight`` times that sum.  ``bwd_constrain`` only pins a sharding in
 the reference, which comes with item 11g; it is not read here.
 """
 from __future__ import annotations
@@ -36,16 +39,13 @@ from repro_torch.layers.embeddings import (
     unembed_logits,
 )
 from repro_torch.layers.mlp import apply_mlp, init_mlp
+from repro_torch.layers.moe import apply_moe, apply_moe_ep, init_moe
 from repro_torch.layers.norms import apply_norm, init_norm
-from repro_torch.utils import Params, tree_map
-
-MOE_ITEM = "ROADMAP.md, queue 1, item 11c (layers/moe.py)"
+from repro_torch.utils import Params
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE transformer is not ported yet: {MOE_ITEM}")
+def _is_moe(cfg: ModelConfig) -> bool:
+    return cfg.moe is not None
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -54,19 +54,21 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig, device=None,
                lead: tuple[int, ...] = ()) -> Params:
-    _require_dense(cfg)
-    return {
+    p = {
         "ln1": init_norm(cfg.norm, cfg.d_model, device, lead),
         "attn": init_attention(generator, cfg, device, lead),
         "ln2": init_norm(cfg.norm, cfg.d_model, device, lead),
-        "mlp": init_mlp(generator, cfg, device=device, lead=lead),
     }
+    if _is_moe(cfg):
+        p["moe"] = init_moe(generator, cfg, device, lead)
+    else:
+        p["mlp"] = init_mlp(generator, cfg, device=device, lead=lead)
+    return p
 
 
 def init_transformer(generator: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     """Params drawn on ``device`` from ``generator`` (which lives there), in
     the reference's distributions; the layers' leaves stacked (L, ...)."""
-    _require_dense(cfg)
     p = {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, device),
         "layers": init_layer(generator, cfg, device, lead=(cfg.num_layers,)),
@@ -83,10 +85,6 @@ def _unembed_w(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return params["unembed"]["w"]
 
 
-def _layer(params: Params, i: int) -> Params:
-    return tree_map(lambda a: a[i], params["layers"])
-
-
 def _unstack(tree: Params, n: int) -> list[Params]:
     """A dict tree of stacked (n, ...) leaves -> n trees of views, from one
     ``unbind`` per leaf: its backward stacks the n layer grads once, where
@@ -97,6 +95,16 @@ def _unstack(tree: Params, n: int) -> list[Params]:
     return list(torch.unbind(tree))
 
 
+def _ffn(lp: Params, h: torch.Tensor, cfg: ModelConfig):
+    """The layer's feed-forward: (out, its aux loss), the dense MLP's aux
+    a Python 0.0 (no device work where the caller drops it)."""
+    if _is_moe(cfg):
+        if cfg.moe.impl == "ep_a2a":
+            return apply_moe_ep(lp["moe"], h, cfg)
+        return apply_moe(lp["moe"], h, cfg)
+    return apply_mlp(lp["mlp"], h, cfg), 0.0
+
+
 def _layer_fn(lp: Params, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
               causal: bool, kv_chunk: int, q_chunks: int):
     hn = apply_norm(lp["ln1"], h, cfg.norm)
@@ -105,7 +113,8 @@ def _layer_fn(lp: Params, h: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
         kv_chunk=kv_chunk, q_chunks=q_chunks, return_kv=True)
     h = h + attn_out
     hn = apply_norm(lp["ln2"], h, cfg.norm)
-    return h + apply_mlp(lp["mlp"], hn, cfg), kv
+    f, aux = _ffn(lp, hn, cfg)
+    return h + f, kv, aux
 
 
 def forward(
@@ -123,25 +132,26 @@ def forward(
     """Run the layer stack on embedded inputs h (B, S, D).
 
     Returns (h, aux_loss) or, with ``collect_cache``, (h, aux, {"k","v"}
-    stacked (L, B, S, Hkv, hd)) for prefill.  The dense stack's aux loss is
-    0.  ``remat`` recomputes each layer in the backward (only when grad is
-    enabled: without it nothing is saved anyway).
+    stacked (L, B, S, Hkv, hd)) for prefill.  aux is the layers' MoE aux
+    losses summed (0 for the dense stack).  ``remat`` recomputes each layer
+    in the backward (only when grad is enabled: without it nothing is saved
+    anyway).
     """
-    _require_dense(cfg)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
     layer_args = (positions, cfg, causal, kv_chunk, q_chunks)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs = [], []
     for lp in _unstack(params["layers"], cfg.num_layers):
         if remat and torch.is_grad_enabled():
-            h, (k, v) = checkpoint(_layer_fn, lp, h, *layer_args, use_reentrant=False)
+            h, (k, v), aux_l = checkpoint(_layer_fn, lp, h, *layer_args, use_reentrant=False)
         else:
-            h, (k, v) = _layer_fn(lp, h, *layer_args)
+            h, (k, v), aux_l = _layer_fn(lp, h, *layer_args)
+        aux = aux + aux_l
         if collect_cache:
             ks.append(k)
             vs.append(v)
     h = apply_norm(params["ln_f"], h, cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if collect_cache:
         return h, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
     return h, aux
@@ -210,18 +220,18 @@ def decode_step(
     (L, B, S_max, Hkv, hd) (``decode_loop="scan"``) or a tuple of per-layer
     {"k","v"} (``"unroll"``); cache_len: 0-d int tensor (tokens already
     cached).  Writes each layer's new K/V into ``cache`` in place and
-    returns (logits (B, 1, V), cache)."""
-    _require_dense(cfg)
+    returns (logits (B, 1, V), cache).  A MoE layer routes the B decode
+    tokens together, and its aux loss is dropped."""
     h = embed_tokens(params["embed"], token, _dtype(cfg))
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         cache_l = cache[i] if cfg.decode_loop == "unroll" else \
             {"k": cache["k"][i], "v": cache["v"][i]}
         hn = apply_norm(lp["ln1"], h, cfg.norm)
         attn_out, _ = decode_attention(lp["attn"], hn, cache_l, cache_len, cfg=cfg)
         h = h + attn_out
         hn = apply_norm(lp["ln2"], h, cfg.norm)
-        h = h + apply_mlp(lp["mlp"], hn, cfg)
+        f, _ = _ffn(lp, hn, cfg)
+        h = h + f
     h = apply_norm(params["ln_f"], h, cfg.norm)
     return unembed_logits(_unembed_w(params, cfg), h), cache
 

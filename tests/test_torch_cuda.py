@@ -1579,3 +1579,52 @@ def test_lm_train_step_card_matches_cpu(cuda, form):
 
 def _max0(t) -> float:
     return float(t.max()) if t.numel() else 0.0
+
+
+# -- the MoE transformer on the card -----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "dbrx-132b"])
+def test_moe_model_card_matches_cpu(cuda, arch):
+    """The reduced MoE model in f32 compute (TF32 off) on the card against
+    the CPU: prefill logits at 1e-4 and the same greedy token, then
+    ``train_loss`` and every grad leaf at the CPU parity bar.  The router
+    takes its product in f64, so the card routes as the CPU does."""
+    api, cpu, card = _lm_setup(arch, "float32", cuda)
+    want, _ = api.prefill(cpu[0], {"tokens": cpu[1]["tokens"]})
+    got, _ = api.prefill(card[0], {"tokens": card[1]["tokens"]})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[:, -1].argmax(-1).cpu(), want[:, -1].argmax(-1))
+    wloss, wgrads = _lm_value_and_grad(api, *cpu, loss_chunk=5)
+    gloss, ggrads = _lm_value_and_grad(api, *card, loss_chunk=5)
+    torch.testing.assert_close(gloss.cpu(), wloss, **LM_TRAIN_F32)
+    for g, w in zip(ggrads, wgrads):
+        torch.testing.assert_close(g.cpu(), w, **LM_TRAIN_F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "dbrx-132b"])
+def test_moe_captured_greedy_decode_equals_eager(cuda, arch):
+    """The MoE decode step (routing, capacity, dispatch and combine of the
+    B decode tokens) captured once and replayed per token gives the eager
+    loop's tokens, last logits and cache bit for bit: nothing in the MoE
+    layer syncs with the host."""
+    from repro_torch.config import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, stitch_prefill_cache
+
+    api = build_model(reduced_config(arch))
+    params = api.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, api.cfg.vocab_size, (3, 9), generator=torch.Generator(cuda).manual_seed(1),
+                         device=cuda, dtype=torch.int32)
+    logits, pre = api.prefill(params, {"tokens": toks})
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    eager = GreedyDecoder(api, jit=False)
+    captured = GreedyDecoder(api)
+    want, want_cache = eager(params, stitch_prefill_cache(api, pre, 9 + 6), first, 9, 6)
+    for call in range(2):
+        got, got_cache = captured(params, stitch_prefill_cache(api, pre, 9 + 6), first, 9, 6)
+        assert torch.equal(got, want) and torch.equal(captured.logits, eager.logits)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got_cache),
+                                                     tree_leaves(want_cache)))
+    assert captured.captures == 1 and captured.replays == 2 * 6 - 1

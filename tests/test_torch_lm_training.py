@@ -309,11 +309,17 @@ def test_remat_matches_no_remat_without_select_over_stacks(arch):
 
 
 def test_moe_loss_and_mesh_raise_naming_their_items():
-    cfg = reduced_config("tinyllama-1.1b")
-    api, params = _port("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        build_model(cfg.with_overrides(moe=MoEConfig(4, 2))).loss(
-            params, _torch_batch(_batch(cfg)))
+    """A MoE config's loss is ported (item 11c, tests/test_torch_moe.py):
+    finite, with a positive aux in its total; a mesh or sharding rules
+    raise naming item 11g."""
+    cfg = reduced_config("tinyllama-1.1b").with_overrides(moe=MoEConfig(4, 2))
+    api, _ = _port("tinyllama-1.1b")
+    moe = build_model(cfg)
+    loss, metrics = moe.loss(moe.init(torch.Generator().manual_seed(0), device="cpu"),
+                             _torch_batch(_batch(cfg)))
+    assert torch.isfinite(loss) and float(metrics["aux"]) > 0
+    assert float(loss) == pytest.approx(float(metrics["xent"]) + 0.01 * float(metrics["aux"]),
+                                        rel=1e-6)
     with pytest.raises(NotImplementedError, match="item 11g"):
         build_train_step(api, TrainConfig(), mesh=object())
     with pytest.raises(NotImplementedError, match="item 11g"):

@@ -42,6 +42,7 @@ from repro_torch.serving import GreedyDecoder, stitch_prefill_cache  # noqa: E40
 from repro_torch.utils import params_from_numpy  # noqa: E402
 
 DENSE = ["tinyllama-1.1b", "olmo-1b", "phi4-mini-3.8b", "internlm2-20b", "phi-3-vision-4.2b"]
+MOE = ["moonshot-v1-16b-a3b", "dbrx-132b"]          # their parity: tests/test_torch_moe.py
 DTYPES = {"float32": (torch.float32, jnp.float32, 1e-5), "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
 ATTN_F32_TOL = 1e-4
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
@@ -239,7 +240,7 @@ def _dims(c):
 
 
 @pytest.mark.parametrize("size", ["full", "reduced"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_config_copy_matches_reference(arch, size):
     get, ref_get = ((get_config, jax_get_config) if size == "full"
                     else (reduced_config, jax_reduced_config))
@@ -255,6 +256,8 @@ def test_config_copy_matches_reference(arch, size):
         "tinyllama-1.1b": (22, 2048, 32, 4, 5632, 32000),
         "internlm2-20b": (48, 6144, 48, 8, 16384, 92544),
         "phi-3-vision-4.2b": (32, 3072, 32, 32, 8192, 32064),
+        "moonshot-v1-16b-a3b": (48, 2048, 16, 16, 1408, 163840),
+        "dbrx-132b": (40, 6144, 48, 8, 10752, 100352),
     }
     if size == "full":
         assert _dims(mine) == exact[arch]
@@ -273,7 +276,7 @@ def test_moe_config_data_matches_reference():
     assert [cfg.is_moe_layer(i) for i in range(4)] == [False, True, False, True]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_param_tree_matches_reference(arch):
     ref = jax.eval_shape(lambda: jax_build_model(jax_reduced_config(arch)).init(
         jax.random.PRNGKey(0)))
@@ -304,14 +307,18 @@ def test_build_model_refuses_unported_families(family):
 
 
 def test_moe_and_lm_loss_raise():
-    """The MoE config raises naming item 11c; the dense LM's loss is
-    ported (tests/test_torch_lm_training.py) and comes back finite."""
+    """A MoE config builds (item 11c, tests/test_torch_moe.py): its layers
+    hold "moe" in place of "mlp", and its loss comes back finite with a
+    positive aux; the dense LM's loss is ported
+    (tests/test_torch_lm_training.py) and comes back finite."""
     cfg = reduced_config("tinyllama-1.1b")
-    moe = cfg.with_overrides(moe=MoEConfig(4, 2))
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        build_model(moe).init(torch.Generator().manual_seed(0), device="cpu")
-    api = build_model(cfg)
     toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    moe = build_model(cfg.with_overrides(moe=MoEConfig(4, 2)))
+    params = moe.init(torch.Generator().manual_seed(0), device="cpu")
+    assert "moe" in params["layers"] and "mlp" not in params["layers"]
+    loss, metrics = moe.loss(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert torch.isfinite(loss) and float(metrics["aux"]) > 0
+    api = build_model(cfg)
     loss, metrics = api.loss(api.init(torch.Generator().manual_seed(0), device="cpu"),
                              {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
     assert loss.shape == () and torch.isfinite(loss) and set(metrics) == {"xent", "aux"}
