@@ -173,7 +173,34 @@ toolkit.  It
    AdamW steps at B=4, S=2048 (ms a step beside the bound, xent and aux
    per step, peak memory); ``serve`` and ``train --steps 4`` for
    moonshot at their reduced default as subprocesses; no K1-K4 launch and
-   no ``scaled_dot_product_attention`` call over the phase.
+   no ``scaled_dot_product_attention`` call over the phase;
+14. drives RWKV-6 at full width, last (``[rwkv]`` lines), whose WKV
+   recurrence runs through K3 (``layers/rwkv.py``): rwkv6-7b cut to 2
+   layers, card against CPU on one prompt (B=1, S=32) in f32 (TF32 off,
+   logits and state at 1e-4) and bf16 (logits at 6e-2), then one decode
+   step from each side's prefill state (the same bars), one value_and_grad
+   of ``train_loss`` in each (the [lm-train] bars; bf16's gap at B=1,
+   S=32 also logged beside the CPU's own bf16-vs-f32 gap), decode against
+   prefill (B=2, S=64, f32 and bf16, the reference's 3e-2); served at all 32 layers
+   (30.1 GB of f32 params): prefill at B=8, S=2048 beside its bound, K3's
+   device time a layer from one profiled prefill, 64 greedy tokens eager
+   and captured (tokens identical) beside the decode bound, launch calls
+   and device kernels per token, peak memory; trained at 2 layers for 6
+   AdamW steps at B=4, S=2048 (ms a step beside the bound, xent per step,
+   peak memory, the share of the last step in ``WKV6``'s backward from
+   CUDA events at its entry and exit); ``serve`` and ``train --steps 4``
+   at their reduced default as subprocesses.  K3 is then held against its
+   plain version on the inputs the path gave it, recorded at the first
+   layer's call: the served prefill (B=8, T=2048) and decode (B=8, T=1)
+   and the training forward (B=4, T=2048) and one backward chunk
+   (B=4, T=64), bf16 r, k, v with the layer's own decays and states, at
+   f32's bar scaled by the result's rms.  Every K3 launch of the phase
+   is counted by segment against the count the code predicts (a layer per
+   prefill, decode token and training forward, one more in the recompute,
+   ceil(S / 64) - 1 a layer in the backward), and K1, K2, K4 and
+   ``scaled_dot_product_attention`` must not run.  The ``wkv6`` entry's
+   launches on the kernels line add this phase's count to its
+   ``wkv6_op`` path's 3.
 
 The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
@@ -352,6 +379,36 @@ MOE_PROFILE_TOKENS = 2      # decode tokens per profiler pass
 MOE_TOP_KERNELS = 6         # kernel names logged per profiled pass
 MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 2048, 6
 MOE_LAUNCH_TRAIN_STEPS = 4
+# RWKV-6 at full width (``[rwkv]`` lines): rwkv6-7b (src/repro_torch/configs/
+# rwkv6_7b.py: 32 layers, d_model 4096 in 64 heads of 64, d_ff 14,336, decay
+# LoRA rank 64, vocab 65,536; one layer 218.7e6 f32 params, all of it
+# 7.53e9, 30.1 GB), params in f32 drawn on the card from seed 0, bf16
+# compute.  Its WKV recurrence is K3's function and runs through K3: one
+# launch a layer per prefill, decode step and training forward (and one
+# more in the recompute), ceil(S / 64) - 1 a layer in the backward (the
+# chunk states it rebuilds, ``layers/rwkv.py::WKV6``).  Card against CPU
+# (B=1, S=32, the [lm] and [lm-train] bars) and decode against prefill
+# (B=2, S=64, the reference's bar, tests/test_layers.py:231-249) at
+# RWKV_CHECK_LAYERS layers; served at all 32 layers (30.1 GB of params) at
+# B=8, S=2048 with RWKV_DECODE greedy tokens eager and captured; trained at
+# RWKV_TRAIN_LAYERS layers (0.97e9 params, 15.6 GB with grads and AdamW
+# moments).
+RWKV_ARCH = "rwkv6-7b"
+RWKV_K3_KERNEL = "wkv6_kernel"     # K3's __global__ function, as the profiler names it
+RWKV_CHECK_LAYERS, RWKV_TRAIN_LAYERS = 2, 2
+# The bf16 train_loss card against CPU runs at B=4, S=64: at B=1, S=32 the
+# bonus u's grad (per element a sum over the 32 positions that cancels) was
+# 8.2e-2 apart on an H100 (PERF.md section 6), with the CPU's own bf16 grad
+# 0.18 from its f32 one; at B=4, S=64 every leaf was within 2.7e-2 of the
+# CPU's.  f32 (2.1e-5 at B=1, S=32) is where the card shows its function.
+# The B=1, S=32 bf16 gap is still read and logged, not held, beside the
+# CPU's own bf16-vs-f32 gap there, so a change that widens it shows.
+RWKV_BF16_GRAD_B, RWKV_BF16_GRAD_S = 4, 64
+RWKV_CONSISTENCY_TOL = 3e-2
+RWKV_SERVE_B, RWKV_SERVE_S, RWKV_DECODE = 8, 2048, 64
+RWKV_PROFILE_TOKENS = 4
+RWKV_TRAIN_B, RWKV_TRAIN_S, RWKV_TRAIN_STEPS = 4, 2048, 6
+RWKV_LAUNCH_TRAIN_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -3937,6 +3994,581 @@ def drive_moe(torch, results, card) -> None:
     log(f"[moe] phase {out['phase_s']:.1f} s [{card}]")
 
 
+def rwkv_product_params(cfg) -> tuple[int, int]:
+    """(weights of one RWKV-6 layer's products in the compute dtype: r, k, v,
+    g, o and the channel-mix's up, down and receptance; those of its f32
+    decay LoRA)."""
+    d = cfg.d_model
+    return 6 * d * d + 2 * d * cfg.d_ff, 2 * d * cfg.rwkv.decay_lora
+
+
+def rwkv_serve_bound(cfg, b: int, s: int, n_params: int, state_io: int) -> tuple[float, float, float]:
+    """(bf16 FLOP, f32 FLOP, bytes) of one forward of b x s new tokens with
+    the last position's logits: a prefill (``state_io`` 1, the state
+    written) or a decode step (s 1, ``state_io`` 2, the state read and
+    written).  bf16: the layers' products and the unembed; f32 (TF32 off):
+    the decay LoRA and the WKV recurrence, 5 hd^2 FLOP per (b, t, head) as
+    K3 counts it.  Bytes: the f32 weights read once (of the table only the
+    b*s rows gathered), the bf16 logits, the state (token shifts bf16, WKV
+    f32)."""
+    d, nl, hd = cfg.d_model, cfg.num_layers, cfg.rwkv.head_dim
+    prod, lora = rwkv_product_params(cfg)
+    bf16 = 2.0 * b * s * nl * prod + 2.0 * b * d * cfg.vocab_size
+    f32 = 2.0 * b * s * nl * lora + 5.0 * b * s * nl * d * hd
+    state = nl * b * (2 * 2 * d + 4 * d * hd)
+    nbytes = (4.0 * (n_params - cfg.vocab_size * d) + 4.0 * b * s * d
+              + 2.0 * b * cfg.vocab_size + state_io * state)
+    return bf16, f32, nbytes
+
+
+def rwkv_train_bound(cfg, b: int, s: int, n_params: int) -> tuple[float, float, float]:
+    """(bf16 FLOP, f32 FLOP, bytes) of one train step: 6 FLOP per product
+    weight per token (the layers' and the unembed's), the decay LoRA's 6 in
+    f32, the WKV recurrence three times over (forward and a backward of
+    twice its work); the f32 params and AdamW's two moments read and
+    written once (24 bytes a param), tokens and labels read once."""
+    d, nl, hd = cfg.d_model, cfg.num_layers, cfg.rwkv.head_dim
+    prod, lora = rwkv_product_params(cfg)
+    bf16 = 6.0 * b * s * (nl * prod + d * cfg.vocab_size)
+    f32 = 6.0 * b * s * nl * lora + 3 * 5.0 * b * s * nl * d * hd
+    return bf16, f32, 24.0 * n_params + 2 * 8.0 * b * s
+
+
+def mixed_bound(bf16: float, f32: float, nbytes: float) -> tuple[float, str]:
+    """(ms, what bounds it): the largest of the bf16 operations at the
+    tensor cores' peak, the f32 ones at the FP32 cores' and the bytes over
+    HBM bandwidth.  The tensor cores and the FP32 cores run at once, so
+    the floor is the larger of their times, not their sum."""
+    ops_ms = max(bf16 / PEAK_BF16_FLOPS, f32 / PEAK_F32_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+class K3Segments:
+    """K3 launches (``launch_counts()``) over each named segment of the
+    ``[rwkv]`` phase beside the count the code predicts for it."""
+
+    def __init__(self):
+        self.seen: dict = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str, predicted: int):
+        from repro_torch.kernels.ops import launch_counts
+
+        before = launch_counts()["wkv6"]
+        yield
+        self.seen[name] = {"launches": launch_counts()["wkv6"] - before, "predicted": predicted}
+
+    def total(self) -> tuple[int, int]:
+        return (sum(v["launches"] for v in self.seen.values()),
+                sum(v["predicted"] for v in self.seen.values()))
+
+
+class K3Inputs:
+    """The arguments of K3's calls on the RWKV path, recorded so that the
+    kernel can be held against its plain version on exactly the inputs the
+    path gave it.  While ``with rec({tag: T, ...})`` is active, the last
+    ``wkv6_op`` call through the RWKV layer (``layers/rwkv.py`` reaches K3
+    only through its module's ``wkv6_op``) whose streams have T steps is
+    kept, cloned, under its tag."""
+
+    def __init__(self):
+        self.seen: dict = {}
+
+    @contextlib.contextmanager
+    def __call__(self, lengths: dict):
+        from repro_torch.layers import rwkv as rwkv_layer
+
+        real = rwkv_layer.wkv6_op
+
+        def recording(*args):
+            for tag, t_len in lengths.items():
+                if args[0].shape[1] == t_len:
+                    self.seen[tag] = tuple(t.detach().clone() for t in args)
+            return real(*args)
+
+        rwkv_layer.wkv6_op = recording
+        try:
+            yield
+        finally:
+            rwkv_layer.wkv6_op = real
+
+
+def rwkv_k3_vs_plain(torch, rec, out, card) -> None:
+    """K3 (``wkv6_op`` on the card) against ``wkv6_plain`` on the inputs
+    ``rec`` kept from the RWKV path.  Both compute in f32 from the same
+    bf16 r, k, v and f32 w, u, S0; only the order of f32 sums differs, so
+    the bar is f32's, WKV_F32_TOL relative plus WKV_F32_TOL times the
+    plain result's rms absolute (y and S are unnormalised sums over up to
+    T steps of decays near 1).  These launches check the kernel and are
+    not the path's: they come after the phase's counts are read."""
+    from repro_torch.kernels.ops import wkv6_op
+    from repro_torch.kernels.wkv6 import wkv6_plain
+
+    rows = out["k3_vs_plain"] = {}
+    for tag, args in rec.seen.items():
+        got = wkv6_op(*args)
+        want = wkv6_plain(*args)
+        row = rows[tag] = {"shape": list(args[0].shape), "dtype": str(args[0].dtype),
+                           "s0_rms": float(args[5].pow(2).mean().sqrt())}
+        for name, g, w in zip(("y", "state"), got, want):
+            rms = float(w.pow(2).mean().sqrt())
+            row[name] = {"max_abs_err": float((g - w).abs().max()), "rms": rms,
+                         "max_abs": float(w.abs().max())}
+            torch.testing.assert_close(g, w, rtol=WKV_F32_TOL, atol=WKV_F32_TOL * max(1.0, rms))
+        log(f"[rwkv] K3 against its plain version on the {tag} inputs the path gave it "
+            f"(B, T, H, hd = {tuple(args[0].shape)}, {args[0].dtype} r/k/v, the layer's decays, "
+            f"S0 rms {row['s0_rms']:.3g}): y max abs err {row['y']['max_abs_err']:.3g} (rms "
+            f"{row['y']['rms']:.3g}), state max abs err {row['state']['max_abs_err']:.3g} (rms "
+            f"{row['state']['rms']:.3g}); bar rtol {WKV_F32_TOL}, atol {WKV_F32_TOL} x max(1, rms) "
+            f"[{card}]")
+        del got, want
+    if set(rows) != {"prefill", "decode", "train_forward", "train_chunk"}:
+        raise AssertionError(f"[rwkv] K3 inputs recorded for {sorted(rows)}, expected the "
+                             f"prefill, decode, training forward and backward chunk")
+    rec.seen.clear()
+
+
+def rwkv_bwd_launches(s: int, layers: int) -> int:
+    """K3 launches of ``WKV6``'s backward over ``layers`` layers at S=s: the
+    states at the start of every 64-step chunk after the first."""
+    return layers * (-(-s // 64) - 1)
+
+
+def rwkv_check_cpu(torch, cfg, params, out, k3, card) -> None:
+    """Card against CPU at RWKV_CHECK_LAYERS layers on one prompt (B=1,
+    S=32): f32 (TF32 off) logits and state at LM_F32_TOL, bf16 logits at
+    LM_BF16_TOL; one decode step from each side's prefill state (the
+    served decode's K3 launch at T=1) at the same bars, its new state too
+    in f32; and one value_and_grad of ``train_loss`` in each (the
+    [lm-train] bars; bf16's at RWKV_BF16_GRAD_B x RWKV_BF16_GRAD_S, and
+    its gap at B=1, S=32 logged beside the CPU's own bf16-vs-f32 gap)."""
+    from repro_torch.data import LMDataConfig, make_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_map
+
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    toks = torch.randint(0, cfg.vocab_size, (LM_CPU_B, LM_CPU_S), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    small = make_lm_batch(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=LM_CPU_S,
+                                       global_batch=LM_CPU_B), 0)
+    pos = torch.tensor(LM_CPU_S, dtype=torch.int32)
+    nl = cfg.num_layers
+    f32_grads = None
+    for tag, dtype, tol, grad_tol, (b, s) in (
+            ("f32", "float32", LM_F32_TOL, LM_TRAIN_F32_GRAD_REL, (LM_CPU_B, LM_CPU_S)),
+            ("bf16", "bfloat16", LM_BF16_TOL, LM_TRAIN_BF16_GRAD_REL,
+             (RWKV_BF16_GRAD_B, RWKV_BF16_GRAD_S))):
+        a = build_model(cfg.with_overrides(compute_dtype=dtype))
+        batch = make_lm_batch(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b), 0)
+        t0 = time.perf_counter()
+        want, wstate = a.prefill(cpu_params, {"tokens": toks})
+        nxt = want[:, -1].argmax(-1).to(torch.int32)[:, None]
+        predicted = nl * (1 + 1 + 2) + rwkv_bwd_launches(s, nl) + (2 * nl if tag == "bf16" else 0)
+        with k3(f"card_vs_cpu_{tag}", predicted):
+            got, gstate = a.prefill(params, {"tokens": toks.cuda()})
+            gpre = tree_map(torch.clone, gstate)
+            gdec, _ = a.decode(params, nxt.cuda(), gstate, pos.cuda())   # writes gstate
+            got_loss, ggrads = lm_value_and_grad(torch, a, params,
+                                                 {k: v.cuda() for k, v in batch.items()},
+                                                 loss_chunk=s)
+            if tag == "bf16":
+                _, gsmall = lm_value_and_grad(torch, a, params,
+                                              {k: v.cuda() for k, v in small.items()},
+                                              loss_chunk=LM_CPU_S)
+        wpre = tree_map(torch.clone, wstate)
+        wdec, _ = a.decode(cpu_params, nxt, wstate, pos)                   # writes wstate
+        want_loss, wgrads = lm_value_and_grad(torch, a, cpu_params, batch, loss_chunk=s)
+        cpu_s = time.perf_counter() - t0
+        err = float((got.float().cpu() - want.float()).abs().max())
+        torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol, atol=tol)
+        dec_err = float((gdec.float().cpu() - wdec.float()).abs().max())
+        torch.testing.assert_close(gdec.float().cpu(), wdec.float(), rtol=tol, atol=tol)
+        state_err = dec_state_err = None
+        if tag == "f32":
+            for name in ("tm_x", "wkv", "cm_x"):
+                torch.testing.assert_close(gpre[name].cpu(), wpre[name], rtol=tol, atol=tol)
+                torch.testing.assert_close(gstate[name].cpu(), wstate[name], rtol=tol, atol=tol)
+            state_err = max(float((gpre[n].cpu() - wpre[n]).abs().max()) for n in wpre)
+            dec_state_err = max(float((gstate[n].cpu() - wstate[n]).abs().max()) for n in wstate)
+            f32_grads = wgrads
+        errs = [rel_fro(torch, g.cpu(), w) for g, w in zip(ggrads, wgrads)]
+        loss_err = abs(float(got_loss) - float(want_loss))
+        torch.testing.assert_close(got_loss.cpu(), want_loss, rtol=tol, atol=tol)
+        if max(errs) > grad_tol:
+            raise AssertionError(f"[rwkv] {tag} grads card vs CPU: relative errors {errs} past "
+                                 f"{grad_tol}")
+        out[f"card_vs_cpu_{tag}"] = {
+            "logits_max_abs_err": err, "state_max_abs_err": state_err, "tol": tol,
+            "decode_logits_max_abs_err": dec_err, "decode_state_max_abs_err": dec_state_err,
+            "loss": float(want_loss), "loss_abs_err": loss_err, "grad_rel_fro": errs,
+            "grad_tol": grad_tol, "grad_batch": [b, s], "s": cpu_s}
+        state_txt = (f", state (token shifts and f32 WKV) {state_err:.3g}, after the decode step "
+                     f"{dec_state_err:.3g}") if state_err is not None else ""
+        log(f"[rwkv] card against CPU, {cfg.name} at {nl} layers (full width) {tag}, B={LM_CPU_B} "
+            f"S={LM_CPU_S}: prefill logits max abs err {err:.3g}; one decode step from each side's "
+            f"prefill state (K3 at T=1) logits max abs err {dec_err:.3g}{state_txt} (rtol = atol = "
+            f"{tol}); train_loss at B={b} S={s} {float(want_loss):.6f}, abs err {loss_err:.3g}, "
+            f"{len(errs)} grad leaves, relative Frobenius error max {max(errs):.3g} (bar "
+            f"{grad_tol}) ({cpu_s:.1f} s) [{card}]")
+        if tag == "bf16":
+            _, wsmall = lm_value_and_grad(torch, a, cpu_params, small, loss_chunk=LM_CPU_S)
+            card_gap = [rel_fro(torch, g.cpu(), w) for g, w in zip(gsmall, wsmall)]
+            cpu_gap = [rel_fro(torch, w, w32) for w, w32 in zip(wsmall, f32_grads)]
+            worst = max(range(len(card_gap)), key=card_gap.__getitem__)
+            out["card_vs_cpu_bf16"]["grad_rel_fro_b1_s32"] = card_gap
+            out["card_vs_cpu_bf16"]["cpu_bf16_vs_f32_rel_fro_b1_s32"] = cpu_gap
+            log(f"[rwkv] bf16 train_loss grads at B={LM_CPU_B} S={LM_CPU_S} (read, not held): card "
+                f"against CPU relative Frobenius error max {max(card_gap):.3g} (leaf {worst}), the "
+                f"CPU's own bf16 grads against its f32 ones max {max(cpu_gap):.3g} (leaf {worst}: "
+                f"{cpu_gap[worst]:.3g}) [{card}]")
+            del gsmall, wsmall
+    del cpu_params, wgrads, ggrads, f32_grads
+
+
+def rwkv_decode_vs_prefill(torch, cfg, params, out, k3, card) -> None:
+    """Decode against prefill at RWKV_CHECK_LAYERS layers, B=2, S=64, in f32
+    and bf16: the prefill's state of S tokens decodes token S+1 to the last
+    position of a prefill of S+1, at the reference's bar."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import stitch_prefill_cache
+
+    b, s = LM_CONSISTENCY_B, LM_CONSISTENCY_S
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), dtype=torch.int32, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(2))
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        api = build_model(cfg.with_overrides(compute_dtype=dtype))
+        with k3(f"decode_vs_prefill_{tag}", 3 * cfg.num_layers):
+            full, _ = api.prefill(params, {"tokens": toks})
+            _, pre = api.prefill(params, {"tokens": toks[:, :-1]})
+            dec, _ = api.decode(params, toks[:, -1:], stitch_prefill_cache(api, pre, s + 1),
+                                torch.tensor(s, dtype=torch.int32, device="cuda"))
+        err = float((dec.float() - full.float()).abs().max())
+        torch.testing.assert_close(dec.float(), full.float(), rtol=RWKV_CONSISTENCY_TOL,
+                                   atol=RWKV_CONSISTENCY_TOL)
+        same = torch.equal(dec[:, -1].argmax(-1), full[:, -1].argmax(-1))
+        out[f"decode_vs_prefill_{tag}"] = {"max_abs_err": err, "greedy_equal": same}
+        log(f"[rwkv] decode against prefill, {cfg.num_layers} layers {tag}, B={b}: the state of a "
+            f"{s}-token prefill decodes token {s + 1}: logits max abs err {err:.3g} against a "
+            f"{s + 1}-token prefill's last position (bar {RWKV_CONSISTENCY_TOL}, the reference's); "
+            f"greedy tokens equal: {same} [{card}]")
+
+
+def rwkv_serve(torch, cfg, out, k3, rec, card) -> None:
+    """``cfg`` served at full width and depth: params drawn on the card,
+    prefill at RWKV_SERVE_B x RWKV_SERVE_S (timed, then once profiled for
+    K3's device time a layer), then RWKV_DECODE greedy tokens eager and
+    captured, each from its own copy of the prefill's state: tokens
+    identical; ms beside the bounds, launch calls and device kernels per
+    token, peak memory.  ``rec`` keeps K3's inputs from the first prefill
+    (the call reported only as the first) and from one more decode step."""
+    import gc
+
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, build_prefill_step, stitch_prefill_cache
+    from repro_torch.utils import tree_leaves, tree_map
+
+    api = build_model(cfg)
+    nl, n = cfg.num_layers, RWKV_DECODE
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator("cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    out.update({"layers": nl, "params": n_params, "init_s": time.perf_counter() - t0})
+    log(f"[rwkv] {cfg.name} at full width and all {nl} layers: {n_params:,} params in f32 "
+        f"({4 * n_params / 1e9:.2f} GB) drawn on the card from seed 0 in {out['init_s']:.2f} s; "
+        f"compute {cfg.compute_dtype}, WKV state f32 [{card}]")
+    b, s = RWKV_SERVE_B, RWKV_SERVE_S
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32, device="cuda",
+                                     generator=torch.Generator("cuda").manual_seed(3))}
+    step = build_prefill_step(api)
+    prefill_ms, held = [], {}
+    with k3("prefill", 3 * nl):
+        for i in range(2):       # the first call also loads cuBLAS's kernels
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with rec({"prefill": s} if i == 0 else {}):
+                logits, pre = step(params, batch)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        del logits, pre
+        prof = device_busy_over(torch, lambda: held.update(out=step(params, batch)), names=True)
+    logits, pre = held.pop("out")
+    k3_ms = sum(t for name, t in prof["device_ms_by_name"].items() if RWKV_K3_KERNEL in name) / nl
+    k3_flops, k3_bytes = k3_bound(b, s, cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim, s=2)
+    k3_bound_ms, k3_by = bound_of(k3_flops, k3_bytes, PEAK_F32_FLOPS)
+    first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    if not torch.isfinite(logits).all() or not all(torch.isfinite(t).all() for t in pre.values()):
+        raise AssertionError(f"[rwkv] {cfg.name} prefill: non-finite logits or state")
+    runs, decoders = {}, {"eager": GreedyDecoder(api, jit=False), "captured": GreedyDecoder(api)}
+    for name, decoder in decoders.items():
+        calls = 2 if name == "captured" else 1                   # captured: capture, then replays
+        with k3(f"decode_{name}", calls * n * nl):
+            for _ in range(calls):
+                cache = stitch_prefill_cache(api, tree_map(torch.clone, pre), s + n)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tokens, _ = decoder(params, cache, first, s, n)
+                torch.cuda.synchronize()
+                runs.setdefault(name, []).append(((time.perf_counter() - t0) * 1e3, tokens,
+                                                  decoder.logits))
+    want_tokens, want_logits = runs["eager"][0][1], runs["eager"][0][2]
+    if not all(torch.equal(t, want_tokens) for _, t, _ in runs["captured"]):
+        raise AssertionError(f"[rwkv] {cfg.name}: captured greedy tokens differ from the eager "
+                             f"loop's")
+    if decoders["captured"].captures != 1:
+        raise AssertionError(f"[rwkv] {decoders['captured'].captures} decode captures, expected 1")
+    logits_equal = all(torch.equal(lg, want_logits) for _, _, lg in runs["captured"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with k3("decode_inputs", nl), rec({"decode": 1}):
+        api.decode(params, first, stitch_prefill_cache(api, tree_map(torch.clone, pre), s + 1),
+                   torch.tensor(s, dtype=torch.int32, device="cuda"))
+
+    pf_bf16, pf_f32, pf_bytes = rwkv_serve_bound(cfg, b, s, n_params, 1)
+    pf_bound, pf_by = mixed_bound(pf_bf16, pf_f32, pf_bytes)
+    pf_bf16_ms, pf_f32_ms = pf_bf16 / PEAK_BF16_FLOPS * 1e3, pf_f32 / PEAK_F32_FLOPS * 1e3
+    dc_bound, dc_by = mixed_bound(*rwkv_serve_bound(cfg, b, 1, n_params, 2))
+    out.update({
+        "prefill_ms": prefill_ms[1], "prefill_first_ms": prefill_ms[0],
+        "prefill_bound_ms": pf_bound, "prefill_bound_by": pf_by, "prefill_bf16_flops": pf_bf16,
+        "prefill_f32_flops": pf_f32, "prefill_bytes": pf_bytes, "prefill_bf16_ms": pf_bf16_ms,
+        "prefill_f32_ms": pf_f32_ms,
+        "k3_device_ms_per_layer": k3_ms, "k3_bound_ms_per_layer": k3_bound_ms, "k3_bound_by": k3_by,
+        "profiled_prefill": {k: v for k, v in prof.items() if k not in ("names", "device_ms_by_name")},
+        "decode_bound_ms_per_token": dc_bound, "decode_bound_by": dc_by, "peak_memory_gb": peak_gb,
+        "captures": decoders["captured"].captures, "replays": decoders["captured"].replays,
+        "last_logits_bit_equal": logits_equal, "tokens_row0": want_tokens[0, :16].tolist()})
+    log(f"[rwkv] {cfg.name} prefill B={b} S={s} (eager): {prefill_ms[1]:.1f} ms (first call "
+        f"{prefill_ms[0]:.1f} ms, K3's inputs recorded in it); bound {pf_bound:.2f} ms by {pf_by}, "
+        f"the largest of: {pf_bf16 / 1e12:.2f} TFLOP of products at the bf16 dense peak "
+        f"{pf_bf16_ms:.2f} ms, {pf_f32 / 1e12:.3f} TFLOP of WKV and decay LoRA at the FP32 peak "
+        f"{pf_f32_ms:.2f} ms (the two units run at once), {pf_bytes / 1e9:.2f} GB at HBM bandwidth "
+        f"{pf_bytes / PEAK_BYTES * 1e3:.2f} ms; {prefill_ms[1] / pf_bound:.2f}x the bound [{card}]")
+    log(f"[rwkv] {cfg.name} K3 on the prefill's path: {k3_ms:.3f} ms device time a layer (one "
+        f"profiled prefill, {RWKV_K3_KERNEL} summed over its {nl} layers), bound {k3_bound_ms:.3f} "
+        f"ms by {k3_by} (B={b}, T={s}, H={cfg.d_model // cfg.rwkv.head_dim}, "
+        f"hd={cfg.rwkv.head_dim}, bf16 r/k/v); the profiled prefill {prof['wall_ms']:.1f} ms, "
+        f"{prof['device_ops']} device kernels/copies, idle share {prof['idle_share']:.3f} [{card}]")
+    for name in ("eager", "captured"):
+        ms = runs[name][-1][0]
+        out[name] = {"decode_ms_per_token": ms / n, "tokens_per_s": b * n / (ms / 1e3)}
+        capture = ""
+        if name == "captured":
+            out[name]["capture_call_ms_per_token"] = runs[name][0][0] / n
+            capture = f" (the call that captured: {runs[name][0][0] / n:.3f} ms/token)"
+        log(f"[rwkv] {cfg.name} decode {name} B={b}, {n} tokens after the prefill: {ms / n:.3f} "
+            f"ms/token, {b * n / (ms / 1e3):,.0f} tokens/s{capture}; bound {dc_bound:.3f} ms/token "
+            f"by {dc_by} (the f32 weights read once, the state read and written) [{card}]")
+    cache = stitch_prefill_cache(api, tree_map(torch.clone, pre), s)
+    with k3("profiled_decode", 3 * RWKV_PROFILE_TOKENS * nl):
+        for name, decoder in decoders.items():
+            lp = host_launches(torch, lambda: decoder(params, cache, first, s, RWKV_PROFILE_TOKENS))
+            out[name]["host_calls_per_token"] = lp["host_total"] / RWKV_PROFILE_TOKENS
+            out[name]["device_ops_per_token"] = lp["device_ops"] / RWKV_PROFILE_TOKENS
+            log(f"[rwkv] {cfg.name} decode {name}: {lp['host_total'] / RWKV_PROFILE_TOKENS:.1f} "
+                f"launch calls per token on the host, "
+                f"{lp['device_ops'] / RWKV_PROFILE_TOKENS:.1f} device kernels/copies per token "
+                f"(one torch.profiler pass over {RWKV_PROFILE_TOKENS} tokens, the state's copies "
+                f"in and out included) [{card}]")
+        busy = device_busy_over(
+            torch, lambda: decoders["captured"](params, cache, first, s, RWKV_PROFILE_TOKENS))
+    out["profiled_captured_decode"] = busy
+    log(f"[rwkv] {cfg.name} captured tokens equal the eager loop's ({n} tokens x {b} rows, both "
+        f"captured calls; last logits bit-equal: {logits_equal}); "
+        f"{decoders['captured'].captures} capture, {decoders['captured'].replays} replays; a "
+        f"profiled captured decode of {RWKV_PROFILE_TOKENS} tokens: the device busy "
+        f"{busy['device_busy_ms']:.1f} of {busy['wall_ms']:.1f} ms (idle share "
+        f"{busy['idle_share']:.3f}); peak memory {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated) [{card}]")
+    del params, logits, pre, cache, decoders, step, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rwkv_train(torch, cfg, out, k3, rec, card) -> None:
+    """``cfg`` trained at full width for RWKV_TRAIN_STEPS AdamW steps at
+    RWKV_TRAIN_B x RWKV_TRAIN_S from ``LMIterator``: ms a step beside the
+    bound, xent per step, peak memory, and on the last step the share of
+    its wall time spent in ``WKV6``'s backward (CUDA events recorded at the
+    backward's entry and exit, one pair a layer).  ``rec`` keeps K3's
+    inputs from the first step (reported only as the first): a forward
+    over the sequence and a 64-step chunk of the backward."""
+    import gc
+    import math
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import LMDataConfig, LMIterator, host_slice
+    from repro_torch.layers import rwkv as rwkv_layer
+    from repro_torch.models import build_model
+    from repro_torch.training import build_train_step, init_train_state
+    from repro_torch.utils import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, s, nl = RWKV_TRAIN_B, RWKV_TRAIN_S, cfg.num_layers
+    api = build_model(cfg)
+    tc = TrainConfig(learning_rate=1e-3, total_steps=RWKV_TRAIN_STEPS, loss_chunk=min(2048, s))
+    state = init_train_state(api.init(torch.Generator("cuda").manual_seed(0), device="cuda"), tc)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    step = build_train_step(api, tc)
+    it = LMIterator(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b))
+    batches = [{k: v.to("cuda") for k, v in host_slice(next(it)).items()}
+               for _ in range(RWKV_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    real_bwd, spans = rwkv_layer.WKV6.backward, []
+
+    def timed_bwd(ctx, *grads):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = real_bwd(ctx, *grads)
+        end.record()
+        spans.append((start, end))
+        return got
+
+    ms, xents = [], []
+    per_step = nl * 2 + rwkv_bwd_launches(s, nl)        # forward, recompute, backward's chunks
+    with k3("train", RWKV_TRAIN_STEPS * per_step):
+        for i, batch in enumerate(batches):
+            if i == len(batches) - 1:
+                rwkv_layer.WKV6.backward = staticmethod(timed_bwd)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with rec({"train_forward": s, "train_chunk": 64} if i == 0 else {}):
+                    state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                rwkv_layer.WKV6.backward = staticmethod(real_bwd)
+            xents.append(float(metrics["xent"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in xents):
+        raise AssertionError(f"[rwkv] a training loss is not finite: {xents}")
+    if len(spans) != nl:
+        raise AssertionError(f"[rwkv] {len(spans)} WKV6 backward calls in a step, expected {nl}")
+    bwd_ms = sum(a.elapsed_time(e) for a, e in spans)
+    steady = ms[1:]
+    mean_ms = statistics.mean(steady)
+    bf16, f32, nbytes = rwkv_train_bound(cfg, b, s, n_params)
+    bound_ms, bound_by = mixed_bound(bf16, f32, nbytes)
+    bf16_ms, f32_ms = bf16 / PEAK_BF16_FLOPS * 1e3, f32 / PEAK_F32_FLOPS * 1e3
+    out.update({"layers": nl, "params": n_params, "batch": b, "seq_len": s, "ms": ms,
+                "bf16_ms": bf16_ms, "f32_ms": f32_ms,
+                "xent": xents, "ms_per_step_mean": mean_ms, "tokens_per_s": b * s / (mean_ms / 1e3),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bf16_flops": bf16, "f32_flops": f32,
+                "peak_memory_gb": peak_gb, "wkv_backward_ms": bwd_ms,
+                "wkv_backward_share": bwd_ms / ms[-1]})
+    log(f"[rwkv] train {cfg.name} at full width, {nl} layers ({n_params:,} params, f32 master "
+        f"weights, bf16 compute, remat={tc.remat}, AdamW f32), B={b} S={s}: {RWKV_TRAIN_STEPS} "
+        f"steps from LMIterator, xent {', '.join(f'{x:.4f}' for x in xents)} (all finite); first "
+        f"step {ms[0]:.1f} ms (K3's inputs recorded in it), steps 2-{RWKV_TRAIN_STEPS} mean "
+        f"{mean_ms:.1f} ms, {b * s / (mean_ms / 1e3):,.0f} tokens/s; bound {bound_ms:.2f} ms by "
+        f"{bound_by}, the largest of: {bf16 / 1e12:.2f} TFLOP at the bf16 dense peak "
+        f"{bf16_ms:.2f} ms, {f32 / 1e12:.3f} TFLOP of WKV and decay LoRA at the FP32 peak "
+        f"{f32_ms:.2f} ms (the two units run at once), {nbytes / 1e9:.1f} GB of state at HBM "
+        f"bandwidth {nbytes / PEAK_BYTES * 1e3:.2f} ms; {mean_ms / bound_ms:.1f}x the bound; peak "
+        f"memory {peak_gb:.2f} GB [{card}]")
+    log(f"[rwkv] train step {RWKV_TRAIN_STEPS} ({ms[-1]:.1f} ms): WKV6's backward (the chunk "
+        f"states rebuilt by K3, then each 64-step chunk's adjoint in plain PyTorch, two "
+        f"step-by-step state recurrences and batched terms) took {bwd_ms:.1f} ms over its {nl} "
+        f"layers, {bwd_ms / ms[-1]:.3f} of the step (CUDA events at the backward's entry and "
+        f"exit) [{card}]")
+    del state, step, batches, metrics, api
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def drive_rwkv(torch, results, card) -> None:
+    """RWKV-6 at full width on the card (``[rwkv]`` lines): card against CPU
+    and decode against prefill at RWKV_CHECK_LAYERS layers; rwkv6-7b served
+    at all its layers, eager and captured; trained at RWKV_TRAIN_LAYERS
+    layers; both launchers at their reduced default.  Its WKV runs through
+    K3: every K3 launch of the phase is counted against the count the code
+    predicts, segment by segment, and none of K1, K2, K4 nor a library
+    attention may run.  Then K3 is held against its plain version on the
+    inputs the served and trained paths gave it."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+
+    out = results["rwkv"] = {"arch": RWKV_ARCH}
+    cfg = get_config(RWKV_ARCH)
+    t_phase = time.perf_counter()
+    sdpa = F.scaled_dot_product_attention
+    sdpa_calls = [0]
+
+    def counted_sdpa(*args, **kw):
+        sdpa_calls[0] += 1
+        return sdpa(*args, **kw)
+
+    k3, rec = K3Segments(), K3Inputs()
+    F.scaled_dot_product_attention = counted_sdpa
+    reset_launch_counts()
+    try:
+        # 1-2. card against CPU, decode against prefill: 2 layers, full width
+        cfg2 = cfg.with_overrides(num_layers=RWKV_CHECK_LAYERS)
+        params = build_model(cfg2).init(torch.Generator("cuda").manual_seed(0), device="cuda")
+        rwkv_check_cpu(torch, cfg2, params, out, k3, card)
+        rwkv_decode_vs_prefill(torch, cfg2, params, out, k3, card)
+        del params
+        # 3. served at full depth; 4. trained at 2 layers
+        rwkv_serve(torch, cfg, out.setdefault("serve", {}), k3, rec, card)
+        rwkv_train(torch, cfg.with_overrides(num_layers=RWKV_TRAIN_LAYERS),
+                   out.setdefault("train", {}), k3, rec, card)
+    finally:
+        F.scaled_dot_product_attention = sdpa
+    counts = launch_counts()
+    launches, predicted = k3.total()
+    out.update({"k3_segments": k3.seen, "k3_launches": launches, "k3_predicted": predicted,
+                "port_kernel_launches": dict(counts), "sdpa_calls": sdpa_calls[0]})
+    log(f"[rwkv] K3 launches by segment (counted / predicted): "
+        + "; ".join(f"{name} {v['launches']}/{v['predicted']}" for name, v in k3.seen.items())
+        + f"; total {launches}/{predicted} [{card}]")
+    wrong = {name: v for name, v in k3.seen.items() if v["launches"] != v["predicted"]}
+    others = {k: v for k, v in counts.items() if k != "wkv6" and v}
+    if wrong or counts["wkv6"] != launches or others or sdpa_calls[0]:
+        raise AssertionError(f"[rwkv] K3 launches off their prediction {wrong}, other port "
+                             f"kernels launched {others} or library attention called "
+                             f"({sdpa_calls[0]} SDPA calls); launch counts {dict(counts)}")
+    log(f"[rwkv] port kernel launches over the phase {dict(counts)}: K3 only, as predicted; "
+        f"scaled_dot_product_attention calls 0 [{card}]")
+    rwkv_k3_vs_plain(torch, rec, out, card)
+
+    # 5. the launchers, once each, at their reduced default
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out["launchers"] = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name, cmd in (
+                ("serve", ["repro_torch.launch.serve", "--arch", RWKV_ARCH]),
+                ("train", ["repro_torch.launch.train", "--arch", RWKV_ARCH, "--steps",
+                           str(RWKV_LAUNCH_TRAIN_STEPS), "--ckpt-dir", ckpt])):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *cmd], capture_output=True, text=True,
+                                  timeout=300, env=env, cwd=ROOT)
+            wall = time.perf_counter() - t0
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(f"[{name}]")]
+            done = ("sample continuation" if name == "serve" else "[train] done")
+            if proc.returncode != 0 or done not in proc.stdout or "nan" in proc.stdout:
+                raise AssertionError(f"[rwkv] {' '.join(cmd)} (rc {proc.returncode}): "
+                                     f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+            out["launchers"][name] = {"rc": proc.returncode, "wall_s": wall, "lines": lines}
+            for ln in lines:
+                log(f"[rwkv] launcher: {ln} [{card}]")
+            log(f"[rwkv] launcher {' '.join(cmd[:3 if name == 'serve' else 5])}: rc 0 in "
+                f"{wall:.1f} s [{card}]")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[rwkv] phase {out['phase_s']:.1f} s [{card}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every measurement to this file")
@@ -4020,6 +4652,7 @@ def main(argv=None) -> int:
     # 10,000 device kernels, and the K1 counts above must not follow it
     drive_lm_train(torch, results, card)
     drive_moe(torch, results, card)
+    drive_rwkv(torch, results, card)
 
     kernels = {"kernels": [{
         "name": "lstm_cell",
@@ -4050,7 +4683,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": K3_SOURCE,
         "replaces": K3_REPLACES,
-        "launches": k3_launches,
+        "launches": k3_launches + results["rwkv"]["k3_launches"],
         "max_abs_err": results["k3_max_abs_err_f32"],
         "ms": k3["kernel_ms"],
         "plain_ms": k3["plain_ms"],
@@ -4078,7 +4711,8 @@ def main(argv=None) -> int:
         f"the profiler); "
         f"lstm_seq: times per forward of lstm-ae-f64-d6 at B={serve.global_batch}, T={K2_T} "
         f"(6 launches), launches from its lstm_seq_op path; wkv6: f32 at B={RWKV_B}, T={RWKV_T}, "
-        f"H={RWKV_H}, hd={RWKV_HD}, launches from its wkv6_op path (whole + chained pair); "
+        f"H={RWKV_H}, hd={RWKV_HD}, launches from its wkv6_op path (whole + chained pair: "
+        f"{k3_launches}) and the [rwkv] phase's model path ({results['rwkv']['k3_launches']}); "
         f"flash_attention: bf16 at B={PHI_B}, H={PHI_H}, S=Sk={PHI_S}, d={PHI_HD}, causal, "
         f"launches from its flash_attention_op path")
     if args.json:

@@ -3,8 +3,8 @@
 Each ``repro_torch/configs/<id>.py`` module defines ``CONFIG`` (the paper's
 configuration) and ``reduced()`` (a smoke-test-sized config of the same
 family).  The port serves the paper's four LSTM-AE models and the
-transformer LMs, dense and MoE; the RWKV-6, Jamba and Whisper configs come
-with their families (ROADMAP.md, queue 1, items 11d-11f).
+transformer LMs, dense and MoE, and the RWKV-6 LM; the Jamba and Whisper
+configs come with their families (ROADMAP.md, queue 1, items 11e-11f).
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ _ARCH_MODULES: dict[str, str] = {
     # MoE decoder-only transformers
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    # attention-free recurrent LM
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     # dense decoder-only transformers of the reference's assigned pool
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",

@@ -1,2 +1,2 @@
-"""The paper's four LSTM-AE configurations (Section 4.1) and the
-transformer LMs, dense and MoE, one module each."""
+"""The paper's four LSTM-AE configurations (Section 4.1), the
+transformer LMs, dense and MoE, and the RWKV-6 LM, one module each."""

@@ -15,12 +15,14 @@ launches or raises.  Nothing falls back from the kernel to the plain version.
   FLOP bound it.  Left for later: tensor cores, and splitting H across a
   thread-block cluster for weights larger than one block's shared memory
   (today those are read from L2 every step).
-- :func:`wkv6_op` — K3, the RWKV-6 WKV recurrence over (B, T, H, hd).
+- :func:`wkv6_op` — K3, the RWKV-6 WKV recurrence over (B, T, H, hd); the
+  RWKV-6 layer's exact scan and decode step (``layers/rwkv.py``).
 - :func:`flash_attention_op` — K4, the flash-attention forward over
   (B, S, H, d), causal mask aligned top-left.
 
-As in the reference, K3 and K4 are reached only through these two wrappers:
-no model layer calls them.  The reference wrappers' ``block_q``/``block_k``
+K3 and K4 are reached only through these two wrappers.  The RWKV-6 layer
+calls ``wkv6_op`` (the reference's layer computes K3's function in jnp and
+never calls its kernel); no model layer calls ``flash_attention_op``.  The reference wrappers' ``block_q``/``block_k``
 and ``interpret`` are TPU tiling and mode knobs that do not change the
 function; they are not carried over.
 """

@@ -18,8 +18,11 @@ compute.  Its bound on an H100 is the larger of 5·hd² FLOP per (b, h, t) at
 67 TFLOP/s (FP32 cores) and its bytes (r, k, v, w, u, s0 read once, y and
 S_T written once) at 3.35 TB/s; at rwkv6-7b's heads (H=64, hd=64) the bytes
 bound it, and the kernel's own floor, three FP32 instructions per state
-element, lies just under them.  As in the reference it is reached only
-through ``ops.wkv6_op``; no model layer calls it.
+element, lies just under them.  It is reached through ``ops.wkv6_op``,
+which RWKV-6's layer calls (``layers/rwkv.py``: the exact scan, the decode
+step at T=1, and the chunk states ``WKV6``'s backward rebuilds); the
+reference's layer computes the same function as a ``lax.scan`` and never
+calls its Pallas kernel.
 
 r, k, v (B, T, H, hd) share a dtype, f32 or bf16; w (B, T, H, hd), u (H, hd)
 and s0 (B, H, hd, hd) are f32.  Returns y (B, T, H, hd) and S_T (B, H, hd,

@@ -47,15 +47,16 @@ pool slots and micro-batch rows split over N devices, the visible GPUs
 counterpart of the reference's ``XLA_FLAGS`` device-count passthrough).
 The ready lines then print ``mesh=Nxdata``.
 
-An LM arch (``--arch tinyllama-1.1b``; the dense transformers so far)
-runs ``serve_lm``: params drawn on the device from seed 0, random prompt
-tokens (``--batch`` x ``--seq-len``; under the vision stub also random
-patch embeddings) from seed 1, a prefill, the prefill's KV cache stitched
-into a decode cache of every position the prefill covered plus
-``--decode-tokens``, then greedy decoding from there with the decode step
-captured into a CUDA graph (``serving.GreedyDecoder``; the CPU runs it
-eagerly).  It prints the reference's two ``[serve]`` lines.  The reference
-decodes against a zeroed cache instead (ROADMAP.md, queue 3).
+An LM arch (``--arch tinyllama-1.1b``; the transformers, dense and MoE,
+and ``rwkv6-7b``) runs ``serve_lm``: params drawn on the device from seed
+0, random prompt tokens (``--batch`` x ``--seq-len``; under the vision
+stub also random patch embeddings) from seed 1, a prefill, the prefill's
+KV cache stitched into a decode cache of every position the prefill
+covered plus ``--decode-tokens`` (RWKV-6: the prefill's recurrent state as
+it is), then greedy decoding from there with the decode step captured
+into a CUDA graph (``serving.GreedyDecoder``; the CPU runs it eagerly).
+It prints the reference's two ``[serve]`` lines.  The reference decodes
+against a zeroed cache or state instead (ROADMAP.md, queue 3).
 ``--gateway``, ``--http``, ``--workers`` and ``--mesh`` serve the LSTM-AE
 only and refuse an LM arch.
 
@@ -360,7 +361,8 @@ def serve_workers(cfg, args) -> None:
 
 def serve_lm(cfg, args) -> None:
     """Prefill a random prompt batch, then greedy-decode ``--decode-tokens``
-    tokens against the prefill's own KV cache."""
+    tokens against the prefill's own KV cache (RWKV-6: from the prefill's
+    own recurrent state; the reference decodes both from zeros)."""
     device = resolve_device(args.device)
     api = build_model(cfg)
     params = api.init(torch.Generator(device=device).manual_seed(0), device=device)
@@ -382,7 +384,8 @@ def serve_lm(cfg, args) -> None:
     sync()
     t_prefill = time.perf_counter() - t0
 
-    covered = prefill_cache["k"].shape[2]          # S, plus the patches under the stub
+    # the positions the prompt filled: its tokens, plus the patches under the stub
+    covered = s + (batch["image_embeds"].shape[1] if "image_embeds" in batch else 0)
     cache = stitch_prefill_cache(api, prefill_cache, covered + args.decode_tokens)
     del prefill_cache
     first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]

@@ -8,13 +8,19 @@ Counterpart of ``repro/models/api.py``.  ``build_model(cfg)`` returns a
   transformer (the LSTM-AE draws on the CPU and moves its params)
 - loss(params, batch) -> (scalar, metrics)
 - prefill(params, batch) -> (logits/scores, cache)
-- decode(params, token, cache, cache_len) -> (logits, cache)
+- decode(params, token, cache, cache_len) -> (logits, cache), the cache
+  written in place
 - init_cache(batch, max_len, device=None) -> decode state
+- stitch(prefill_cache, max_len) -> the decode cache that continues a
+  prefill (None where the family has no prefill-then-decode)
 
-The port builds the "transformer" (dense and MoE) and "lstm_ae"
+The port builds the "transformer" (dense and MoE), "rwkv6" and "lstm_ae"
 families; the transformer's ``loss`` is ``train_loss`` (a MoE config adds
-``aux_weight`` times its layers' summed load-balance loss).  The others
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``aux_weight`` times its layers' summed load-balance loss).  RWKV-6's
+decode cache is its recurrent state (``init_cache`` and ``stitch`` ignore
+``max_len``: the state is position-free, and the prefill's state is the
+decode cache as it is).  The others raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 The reference's ``param_specs``/``cache_specs`` (sharding) and its
 ``input_specs``/``cache_struct``/``param_struct`` (the dry-run launcher)
 come with ROADMAP.md, queue 1, item 11g.
@@ -30,11 +36,11 @@ from repro_torch import resolve_device
 from repro_torch.config.core import ModelConfig
 from repro_torch.core.lstm import init_lstm_ae
 from repro_torch.models import lstm_ae as lstm_ae_m
+from repro_torch.models import rwkv6 as rwkv6_m
 from repro_torch.models import transformer as tf_m
 from repro_torch.utils import Params
 
 UNPORTED_FAMILIES = {
-    "rwkv6": "ROADMAP.md, queue 1, item 11d (models/rwkv6.py, layers/rwkv.py)",
     "jamba": "ROADMAP.md, queue 1, item 11e (models/jamba.py, layers/mamba.py)",
     "whisper": "ROADMAP.md, queue 1, item 11f (models/whisper.py)",
 }
@@ -48,6 +54,7 @@ class ModelAPI:
     prefill: Callable[..., tuple[torch.Tensor, Params]]
     decode: Optional[Callable[..., tuple[torch.Tensor, Params]]]
     init_cache: Optional[Callable[..., Params]]
+    stitch: Optional[Callable[[Params, int], Params]] = None
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
@@ -60,6 +67,18 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             decode=lambda p, t, c, n: tf_m.decode_step(p, t, c, n, cfg),
             init_cache=lambda batch, max_len, device=None: tf_m.init_decode_cache(
                 cfg, batch, max_len, device=resolve_device(device)),
+            stitch=lambda cache, max_len: tf_m.stitch_decode_cache(cfg, cache, max_len),
+        )
+    if cfg.family == "rwkv6":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen, device=None: rwkv6_m.init_rwkv6(gen, cfg, resolve_device(device)),
+            loss=lambda p, b, **kw: rwkv6_m.train_loss(p, b, cfg, **kw),
+            prefill=lambda p, b, **kw: rwkv6_m.prefill(p, b, cfg, **kw),
+            decode=lambda p, t, c, n: rwkv6_m.decode_step(p, t, c, n, cfg),
+            init_cache=lambda batch, max_len, device=None: rwkv6_m.init_state(
+                cfg, batch, device=resolve_device(device)),
+            stitch=lambda state, max_len: state,
         )
     if cfg.family == "lstm_ae":
         # prefill runs a named engine schedule: pass schedule=... through kw

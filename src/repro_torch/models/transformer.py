@@ -246,3 +246,22 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bf
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def stitch_decode_cache(cfg: ModelConfig, prefill_cache: Params, max_len: int) -> Params:
+    """A decode cache of ``max_len`` positions in ``cfg.decode_loop``'s
+    layout, holding the prefill's K/V (L, B, S, Hkv, hd) at positions
+    [0, S), where S is every position the prefill covered (under the vision
+    stub, the patches too).  Decoding then starts at ``cache_len = S``."""
+    k = prefill_cache["k"]
+    covered = k.shape[2]
+    if max_len < covered:
+        raise ValueError(f"a decode cache of {max_len} positions cannot hold the "
+                         f"{covered} the prefill covered")
+    cache = init_decode_cache(cfg, k.shape[1], max_len, device=k.device)
+    layers = cache if cfg.decode_loop == "unroll" else (cache,)
+    for i, layer in enumerate(layers):
+        for name in ("k", "v"):
+            src = prefill_cache[name] if cfg.decode_loop != "unroll" else prefill_cache[name][i]
+            layer[name].narrow(-3, 0, covered).copy_(src)
+    return cache

@@ -9,8 +9,9 @@ The reference jits its greedy loop whole.  The port's counterpart is
 :class:`GreedyDecoder`: on a CUDA device it captures one decode step into
 a CUDA graph (``engine/capture.py``) per (batch, cache length, params)
 signature and replays it once per token.  The step closes over static
-buffers (the token, the position and the KV cache, updated in place by
-the graph), so the graph clones only the next token and its logits, never
+buffers (the token, the position and the cache, which the decode step
+writes in place: the transformer's KV cache or RWKV-6's recurrent
+state), so the graph clones only the next token and its logits, never
 the cache; the argmax token and ``cache_len + 1`` stay on the device, so
 decoding syncs with the host once per loop, not per token.
 """
@@ -62,22 +63,13 @@ def build_decode_step(api: ModelAPI, mesh=None, rules=None):
 
 
 def stitch_prefill_cache(api: ModelAPI, prefill_cache: Params, max_len: int) -> Params:
-    """A decode cache of ``max_len`` positions in ``api.cfg.decode_loop``'s
-    layout, holding the prefill's K/V (L, B, S, Hkv, hd) at positions
-    [0, S), where S is every position the prefill covered (under the vision
-    stub, the patches too).  Decoding then starts at ``cache_len = S``."""
-    k = prefill_cache["k"]
-    covered = k.shape[2]
-    if max_len < covered:
-        raise ValueError(f"a decode cache of {max_len} positions cannot hold the "
-                         f"{covered} the prefill covered")
-    cache = api.init_cache(k.shape[1], max_len, device=k.device)
-    layers = cache if api.cfg.decode_loop == "unroll" else (cache,)
-    for i, layer in enumerate(layers):
-        for name in ("k", "v"):
-            src = prefill_cache[name] if api.cfg.decode_loop != "unroll" else prefill_cache[name][i]
-            layer[name].narrow(-3, 0, covered).copy_(src)
-    return cache
+    """The decode cache of ``max_len`` positions that continues a prefill,
+    as ``api.stitch`` builds it: the transformer's KV cache holding the
+    prefill's K/V at every position it covered, or RWKV-6's prefill state
+    as it is (position-free)."""
+    if api.stitch is None:
+        raise ValueError(f"family {api.cfg.family!r} has no decode cache to stitch")
+    return api.stitch(prefill_cache, max_len)
 
 
 class GreedyDecoder:
@@ -85,16 +77,16 @@ class GreedyDecoder:
     cache_len0, num_steps) -> (tokens (B, num_steps), cache)``, the
     reference's ``greedy_decode_loop``.
 
-    The cache is updated in place (the K/V of every decoded token) and
-    returned; ``logits`` holds the last step's logits (B, V).  On a CUDA
-    device with ``jit`` (the default) the step is captured once per
-    (batch, cache length, params) signature and replayed per token: the
-    caller's cache, token and position are copied into the capture's
-    static buffers before the first step and the cache copied back after
-    the last.  Params are read by address, like the Engine's captured
-    programs: other param tensors capture anew.  ``jit=False`` (the
-    counterpart of ``EngineConfig(jit=False)``) and the CPU run the same
-    step eagerly on the caller's tensors."""
+    The cache is updated in place (the K/V of every decoded token, or the
+    recurrent state after the last) and returned; ``logits`` holds the last
+    step's logits (B, V).  On a CUDA device with ``jit`` (the default) the
+    step is captured once per (batch, cache length, params) signature and
+    replayed per token: the caller's cache, token and position are copied
+    into the capture's static buffers before the first step and the cache
+    copied back after the last.  Params are read by address, like the
+    Engine's captured programs: other param tensors capture anew.
+    ``jit=False`` (the counterpart of ``EngineConfig(jit=False)``) and the
+    CPU run the same step eagerly on the caller's tensors."""
 
     def __init__(self, api: ModelAPI, *, jit: bool = True):
         self.api = api

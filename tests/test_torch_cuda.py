@@ -1628,3 +1628,130 @@ def test_moe_captured_greedy_decode_equals_eager(cuda, arch):
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got_cache),
                                                      tree_leaves(want_cache)))
     assert captured.captures == 1 and captured.replays == 2 * 6 - 1
+
+
+# -- RWKV-6 on the card: its WKV runs through K3 -------------------------------
+
+def _k3_launches() -> int:
+    return launch_counts()["wkv6"]
+
+
+@pytest.mark.cuda
+def test_rwkv_model_card_matches_cpu_with_k3_counted(cuda):
+    """The reduced rwkv6-7b in f32 (TF32 off) on the card against the CPU,
+    at S=70 (past one 64-step chunk): the time-mix layer, the prefill's
+    logits and state, one decode step, ``train_loss`` and every grad leaf
+    at the CPU parity bar.  K3 launches once a layer per forward (once
+    more in the recompute) and ceil(70 / 64) - 1 = 1 a layer in the
+    backward; the CPU runs its plain version and launches nothing."""
+    from repro_torch.layers import rwkv as trwkv
+    from repro_torch.models.transformer import _unstack
+
+    api, cpu, card = _lm_setup("rwkv6-7b", "float32", cuda, s=70)
+    nl = api.cfg.num_layers
+    x = torch.randn(2, 70, api.cfg.d_model, generator=torch.Generator().manual_seed(2))
+    tm_cpu, tm_card = (_unstack(p["layers"], nl)[0]["tm"] for p in (cpu[0], card[0]))
+    before = _k3_launches()
+    want, (_, wst) = trwkv.apply_time_mix(tm_cpu, x, api.cfg)
+    got, (_, gst) = trwkv.apply_time_mix(tm_card, x.to(cuda), api.cfg)
+    assert _k3_launches() == before + 1
+    torch.testing.assert_close(got.cpu(), want, **LM_TRAIN_F32)
+    torch.testing.assert_close(gst.cpu(), wst, **LM_TRAIN_F32)
+
+    before = _k3_launches()
+    want, wstate = api.prefill(cpu[0], {"tokens": cpu[1]["tokens"]})
+    got, gstate = api.prefill(card[0], {"tokens": card[1]["tokens"]})
+    assert _k3_launches() == before + nl
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for name in wstate:
+        torch.testing.assert_close(gstate[name].cpu(), wstate[name], rtol=1e-4, atol=1e-4)
+    token = cpu[1]["tokens"][:, :1]
+    want, _ = api.decode(cpu[0], token, wstate, torch.tensor(70))
+    got, _ = api.decode(card[0], token.to(cuda), gstate, torch.tensor(70, device=cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+    before = _k3_launches()
+    wloss, wgrads = _lm_value_and_grad(api, *cpu, loss_chunk=32)
+    gloss, ggrads = _lm_value_and_grad(api, *card, loss_chunk=32)
+    assert _k3_launches() == before + nl * (1 + 1 + 1)
+    torch.testing.assert_close(gloss.cpu(), wloss, **LM_TRAIN_F32)
+    for g, w in zip(ggrads, wgrads):
+        torch.testing.assert_close(g.cpu(), w, **LM_TRAIN_F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64])
+def test_rwkv_wkv6_backward_card_matches_cpu(cuda, hd, dtype):
+    """``WKV6``'s grads of every input on the card (K3 forward, the chunk
+    states rebuilt by K3, each chunk's adjoint in plain torch) against the
+    CPU's (the plain version throughout), at T=150: 1 + 2 K3 launches."""
+    from repro_torch.layers import rwkv as trwkv
+
+    args = [t.cpu() for t in _wkv6_inputs(2, 150, 3, hd, dtype, seed=hd, rwkv_decay=True)]
+    g = torch.Generator().manual_seed(hd + 1)
+    dy, ds = torch.randn(2, 150, 3, hd, generator=g), torch.randn(2, 3, hd, hd, generator=g)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in args]
+        before = _k3_launches()
+        y, s = trwkv.wkv_scan(*leaves)
+        grads[str(dev)] = torch.autograd.grad(
+            torch.sum(y * dy.to(dev)) + torch.sum(s * ds.to(dev)), leaves)
+        assert _k3_launches() == before + (0 if dev == "cpu" else 3)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_rwkv_captured_greedy_decode_equals_eager(cuda):
+    """The RWKV decode step (K3 at T=1 in each layer, the new state written
+    in place into the capture's buffers) captured once and replayed per token
+    gives the eager loop's tokens, last logits and final state bit for bit:
+    nothing in the step syncs with the host."""
+    from repro_torch.config import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, stitch_prefill_cache
+    from repro_torch.utils import tree_map
+
+    api = build_model(reduced_config("rwkv6-7b"))
+    params = api.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, api.cfg.vocab_size, (3, 9), generator=torch.Generator(cuda).manual_seed(1),
+                         device=cuda, dtype=torch.int32)
+    logits, pre = api.prefill(params, {"tokens": toks})
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    eager = GreedyDecoder(api, jit=False)
+    captured = GreedyDecoder(api)
+    want, want_state = eager(params, stitch_prefill_cache(api, tree_map(torch.clone, pre), 0),
+                             first, 9, 6)
+    for call in range(2):
+        before = _k3_launches()
+        got, got_state = captured(params, stitch_prefill_cache(api, tree_map(torch.clone, pre), 0),
+                                  first, 9, 6)
+        assert _k3_launches() == before + 6 * api.cfg.num_layers
+        assert torch.equal(got, want) and torch.equal(captured.logits, eager.logits)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got_state),
+                                                     tree_leaves(want_state)))
+    assert captured.captures == 1 and captured.replays == 2 * 6 - 1
+
+
+@pytest.mark.cuda
+def test_rwkv_head_dim_outside_k3_raises(cuda):
+    """A head dim K3 does not take raises on the card, naming the dims it
+    takes; nothing falls back to the plain version (the CPU runs it)."""
+    import dataclasses
+
+    from repro_torch.config import reduced_config
+    from repro_torch.layers import rwkv as trwkv
+
+    cfg = reduced_config("rwkv6-7b")
+    cfg = cfg.with_overrides(rwkv=dataclasses.replace(cfg.rwkv, head_dim=8))
+    params = trwkv.init_time_mix(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(2, 5, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    trwkv.apply_time_mix(params, x, cfg)
+    with pytest.raises(ValueError, match=r"head dims \(16, 32, 64\)"):
+        trwkv.apply_time_mix({k: (v.to(cuda) if isinstance(v, torch.Tensor) else
+                                  {n: t.to(cuda) for n, t in v.items()}) for k, v in params.items()},
+                             x.to(cuda), cfg)
