@@ -201,6 +201,26 @@ toolkit.  It
    ``scaled_dot_product_attention`` must not run.  The ``wkv6`` entry's
    launches on the kernels line add this phase's count to its
    ``wkv6_op`` path's 3.
+15. drives Jamba at full width, last (``[jamba]`` lines): the reduced
+   jamba-v0.1-52b card against CPU (f32 prefill logits, every state, one
+   decode step from stitched states, routing, ``train_loss`` and every
+   grad leaf; bf16 logits no farther from the CPU's f32 than the CPU's own
+   bf16); jamba-v0.1-52b cut to one period of four (8 of 32 layers, 53.2 GB
+   of f32 params: 7 Mamba, 1 attention without RoPE, 4 MoE of 16 experts
+   top-2, 4 SwiGLU MLPs), each position kind on its own card against CPU at
+   B=1, S=32 in f32 and bf16 (the Mamba layer with its state and a decode
+   step, attention with a decode step, an MLP, a MoE layer with its
+   routing), decode against prefill (B=2, S=64, f32, the reference's bar),
+   served at B=8, S=2048 (prefill ms beside its bound, drop share per MoE
+   layer, one profiled prefill's host launch calls and idle share) with 64
+   greedy tokens eager and captured (tokens identical, one capture; ms a
+   token beside the bound, launch calls a token, the captured decode's idle
+   share, peak memory); one full-width Mamba layer forward and backward at
+   B=4, S=2048 (ms, peak memory); ``serve`` and ``train`` at the reduced
+   config as subprocesses, the second train run resuming, the first step's
+   loss held to the CPU's.  The reference's Jamba reaches no Pallas kernel,
+   so K1-K4 must not launch over the phase (predicted 0) and no library
+   attention may run.
 
 The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
@@ -409,6 +429,31 @@ RWKV_SERVE_B, RWKV_SERVE_S, RWKV_DECODE = 8, 2048, 64
 RWKV_PROFILE_TOKENS = 4
 RWKV_TRAIN_B, RWKV_TRAIN_S, RWKV_TRAIN_STEPS = 4, 2048, 6
 RWKV_LAUNCH_TRAIN_STEPS = 4
+# Jamba at full width (``[jamba]`` lines): jamba-v0.1-52b (src/repro_torch/
+# configs/jamba_v0_1_52b.py: 32 layers in 4 periods of 8; in a period 7
+# Mamba mixers (d_inner 8192, d_state 16, dt_rank 256, d_conv 4) and
+# attention without RoPE at position 4 (32 heads / 8 kv heads of 128), the
+# MoE layer of 16 experts top-2 (d_ff 14,336) at positions 1, 3, 5, 7 and
+# the SwiGLU MLP elsewhere; vocab 65,536), params in f32 drawn on the card
+# from seed 0, bf16 compute.  Widths are never cut; depth is, once: one
+# period of four (8 of 32 layers, 13.30e9 params, 53.2 GB; two periods
+# need 106 GB).  Each position kind is held card against CPU at B=1, S=32
+# in f32 and bf16 (the Mamba layer at the reference's Mamba bar, the
+# others at the [lm] bars); the whole period is not run on the CPU (53 GB
+# of host memory).  Served at B=8, S=2048 with JAMBA_DECODE greedy tokens
+# eager and captured; decode against prefill at B=2, S=64 (f32,
+# capacity_factor 16, the reference's bar, tests/test_serving_consistency.py:80-107).
+# A full-width train step of one period needs 13.3e9 x 16 bytes (213 GB)
+# and is not run; one full-width Mamba layer runs forward and backward at
+# B=4, S=2048, and the launcher trains the reduced config.
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_PERIODS = 1
+JAMBA_MAMBA_TOL = (2e-4, 2e-5)     # tests/test_layers.py:210-229
+JAMBA_CONSISTENCY_TOL = 5e-2
+JAMBA_SERVE_B, JAMBA_SERVE_S, JAMBA_DECODE = 8, 2048, 64
+JAMBA_PROFILE_TOKENS = 4
+JAMBA_TRAIN_B, JAMBA_TRAIN_S = 4, 2048
+JAMBA_LAUNCH_B, JAMBA_LAUNCH_S, JAMBA_LAUNCH_STEPS, JAMBA_CKPT_EVERY = 2, 64, (4, 6), 2
 
 
 def log(msg: str) -> None:
@@ -2036,9 +2081,10 @@ def serve_mesh_http(torch) -> str:
 
 
 def device_busy_over(torch, fn, names: bool = False) -> dict:
-    """Wall time of one ``fn()`` and the time the device was busy in it (the
-    union of its kernels', copies' and memsets' intervals), from one
-    ``torch.profiler`` pass; with ``names`` also every event's name seen
+    """Wall time of one ``fn()``, the time the device was busy in it (the
+    union of its kernels', copies' and memsets' intervals) and the launch
+    calls the host made, from one ``torch.profiler`` pass; with ``names``
+    also every event's name seen
     (host operators and device kernels) and the device time (ms) summed
     per device kernel name."""
     from torch.profiler import ProfilerActivity, profile
@@ -2057,7 +2103,8 @@ def device_busy_over(torch, fn, names: bool = False) -> dict:
             busy_us += b - max(a, end)
             end = b
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "device_ops": len(spans),
-           "idle_share": 1.0 - busy_us / 1e3 / wall_ms}
+           "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+           "host_calls": sum(e.name in LAUNCH_CALLS for e in prof.events())}
     if names:
         out["names"] = sorted({e.name for e in prof.events()})
         by_name: dict = {}
@@ -2420,20 +2467,27 @@ def check_k4(torch, results) -> None:
                     f"{w['mean_abs_out']:.4f}" for k, w in wide.items()))
 
 
-def device_kernels(torch, fn) -> list[str]:
-    """Names of the device kernels one ``fn()`` call runs, from one
-    ``torch.profiler`` pass; raises if the pass sees none."""
+def device_kernels(torch, fn, calls: int = 3, passes: int = 3) -> list[str]:
+    """Names of the device kernels ``fn()`` runs, from a ``torch.profiler``
+    pass over ``calls`` calls of it.  ``fn`` always launches work, so a pass
+    that records no device event at all lost its trace; such a pass is
+    logged and run again, at most ``passes`` times in all, and the check
+    fails if none of them sees a kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(1, passes + 1):
         torch.cuda.synchronize()
-    names = sorted({e.name for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA})
-    if not names:
-        raise AssertionError("torch.profiler saw no device kernel in its pass")
-    return names
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            return names
+        log(f"[profiler] pass {attempt} of {passes} over {calls} calls recorded no device event")
+        time.sleep(0.5)
+    raise AssertionError(f"torch.profiler saw no device kernel in {passes} passes")
 
 
 def time_k4(torch, results, card) -> dict:
@@ -4569,6 +4623,604 @@ def drive_rwkv(torch, results, card) -> None:
     log(f"[rwkv] phase {out['phase_s']:.1f} s [{card}]")
 
 
+def jamba_kinds(cfg) -> dict:
+    """How many layers of each kind a Jamba period holds."""
+    from repro_torch.models.jamba import PERIOD, _layer_kind
+
+    kinds = [_layer_kind(cfg, j) for j in range(PERIOD)]
+    return {"mamba": sum(m == "mamba" for m, _ in kinds),
+            "attn": sum(m == "attn" for m, _ in kinds),
+            "mlp": sum(f == "mlp" for _, f in kinds), "moe": sum(f == "moe" for _, f in kinds)}
+
+
+def jamba_layer_params(cfg) -> dict:
+    """Params of each position part at full width: the Mamba mixer's
+    product weights and its other leaves, attention, the MLP, one expert,
+    the router, a layer's two norms."""
+    from repro_torch.layers.mamba import mamba_dims
+
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    di, ds, r = mamba_dims(cfg)
+    return {"mamba_prod": 3 * d * di + di * (r + 2 * ds) + r * di,
+            "mamba_other": cfg.ssm.d_conv * di + 3 * di + di * ds,
+            "attn": 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd,
+            "mlp": 3 * d * cfg.d_ff, "expert": 3 * d * cfg.d_ff,
+            "router": d * cfg.moe.num_experts, "norms": 2 * d}
+
+
+def jamba_serve_bound(cfg, b: int, s: int, past: int, kept_pairs: float,
+                      touched: float) -> tuple[float, float, float]:
+    """(bf16 FLOP, f32 FLOP, bytes) of one forward of b x s new tokens after
+    ``past`` cached positions with the last position's logits (a prefill:
+    past 0; a decode step: s 1).  bf16: the Mamba, attention and MLP
+    products, the experts' of the ``kept_pairs`` (token, choice) pairs
+    routed and not dropped (summed over the layers) and the unembed; f32
+    (TF32 off, FP32 cores): causal attention over the visible (query, key)
+    pairs, the selective scan at 8 FLOP per (token, channel, state) (dt·A,
+    exp, dt·B, ·x, da·h + dbx, C·h), the router (f64, counted here).
+    Bytes: the f32 weights read once, of the experts only the ``touched``
+    ones (summed over the layers), of the table only the b*s rows; the
+    bf16 K/V read for the past and written for the new positions; the
+    Mamba states written (a prefill) or read and written (a decode: ssm
+    f32, conv bf16); the bf16 logits."""
+    from repro_torch.layers.mamba import mamba_dims
+
+    k, p, n_p = jamba_kinds(cfg), jamba_layer_params(cfg), cfg.num_layers // 8
+    d, hd, v = cfg.d_model, cfg.resolved_head_dim(), cfg.vocab_size
+    di, ds, _ = mamba_dims(cfg)
+    bf16 = (2.0 * b * s * n_p * (k["mamba"] * p["mamba_prod"] + k["attn"] * p["attn"]
+                                 + k["mlp"] * p["mlp"])
+            + 2.0 * p["expert"] * kept_pairs + 2.0 * b * d * v)
+    f32 = (4.0 * hd * cfg.num_heads * k["attn"] * n_p * b * (s * past + s * (s + 1) / 2)
+           + 8.0 * b * s * di * ds * k["mamba"] * n_p + 2.0 * b * s * p["router"] * k["moe"] * n_p)
+    dense = n_p * (k["mamba"] * (p["mamba_prod"] + p["mamba_other"]) + k["attn"] * p["attn"]
+                   + k["mlp"] * p["mlp"] + k["moe"] * p["router"] + 8 * p["norms"]) + d * v + d
+    state = k["mamba"] * n_p * b * (4 * di * ds + 2 * (cfg.ssm.d_conv - 1) * di)
+    nbytes = (4.0 * (dense + p["expert"] * touched) + 4.0 * b * s * d
+              + 2.0 * 2 * k["attn"] * n_p * b * cfg.num_kv_heads * hd * (past + s)
+              + (1 if past == 0 else 2) * state + 2.0 * b * v)
+    return bf16, f32, nbytes
+
+
+def jamba_routes_agree(torch, want, got) -> tuple[list, int]:
+    """Per MoE call, the share of tokens routed to the same experts by two
+    recorded runs (``recorded_routing``), and the tokens that differ where
+    the first run's k-th and (k+1)-th probabilities lie within 1e-5 (ties,
+    counted); a difference elsewhere raises."""
+    agree, ties = [], 0
+    for (_, wi, wp), (_, gi, _) in zip(want, got):
+        same = (torch.sort(wi.cpu(), -1).values == torch.sort(gi.cpu(), -1).values).all(-1)
+        top = torch.topk(wp.cpu(), wi.shape[-1] + 1, dim=-1).values
+        tie = (top[:, -2] - top[:, -1]) <= 1e-5
+        if (~same & ~tie).any():
+            raise AssertionError(f"[jamba] routing differs away from a tie at tokens "
+                                 f"{torch.nonzero(~same & ~tie).flatten().tolist()}")
+        agree.append(float(same.float().mean()))
+        ties += int((~same).sum())
+    return agree, ties
+
+
+def jamba_check_reduced(torch, out, card) -> None:
+    """The whole reduced config, card against CPU: in f32 (TF32 off) the
+    prefill's logits and every state, one decode step from each side's
+    stitched states (logits and every state written) at LM_F32_TOL, the
+    routing equal away from ties, ``train_loss`` and every grad leaf at
+    the [lm-train] f32 bars; in bf16 the prefill's logits no farther from
+    the CPU's f32 ones than the CPU's own bf16 logits are, plus the bf16
+    bar (the bf16 chains of two devices drift apart through 8 layers, as
+    the port's and the JAX package's do, tests/test_torch_jamba.py)."""
+    from repro_torch.config import reduced_config
+    from repro_torch.data import LMDataConfig, make_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = reduced_config(JAMBA_ARCH)
+    b, s = 2, 12
+    cpu_params = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    params = tree_map(lambda t: t.cuda(), cpu_params)
+    batch = make_lm_batch(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b), 0)
+    pos = torch.tensor(s, dtype=torch.int32)
+    logits = {}
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        api = build_model(cfg.with_overrides(compute_dtype=dtype))
+        with recorded_routing() as want_routes:
+            want, wst = api.prefill(cpu_params, {"tokens": batch["tokens"]})
+        with recorded_routing() as got_routes:
+            got, gst = api.prefill(params, {"tokens": batch["tokens"].cuda()})
+        logits[tag] = (got.float().cpu(), want.float())
+        if tag == "bf16":
+            err = float((got.float().cpu() - want.float()).abs().max())
+            mine = float((got.float().cpu() - logits["f32"][1]).abs().max())
+            theirs = float((want.float() - logits["f32"][1]).abs().max())
+            if mine > theirs + LM_BF16_TOL:
+                raise AssertionError(f"[jamba] reduced bf16 logits: the card {mine:.4g} from the "
+                                     f"CPU's f32, the CPU's bf16 {theirs:.4g}")
+            out["reduced_bf16"] = {"logits_max_abs_err": err, "card_from_cpu_f32": mine,
+                                   "cpu_bf16_from_cpu_f32": theirs}
+            log(f"[jamba] card against CPU, {cfg.name} (one period, d_model {cfg.d_model}) bf16, "
+                f"B={b} S={s}: prefill logits max abs err {err:.3g}; the card's {mine:.3g} and the "
+                f"CPU's own {theirs:.3g} from the CPU's f32 logits (held: the card no farther, "
+                f"+{LM_BF16_TOL}) [{card}]")
+            continue
+        agree, ties = jamba_routes_agree(torch, want_routes, got_routes)
+        torch.testing.assert_close(got.cpu(), want, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+        st_err = max(float((g.cpu() - w).abs().max()) for g, w in zip(tree_leaves(gst),
+                                                                       tree_leaves(wst)))
+        for g, w in zip(tree_leaves(gst), tree_leaves(wst)):
+            torch.testing.assert_close(g.cpu(), w, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+        wst, gst = api.stitch(wst, s + 1), api.stitch(gst, s + 1)
+        token = batch["tokens"][:, :1]
+        wdec, _ = api.decode(cpu_params, token, wst, pos)
+        gdec, _ = api.decode(params, token.cuda(), gst, pos.cuda())
+        torch.testing.assert_close(gdec.cpu(), wdec, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+        for g, w in zip(tree_leaves(gst), tree_leaves(wst)):
+            torch.testing.assert_close(g.cpu(), w, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+        want_loss, wgrads = lm_value_and_grad(torch, api, cpu_params, batch, loss_chunk=s)
+        got_loss, ggrads = lm_value_and_grad(torch, api, params,
+                                             {k: v.cuda() for k, v in batch.items()}, loss_chunk=s)
+        torch.testing.assert_close(got_loss.cpu(), want_loss, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+        errs = [rel_fro(torch, g.cpu(), w) for g, w in zip(ggrads, wgrads)]
+        if max(errs) > LM_TRAIN_F32_GRAD_REL:
+            raise AssertionError(f"[jamba] reduced f32 grads card vs CPU: {errs}")
+        out["reduced_f32"] = {
+            "logits_max_abs_err": float((got.cpu() - want).abs().max()),
+            "state_max_abs_err": st_err,
+            "decode_max_abs_err": float((gdec.cpu() - wdec).abs().max()), "routing_agree": agree,
+            "routing_ties": ties, "loss": float(want_loss),
+            "loss_abs_err": abs(float(got_loss) - float(want_loss)), "grad_rel_fro_max": max(errs)}
+        r = out["reduced_f32"]
+        log(f"[jamba] card against CPU, {cfg.name} (one period: 7 Mamba, 1 attention, 4 MoE of "
+            f"{cfg.moe.num_experts} experts) f32, B={b} S={s}: prefill logits max abs err "
+            f"{r['logits_max_abs_err']:.3g}, every state {st_err:.3g}, one decode step from each "
+            f"side's stitched states {r['decode_max_abs_err']:.3g} (rtol = atol = {LM_F32_TOL}); "
+            f"routing agreement per MoE layer {', '.join(f'{x:.4f}' for x in agree)} ({ties} "
+            f"ties); train_loss {r['loss']:.6f}, abs err {r['loss_abs_err']:.3g}, {len(errs)} grad "
+            f"leaves, relative Frobenius error max {max(errs):.3g} (bar {LM_TRAIN_F32_GRAD_REL}) "
+            f"[{card}]")
+
+
+def jamba_check_kinds(torch, cfg, params, out, card) -> None:
+    """Each position kind of the full-width period on its own, card against
+    CPU at B=1, S=32 in f32 (TF32 off) and bf16: the Mamba mixer of position
+    0 (y, ``ssm`` and ``conv``, then one decode step from that state), the
+    attention of position 4 (y and the unrotated K/V, then one decode step
+    against them), position 0's MLP and position 1's MoE layer (routing
+    equal away from ties).  Bars: the Mamba
+    layer's the reference's own in f32, the others LM_F32_TOL; bf16
+    LM_BF16_TOL."""
+    from repro_torch.layers import attention as attn_m
+    from repro_torch.layers import mamba as mamba_m
+    from repro_torch.layers.mlp import apply_mlp
+    from repro_torch.layers.moe import apply_moe
+    from repro_torch.utils import tree_map
+
+    parts = {name: tree_map(lambda t: t[0], params["positions"][j][part])
+             for name, j, part in (("mamba", 0, "mixer"), ("attn", 4, "mixer"), ("mlp", 0, "ffn"),
+                                   ("moe", 1, "ffn"))}
+    t0 = time.perf_counter()
+    on_cpu = tree_map(lambda t: t.cpu(), parts)
+    log(f"[jamba] the four position parts copied to the host in {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    rows = out["kinds"] = {}
+    b, s = LM_CPU_B, LM_CPU_S
+    for tag, dtype, bf16 in (("f32", torch.float32, False), ("bf16", torch.bfloat16, True)):
+        x = torch.randn(b, s, cfg.d_model, generator=torch.Generator().manual_seed(5)).to(dtype)
+        tol = (dict(rtol=LM_BF16_TOL, atol=LM_BF16_TOL) if bf16 else
+               dict(rtol=LM_F32_TOL, atol=LM_F32_TOL))
+        mtol = tol if bf16 else dict(rtol=JAMBA_MAMBA_TOL[0], atol=JAMBA_MAMBA_TOL[1])
+        t0 = time.perf_counter()
+        errs = {}
+
+        def held(name, got, want, bar):
+            errs[name] = float((got.float().cpu() - want.float()).abs().max())
+            torch.testing.assert_close(got.float().cpu(), want.float(), **bar)
+
+        lp, cpu = parts["mamba"], on_cpu["mamba"]
+        y, st = mamba_m.apply_mamba(lp, x.cuda(), cfg)
+        wy, wst = mamba_m.apply_mamba(cpu, x, cfg)
+        held("mamba_y", y, wy, mtol)
+        held("mamba_ssm", st["ssm"], wst["ssm"], mtol)
+        held("mamba_conv", st["conv"], wst["conv"], mtol)
+        y1, _ = mamba_m.apply_mamba_step(lp, x[:, -1].cuda(), cfg, st)
+        wy1, _ = mamba_m.apply_mamba_step(cpu, x[:, -1], cfg, wst)
+        held("mamba_step_y", y1, wy1, mtol)
+        held("mamba_step_ssm", st["ssm"], wst["ssm"], mtol)
+
+        lp, cpu = parts["attn"], on_cpu["attn"]
+        y, (k, v) = attn_m.apply_attention(lp, x.cuda(), cfg=cfg, causal=True, use_rope=False,
+                                           return_kv=True)
+        wy, (wk, wv) = attn_m.apply_attention(cpu, x, cfg=cfg, causal=True, use_rope=False,
+                                              return_kv=True)
+        held("attn_y", y, wy, tol)
+        held("attn_kv", torch.cat([k, v]), torch.cat([wk, wv]), tol)
+        caches = []
+        for kk, vv in ((k, v), (wk, wv)):
+            pad = torch.zeros_like(kk[:, :1])
+            caches.append({"k": torch.cat([kk, pad], 1), "v": torch.cat([vv, pad], 1)})
+        y1, _ = attn_m.decode_attention(lp, x[:, -1:].cuda(), caches[0],
+                                        torch.tensor(s, device="cuda"), cfg=cfg, use_rope=False)
+        wy1, _ = attn_m.decode_attention(cpu, x[:, -1:], caches[1], torch.tensor(s), cfg=cfg,
+                                         use_rope=False)
+        held("attn_step_y", y1, wy1, tol)
+
+        held("mlp_y", apply_mlp(parts["mlp"], x.cuda(), cfg), apply_mlp(on_cpu["mlp"], x, cfg), tol)
+
+        lp, cpu = parts["moe"], on_cpu["moe"]
+        with recorded_routing() as got_routes:
+            y, aux = apply_moe(lp, x.cuda(), cfg)
+        with recorded_routing() as want_routes:
+            wy, waux = apply_moe(cpu, x, cfg)
+        agree, ties = jamba_routes_agree(torch, want_routes, got_routes)
+        held("moe_y", y, wy, tol)
+        held("moe_aux", aux, waux, tol)
+        rows[tag] = dict(errs, routing_agree=agree[0], routing_ties=ties,
+                         s=time.perf_counter() - t0)
+        log(f"[jamba] card against CPU, each position kind of {cfg.name} at full width on its "
+            f"own, {tag}, B={b} S={s}: " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f" (max abs err; Mamba at rtol {mtol['rtol']} atol {mtol['atol']}, the others at "
+            f"{tol['rtol']}); the MoE layer's routing agreement {agree[0]:.4f} ({ties} ties) "
+            f"({rows[tag]['s']:.1f} s) [{card}]")
+
+
+def jamba_decode_vs_prefill(torch, cfg, params, out, card) -> None:
+    """Decode against prefill with the full-width period, f32 compute,
+    capacity_factor 16, B=2, S=64: the prefill's states of S tokens,
+    stitched, decode token S+1 to the last position of a prefill of S+1,
+    at the reference's bar; greedy tokens equal away from ties."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    c = cfg.with_overrides(compute_dtype="float32",
+                           moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_CONSISTENCY_CF))
+    api = build_model(c)
+    b, s = LM_CONSISTENCY_B, LM_CONSISTENCY_S
+    toks = torch.randint(0, c.vocab_size, (b, s + 1), dtype=torch.int32, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(2))
+    full, _ = api.prefill(params, {"tokens": toks})
+    _, pre = api.prefill(params, {"tokens": toks[:, :-1]})
+    dec, _ = api.decode(params, toks[:, -1:], api.stitch(pre, s + 1),
+                        torch.tensor(s, dtype=torch.int32, device="cuda"))
+    want, got = full[:, -1].float(), dec[:, -1].float()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=JAMBA_CONSISTENCY_TOL, atol=JAMBA_CONSISTENCY_TOL)
+    decided = greedy_decided(torch, want, 23)
+    if not torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided]):
+        raise AssertionError(f"[jamba] decode against prefill: greedy {got.argmax(-1).tolist()} "
+                             f"against {want.argmax(-1).tolist()}")
+    out["decode_vs_prefill"] = {"max_abs_err": err, "tokens": want.argmax(-1).tolist(),
+                                "ties": int((~decided).sum())}
+    log(f"[jamba] decode against prefill, {c.name} at full width ({c.num_layers} layers) f32 "
+        f"(TF32 off), capacity_factor {MOE_CONSISTENCY_CF:g}, B={b}: the stitched states of a "
+        f"{s}-token prefill decode token {s + 1}: logits max abs err {err:.3g} against a "
+        f"{s + 1}-token prefill's last position (bar {JAMBA_CONSISTENCY_TOL}, the reference's); "
+        f"greedy tokens {want.argmax(-1).tolist()} equal ({int((~decided).sum())} ties) [{card}]")
+
+
+def jamba_serve(torch, cfg, params, out, card) -> None:
+    """The full-width period served: prefill at JAMBA_SERVE_B x JAMBA_SERVE_S
+    (routing recorded: drop share and aux per MoE layer) beside its bound,
+    one prefill profiled for the host's launch calls, the device's idle
+    share and its largest kernels; then JAMBA_DECODE greedy
+    tokens eager and captured (twice), each from its own stitched states:
+    tokens identical, one capture; ms a token beside the bound, launch calls
+    and device kernels a token, the captured decode's idle share; peak
+    memory."""
+    from repro_torch.layers.moe import capacity
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, build_prefill_step
+    from repro_torch.utils import tree_map
+
+    api = build_model(cfg)
+    b, s, n = JAMBA_SERVE_B, JAMBA_SERVE_S, JAMBA_DECODE
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32, device="cuda",
+                                     generator=torch.Generator("cuda").manual_seed(3))}
+    step = build_prefill_step(api, kv_chunk=LM_KV_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = []
+    for call in range(2):       # the first call also loads cuBLAS's kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_routing() as calls:
+            logits, pre = step(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        routes = routing_stats(torch, cfg, calls)
+        del calls
+    if not torch.isfinite(logits).all() or not all(torch.isfinite(t).all()
+                                                   for st in pre for t in st.values()):
+        raise AssertionError(f"[jamba] {cfg.name} prefill: non-finite logits or states")
+    del logits, pre
+    held = {}
+    prof = device_busy_over(torch, lambda: held.update(out=step(params, batch)), names=True)
+    logits, pre = held.pop("out")
+    prof.pop("names")
+    top = list(prof["device_ms_by_name"].items())[:MOE_TOP_KERNELS]
+    first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    runs, decoders = {}, {"eager": GreedyDecoder(api, jit=False), "captured": GreedyDecoder(api)}
+    for name, decoder in decoders.items():
+        for call in range(2 if name == "captured" else 1):   # captured: capture, then replays
+            cache = api.stitch(tree_map(torch.clone, pre), s + n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "eager":
+                with recorded_routing() as calls:
+                    tokens, _ = decoder(params, cache, first, s, n)
+                decode_routes = routing_stats(torch, cfg, calls)
+                del calls
+            else:
+                tokens, _ = decoder(params, cache, first, s, n)
+            torch.cuda.synchronize()
+            runs.setdefault(name, []).append(((time.perf_counter() - t0) * 1e3, tokens,
+                                              decoder.logits))
+    want_tokens = runs["eager"][0][1]
+    if not all(torch.equal(t, want_tokens) for _, t, _ in runs["captured"]):
+        raise AssertionError(f"[jamba] {cfg.name}: captured greedy tokens differ from the eager "
+                             f"loop's")
+    if decoders["captured"].captures != 1:
+        raise AssertionError(f"[jamba] {decoders['captured'].captures} decode captures, expected 1")
+    logits_equal = all(torch.equal(lg, runs["eager"][0][2]) for _, _, lg in runs["captured"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    k = jamba_kinds(cfg)
+    n_moe = k["moe"] * cfg.num_layers // 8
+    pf = jamba_serve_bound(cfg, b, s, 0, sum(routes["kept_pairs"]), sum(routes["touched_experts"]))
+    pf_bound, pf_by = mixed_bound(*pf)
+    touched = sum(decode_routes["touched_experts"]) / n                # a token's, over the layers
+    dc = jamba_serve_bound(cfg, b, 1, s + n // 2, b * cfg.moe.top_k * n_moe, touched)
+    dc_bound, dc_by = mixed_bound(*dc)
+    out.update({
+        "prefill_ms": prefill_ms[1], "prefill_first_ms": prefill_ms[0],
+        "prefill_bound_ms": pf_bound, "prefill_bound_by": pf_by, "prefill_bf16_flops": pf[0],
+        "prefill_f32_flops": pf[1], "prefill_bytes": pf[2], "prefill_routing": routes,
+        "profiled_prefill": dict(prof, device_ms_by_name=dict(top)),
+        "decode_touched_experts_per_layer": touched / n_moe,
+        "decode_bound_ms_per_token": dc_bound, "decode_bound_by": dc_by, "peak_memory_gb": peak_gb,
+        "captures": decoders["captured"].captures, "replays": decoders["captured"].replays,
+        "last_logits_bit_equal": logits_equal, "tokens_row0": want_tokens[0, :16].tolist()})
+    log(f"[jamba] {cfg.name} prefill B={b} S={s} (kv_chunk {LM_KV_CHUNK}, eager): "
+        f"{prefill_ms[1]:.1f} ms (first call {prefill_ms[0]:.1f} ms); bound {pf_bound:.2f} ms by "
+        f"{pf_by}, the largest of: {pf[0] / 1e12:.2f} TFLOP of products at the bf16 dense peak "
+        f"{pf[0] / PEAK_BF16_FLOPS * 1e3:.2f} ms (experts counted for the pairs kept), "
+        f"{pf[1] / 1e12:.3f} TFLOP of f32 attention, scan and router at the FP32 peak "
+        f"{pf[1] / PEAK_F32_FLOPS * 1e3:.2f} ms, {pf[2] / 1e9:.2f} GB at HBM bandwidth "
+        f"{pf[2] / PEAK_BYTES * 1e3:.2f} ms; {prefill_ms[1] / pf_bound:.2f}x the bound [{card}]")
+    log(f"[jamba] {cfg.name} one profiled prefill: {prof['host_calls']:,} launch calls on the "
+        f"host, {prof['device_ops']:,} device kernels/copies, {prof['wall_ms']:.1f} ms, the device "
+        f"busy {prof['device_busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}); the largest "
+        f"{len(top)} kernel names by device time: "
+        + "; ".join(f"{name[:64]} {t:.1f} ms" for name, t in top) + f" [{card}]")
+    drops = ", ".join(f"{x:.4f}" for x in routes["drop_share"])
+    auxes = ", ".join(f"{x:.4f}" for x in routes["aux"])
+    log(f"[jamba] {cfg.name} prefill routing per MoE layer (positions 1, 3, 5, 7), {b * s} tokens "
+        f"top-{cfg.moe.top_k} of {cfg.moe.num_experts} experts, capacity {capacity(b * s, cfg)} a "
+        f"expert: drop share {drops}; aux {auxes} [{card}]")
+    for name in ("eager", "captured"):
+        ms = runs[name][-1][0]
+        out[name] = {"decode_ms_per_token": ms / n, "tokens_per_s": b * n / (ms / 1e3)}
+        capture = ""
+        if name == "captured":
+            out[name]["capture_call_ms_per_token"] = runs[name][0][0] / n
+            capture = f" (the call that captured: {runs[name][0][0] / n:.3f} ms/token)"
+        log(f"[jamba] {cfg.name} decode {name} B={b}, {n} tokens after the prefill: {ms / n:.3f} "
+            f"ms/token, {b * n / (ms / 1e3):,.0f} tokens/s{capture}; bound {dc_bound:.3f} ms/token "
+            f"by {dc_by} (the f32 weights read once, of the experts the {touched / n_moe:.1f} a "
+            f"layer this run routed a token to, the states read and written) [{card}]")
+    cache = api.stitch(tree_map(torch.clone, pre), s + n)     # the captured graph's signature
+    for name, decoder in decoders.items():
+        lpd = host_launches(torch, lambda: decoder(params, cache, first, s, JAMBA_PROFILE_TOKENS))
+        out[name]["host_calls_per_token"] = lpd["host_total"] / JAMBA_PROFILE_TOKENS
+        out[name]["device_ops_per_token"] = lpd["device_ops"] / JAMBA_PROFILE_TOKENS
+        log(f"[jamba] {cfg.name} decode {name}: {lpd['host_total'] / JAMBA_PROFILE_TOKENS:.1f} "
+            f"launch calls per token on the host, {lpd['device_ops'] / JAMBA_PROFILE_TOKENS:.1f} "
+            f"device kernels/copies per token (one torch.profiler pass over "
+            f"{JAMBA_PROFILE_TOKENS} tokens, the states' copies in and out included) [{card}]")
+    busy = device_busy_over(
+        torch, lambda: decoders["captured"](params, cache, first, s, JAMBA_PROFILE_TOKENS))
+    if decoders["captured"].captures != 1:
+        raise AssertionError(f"[jamba] the profiled decodes captured again "
+                             f"({decoders['captured'].captures} captures)")
+    out["profiled_captured_decode"] = busy
+    log(f"[jamba] {cfg.name} captured tokens equal the eager loop's ({n} tokens x {b} rows, both "
+        f"captured calls; last logits bit-equal: {logits_equal}); "
+        f"{decoders['captured'].captures} capture, {decoders['captured'].replays} replays; a "
+        f"profiled captured decode of {JAMBA_PROFILE_TOKENS} tokens: the device busy "
+        f"{busy['device_busy_ms']:.1f} of {busy['wall_ms']:.1f} ms (idle share "
+        f"{busy['idle_share']:.3f}); peak memory {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated) [{card}]")
+
+
+def jamba_train_mamba_layer(torch, cfg, lp, out, card) -> None:
+    """One full-width Mamba mixer (``lp``, f32 params) forward and backward
+    at JAMBA_TRAIN_B x JAMBA_TRAIN_S, x in bf16, as a train step runs it
+    (autograd through the step-by-step scan): ms of the steady calls beside
+    the bound, and peak memory above the params."""
+    from repro_torch.layers.mamba import apply_mamba, mamba_dims
+    from repro_torch.utils import tree_leaves, tree_map
+
+    b, s = JAMBA_TRAIN_B, JAMBA_TRAIN_S
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(True), lp)
+    leaves = tree_leaves(p)
+    n_params = sum(t.numel() for t in leaves)
+    g = torch.Generator("cuda").manual_seed(6)
+    x = torch.randn(b, s, cfg.d_model, generator=g, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(b, s, cfg.d_model, generator=g, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = apply_mamba(p, x, cfg)
+        grads = torch.autograd.grad(y, leaves + [x], dy)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(torch.isfinite(t).all() for t in grads):
+            raise AssertionError("[jamba] a Mamba layer grad is not finite")
+        del y, grads
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    di, ds, _ = mamba_dims(cfg)
+    prod = jamba_layer_params(cfg)["mamba_prod"]
+    bf16, f32 = 6.0 * b * s * prod, 3 * 8.0 * b * s * di * ds
+    nbytes = 8.0 * n_params + 3 * 2.0 * b * s * cfg.d_model
+    bound_ms, bound_by = mixed_bound(bf16, f32, nbytes)
+    out["mamba_layer_train"] = {"batch": b, "seq_len": s, "params": n_params, "ms": ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by,
+                                "peak_memory_gb_above_params": peak_gb}
+    log(f"[jamba] one full-width Mamba layer ({n_params:,} f32 params) forward and backward, "
+        f"B={b} S={s}, bf16 x: {', '.join(f'{t:.1f}' for t in ms)} ms (the first loads kernels); "
+        f"bound {bound_ms:.3f} ms by {bound_by} ({bf16 / 1e12:.2f} TFLOP of products at the bf16 "
+        f"peak, {f32 / 1e12:.3f} TFLOP of scan forward and backward at the FP32 peak); "
+        f"{min(ms[1:]) / bound_ms:.1f}x the bound; peak memory {peak_gb:.2f} GB above the params "
+        f"and inputs (torch.cuda.max_memory_allocated) [{card}]")
+
+
+def jamba_launchers(torch, out, card) -> None:
+    """``serve --arch jamba-v0.1-52b --reduced`` once, and ``train`` at the
+    reduced config twice over one checkpoint directory (JAMBA_LAUNCH_STEPS,
+    a checkpoint every JAMBA_CKPT_EVERY), the second resuming; every loss
+    printed finite, and the first step's loss held to the CPU's: the
+    launcher's params are drawn on the card from seed 0, so the same draw
+    here, copied to the CPU, gives the CPU's loss on the launcher's first
+    batch (bf16 compute: LM_BF16_TOL, the print's 4 decimals on top)."""
+    import argparse
+    import math
+    import tempfile
+
+    from repro_torch.config import reduced_config
+    from repro_torch.data import host_slice
+    from repro_torch.launch.train import make_iterator
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_map
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = out["launchers"] = {}
+    args = ["--batch", str(JAMBA_LAUNCH_B), "--seq-len", str(JAMBA_LAUNCH_S)]
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name, cmd in (
+                ("serve", ["repro_torch.launch.serve", "--arch", JAMBA_ARCH, "--reduced"]),
+                ("train", ["repro_torch.launch.train", "--arch", JAMBA_ARCH, "--steps",
+                           str(JAMBA_LAUNCH_STEPS[0]), "--ckpt-every", str(JAMBA_CKPT_EVERY),
+                           "--ckpt-dir", ckpt, *args]),
+                ("train_resumed", ["repro_torch.launch.train", "--arch", JAMBA_ARCH, "--steps",
+                                   str(JAMBA_LAUNCH_STEPS[1]), "--ckpt-every",
+                                   str(JAMBA_CKPT_EVERY), "--ckpt-dir", ckpt, *args])):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *cmd], capture_output=True, text=True,
+                                  timeout=300, env=env, cwd=ROOT)
+            wall = time.perf_counter() - t0
+            tag = "[serve]" if name == "serve" else "[train]"
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(tag)]
+            done = "sample continuation" if name == "serve" else "[train] done"
+            losses = [float(x) for x in re.findall(r"loss=(\S+)", proc.stdout)]
+            if (proc.returncode != 0 or done not in proc.stdout
+                    or not all(math.isfinite(x) for x in losses)):
+                raise AssertionError(f"[jamba] {' '.join(cmd)} (rc {proc.returncode}): "
+                                     f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+            runs[name] = {"rc": proc.returncode, "wall_s": wall, "lines": lines, "losses": losses}
+            for ln in lines:
+                log(f"[jamba] launcher: {ln} [{card}]")
+            log(f"[jamba] launcher {' '.join(cmd[:3])} ({name}): rc 0 in {wall:.1f} s [{card}]")
+    resumed = f"[train] resumed from step {JAMBA_LAUNCH_STEPS[0]}"
+    if resumed not in "\n".join(runs["train_resumed"]["lines"]) or \
+            "resumed" in "\n".join(runs["train"]["lines"]):
+        raise AssertionError(f"[jamba] the second train run did not resume from step "
+                             f"{JAMBA_LAUNCH_STEPS[0]}: {runs['train_resumed']['lines']}")
+    cfg = reduced_config(JAMBA_ARCH)
+    api = build_model(cfg)
+    params = tree_map(lambda t: t.cpu(), api.init(torch.Generator("cuda").manual_seed(0),
+                                                  device="cuda"))
+    it, to_batch = make_iterator(cfg, argparse.Namespace(batch=JAMBA_LAUNCH_B,
+                                                         seq_len=JAMBA_LAUNCH_S))
+    with torch.no_grad():
+        want, _ = api.loss(params, host_slice(to_batch(next(it))),
+                           loss_chunk=min(2048, JAMBA_LAUNCH_S))
+    got = runs["train"]["losses"][0]
+    if abs(got - float(want)) > LM_BF16_TOL + 5e-5:
+        raise AssertionError(f"[jamba] the launcher's first loss {got} on the card, the CPU's "
+                             f"{float(want):.6f}")
+    out["launcher_first_loss"] = {"card": got, "cpu": float(want)}
+    log(f"[jamba] the launcher's first step on the card: loss {got:.4f}; the CPU on the same "
+        f"params and batch {float(want):.6f} (bar {LM_BF16_TOL}, bf16 compute); every printed "
+        f"loss finite; the second run {resumed.split('] ')[1]} [{card}]")
+
+
+def drive_jamba(torch, results, card) -> None:
+    """Jamba at full width on the card (``[jamba]`` lines), last: the reduced
+    config card against CPU; jamba-v0.1-52b cut to JAMBA_PERIODS period of 4
+    (8 of 32 layers, every layer kind): each position kind card against
+    CPU, decode against prefill, served at B=8, S=2048 eager and captured;
+    one full-width Mamba layer trained forward and backward; the launchers
+    at the reduced config.  The reference's Jamba reaches no Pallas kernel
+    (its scan is a ``lax.scan``), so the code predicts 0 launches of K1-K4
+    over the phase, and no library attention (both counted)."""
+    import gc
+
+    import torch.nn.functional as F
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves, tree_map
+
+    out = results["jamba"] = {"arch": JAMBA_ARCH, "periods": JAMBA_PERIODS}
+    full = get_config(JAMBA_ARCH)
+    cfg = full.with_overrides(num_layers=8 * JAMBA_PERIODS)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[jamba] at the phase's start {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved on the card [{card}]")
+    sdpa = F.scaled_dot_product_attention
+    sdpa_calls = [0]
+
+    def counted_sdpa(*args, **kw):
+        sdpa_calls[0] += 1
+        return sdpa(*args, **kw)
+
+    F.scaled_dot_product_attention = counted_sdpa
+    reset_launch_counts()
+    try:
+        jamba_check_reduced(torch, out, card)
+        t0 = time.perf_counter()
+        params = build_model(cfg).init(torch.Generator("cuda").manual_seed(0), device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        out.update({"layers": cfg.num_layers, "params": n_params,
+                    "init_s": time.perf_counter() - t0})
+        log(f"[jamba] {cfg.name} at full width, cut to {JAMBA_PERIODS} period of "
+            f"{full.num_layers // 8} ({cfg.num_layers} of {full.num_layers} layers: "
+            f"{jamba_kinds(cfg)}): {n_params:,} params in f32 ({4 * n_params / 1e9:.2f} GB) drawn "
+            f"on the card from seed 0 in {out['init_s']:.2f} s; compute {cfg.compute_dtype}, KV "
+            f"cache and conv state bf16, SSM state f32 [{card}]")
+        jamba_check_kinds(torch, cfg, params, out, card)
+        jamba_decode_vs_prefill(torch, cfg, params, out, card)
+        jamba_serve(torch, cfg, params, out.setdefault("serve", {}), card)
+        mamba0 = tree_map(lambda t: t[0].clone(), params["positions"][0]["mixer"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        jamba_train_mamba_layer(torch, cfg, mamba0, out, card)
+        del mamba0
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        F.scaled_dot_product_attention = sdpa
+    counts = launch_counts()
+    out["port_kernel_launches"], out["sdpa_calls"] = dict(counts), sdpa_calls[0]
+    if any(counts.values()) or sdpa_calls[0]:
+        raise AssertionError(f"[jamba] the Jamba path launched port kernels {dict(counts)} or "
+                             f"library attention ({sdpa_calls[0]} SDPA calls); the code predicts "
+                             f"none")
+    log(f"[jamba] port kernel launches over the phase {dict(counts)} (K1-K4), predicted 0 each: "
+        f"held; scaled_dot_product_attention calls 0 [{card}]")
+    jamba_launchers(torch, out, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[jamba] phase {out['phase_s']:.1f} s [{card}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every measurement to this file")
@@ -4653,6 +5305,7 @@ def main(argv=None) -> int:
     drive_lm_train(torch, results, card)
     drive_moe(torch, results, card)
     drive_rwkv(torch, results, card)
+    drive_jamba(torch, results, card)
 
     kernels = {"kernels": [{
         "name": "lstm_cell",

@@ -2,8 +2,8 @@
 
 A copy of the JAX package's ``repro/config/core.py``: the LSTM-AE family,
 the LM families' ``ModelConfig`` fields with ``MoEConfig``, ``SSMConfig``
-and ``RWKVConfig`` (the port runs the dense and MoE transformers and
-RWKV-6 so far; ``SSMConfig`` is data only), the LSTM-AE shapes and
+and ``RWKVConfig`` (the port runs the dense and MoE transformers,
+RWKV-6 and Jamba), the LSTM-AE shapes and
 ``TrainConfig``.  The port imports nothing of that package, so the copy
 is held to it field for field by
 ``tests/test_torch_*.py``.  One difference of wording: the reference's

@@ -2,9 +2,9 @@
 
 Each ``repro_torch/configs/<id>.py`` module defines ``CONFIG`` (the paper's
 configuration) and ``reduced()`` (a smoke-test-sized config of the same
-family).  The port serves the paper's four LSTM-AE models and the
-transformer LMs, dense and MoE, and the RWKV-6 LM; the Jamba and Whisper
-configs come with their families (ROADMAP.md, queue 1, items 11e-11f).
+family).  The port serves the paper's four LSTM-AE models, the
+transformer LMs, dense and MoE, the RWKV-6 LM and the Jamba hybrid; the
+Whisper config comes with its family (ROADMAP.md, queue 1, item 11f).
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ _ARCH_MODULES: dict[str, str] = {
     # MoE decoder-only transformers
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    # hybrid: Mamba + attention (1:7) with MoE on every second layer
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
     # attention-free recurrent LM
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     # dense decoder-only transformers of the reference's assigned pool

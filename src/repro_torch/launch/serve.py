@@ -362,7 +362,8 @@ def serve_workers(cfg, args) -> None:
 def serve_lm(cfg, args) -> None:
     """Prefill a random prompt batch, then greedy-decode ``--decode-tokens``
     tokens against the prefill's own KV cache (RWKV-6: from the prefill's
-    own recurrent state; the reference decodes both from zeros)."""
+    own recurrent state; Jamba: from its KV cache and Mamba states; the
+    reference decodes each from zeros)."""
     device = resolve_device(args.device)
     api = build_model(cfg)
     params = api.init(torch.Generator(device=device).manual_seed(0), device=device)

@@ -3,6 +3,6 @@
 Counterpart of ``repro/layers``: the same parameter trees, shapes and
 layouts, so ``repro_torch.utils.params_from_numpy`` carries the JAX
 package's weights over unchanged.  The transformer's layers (linear,
-norms, rotary, embeddings, mlp, attention, moe) and RWKV-6's (rwkv) are
-ported; Mamba comes with its family (ROADMAP.md, queue 1, item 11e).
+norms, rotary, embeddings, mlp, attention, moe), RWKV-6's (rwkv) and
+Jamba's Mamba mixer (mamba) are ported.
 """

@@ -139,6 +139,7 @@ def apply_attention(
     cfg: ModelConfig,
     causal: bool,
     positions: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
     kv_chunk: int = 1024,
     q_chunks: int = 1,
     return_kv: bool = False,
@@ -149,10 +150,11 @@ def apply_attention(
     cache population at prefill.
     """
     q, k, v = _project_qkv(params, x, x, cfg)
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     kv = (k, v) if return_kv else None
     out = blocked_attention(q, _expand_kv(k, cfg.num_heads), _expand_kv(v, cfg.num_heads),
                             causal=causal, kv_chunk=kv_chunk, q_chunks=q_chunks)
@@ -177,6 +179,7 @@ def decode_attention(
     cache_len: torch.Tensor,
     *,
     cfg: ModelConfig,
+    use_rope: bool = True,
 ) -> tuple[torch.Tensor, Params]:
     """One-token decode: x (B, 1, D) against cache (B, S_max, Hkv, hd).
 
@@ -191,8 +194,9 @@ def decode_attention(
     cache_len = torch.as_tensor(cache_len, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, x, cfg)
     pos = cache_len.reshape(1)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
     k_cache, v_cache = cache["k"], cache["v"]
     k_cache.index_copy_(1, pos.long(), k_new.to(k_cache.dtype))
     v_cache.index_copy_(1, pos.long(), v_new.to(v_cache.dtype))

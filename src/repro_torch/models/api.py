@@ -14,12 +14,14 @@ Counterpart of ``repro/models/api.py``.  ``build_model(cfg)`` returns a
 - stitch(prefill_cache, max_len) -> the decode cache that continues a
   prefill (None where the family has no prefill-then-decode)
 
-The port builds the "transformer" (dense and MoE), "rwkv6" and "lstm_ae"
-families; the transformer's ``loss`` is ``train_loss`` (a MoE config adds
-``aux_weight`` times its layers' summed load-balance loss).  RWKV-6's
-decode cache is its recurrent state (``init_cache`` and ``stitch`` ignore
-``max_len``: the state is position-free, and the prefill's state is the
-decode cache as it is).  The others raise
+The port builds the "transformer" (dense and MoE), "rwkv6", "jamba" and
+"lstm_ae" families; the transformer's and Jamba's ``loss`` is
+``train_loss`` (a MoE layer adds ``aux_weight`` times its load-balance
+loss).  RWKV-6's decode cache is its recurrent state (``init_cache`` and
+``stitch`` ignore ``max_len``: the state is position-free, and the
+prefill's state is the decode cache as it is).  Jamba's mixes the two: a
+KV cache at its attention position, stitched to ``max_len`` positions,
+and the Mamba states passed through as they are.  The others raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 The reference's ``param_specs``/``cache_specs`` (sharding) and its
 ``input_specs``/``cache_struct``/``param_struct`` (the dry-run launcher)
@@ -35,13 +37,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config.core import ModelConfig
 from repro_torch.core.lstm import init_lstm_ae
+from repro_torch.models import jamba as jamba_m
 from repro_torch.models import lstm_ae as lstm_ae_m
 from repro_torch.models import rwkv6 as rwkv6_m
 from repro_torch.models import transformer as tf_m
 from repro_torch.utils import Params
 
 UNPORTED_FAMILIES = {
-    "jamba": "ROADMAP.md, queue 1, item 11e (models/jamba.py, layers/mamba.py)",
     "whisper": "ROADMAP.md, queue 1, item 11f (models/whisper.py)",
 }
 
@@ -79,6 +81,17 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             init_cache=lambda batch, max_len, device=None: rwkv6_m.init_state(
                 cfg, batch, device=resolve_device(device)),
             stitch=lambda state, max_len: state,
+        )
+    if cfg.family == "jamba":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen, device=None: jamba_m.init_jamba(gen, cfg, resolve_device(device)),
+            loss=lambda p, b, **kw: jamba_m.train_loss(p, b, cfg, **kw),
+            prefill=lambda p, b, **kw: jamba_m.prefill(p, b, cfg, **kw),
+            decode=lambda p, t, c, n: jamba_m.decode_step(p, t, c, n, cfg),
+            init_cache=lambda batch, max_len, device=None: jamba_m.init_states(
+                cfg, batch, max_len, device=resolve_device(device)),
+            stitch=lambda states, max_len: jamba_m.stitch_states(cfg, states, max_len),
         )
     if cfg.family == "lstm_ae":
         # prefill runs a named engine schedule: pass schedule=... through kw

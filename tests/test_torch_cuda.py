@@ -1755,3 +1755,108 @@ def test_rwkv_head_dim_outside_k3_raises(cuda):
         trwkv.apply_time_mix({k: (v.to(cuda) if isinstance(v, torch.Tensor) else
                                   {n: t.to(cuda) for n, t in v.items()}) for k, v in params.items()},
                              x.to(cuda), cfg)
+
+
+# -- Jamba on the card: Mamba's scan is plain torch, no kernel of K1-K4 --------
+
+@pytest.mark.cuda
+def test_jamba_model_card_matches_cpu(cuda):
+    """The reduced jamba-v0.1-52b in f32 (TF32 off) on the card against the
+    CPU: prefill logits and every state at 1e-4, one decode step from each
+    side's stitched prefill states (logits and every state written), then
+    ``train_loss`` and every grad leaf at the CPU parity bar; no K1-K4
+    launch (the reference's Jamba reaches no Pallas kernel)."""
+
+    api, cpu, card = _lm_setup("jamba-v0.1-52b", "float32", cuda)
+    before = dict(launch_counts())
+    want, wst = api.prefill(cpu[0], {"tokens": cpu[1]["tokens"]})
+    got, gst = api.prefill(card[0], {"tokens": card[1]["tokens"]})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for g, w in zip(tree_leaves(gst), tree_leaves(wst)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    s = cpu[1]["tokens"].shape[1]
+    wst, gst = api.stitch(wst, s + 1), api.stitch(gst, s + 1)
+    token = cpu[1]["tokens"][:, :1]
+    want, _ = api.decode(cpu[0], token, wst, torch.tensor(s))
+    got, _ = api.decode(card[0], token.to(cuda), gst, torch.tensor(s, device=cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for g, w in zip(tree_leaves(gst), tree_leaves(wst)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    wloss, wgrads = _lm_value_and_grad(api, *cpu, loss_chunk=5)
+    gloss, ggrads = _lm_value_and_grad(api, *card, loss_chunk=5)
+    torch.testing.assert_close(gloss.cpu(), wloss, **LM_TRAIN_F32)
+    for g, w in zip(ggrads, wgrads):
+        torch.testing.assert_close(g.cpu(), w, **LM_TRAIN_F32)
+    assert dict(launch_counts()) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jamba_mamba_layer_card_matches_cpu(cuda, dtype):
+    """One Mamba layer of the reduced config on the card against the CPU
+    over S=300 (two scan chunks, the second short) from a carried state:
+    y and both states (f32 at the CPU parity bar, bf16 at 6e-2), and in
+    f32 the grads of every param and of x through the step-by-step scan."""
+    from repro_torch.config import reduced_config
+    from repro_torch.layers import mamba as tm
+
+    cfg = reduced_config("jamba-v0.1-52b")
+    params = tm.init_mamba(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 300, cfg.d_model, generator=g).to(dtype)
+    state = tm.init_mamba_state(cfg, 2, dtype)
+    state = {"ssm": torch.randn(state["ssm"].shape, generator=g) * 0.5,
+             "conv": torch.randn(state["conv"].shape, generator=g).to(dtype)}
+    tol = LM_TRAIN_F32 if dtype == torch.float32 else dict(rtol=6e-2, atol=6e-2)
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = {k: ({n: t.to(dev).requires_grad_() for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(dev).requires_grad_()) for k, v in params.items()}
+        xd = x.to(dev).requires_grad_(dtype == torch.float32)
+        y, st = tm.apply_mamba(p, xd, cfg, {k: v.to(dev) for k, v in state.items()})
+        grads = None
+        if dtype == torch.float32:
+            leaves = tree_leaves(p) + [xd]
+            grads = torch.autograd.grad(y.square().sum(), leaves)
+        runs[str(dev)] = (y.detach(), {k: v.detach() for k, v in st.items()}, grads)
+    (gy, gst, gg), (wy, wst, wg) = runs[str(cuda)], runs["cpu"]
+    torch.testing.assert_close(gy.cpu().float(), wy.float(), **tol)
+    for name in ("ssm", "conv"):
+        assert gst[name].dtype == wst[name].dtype
+        torch.testing.assert_close(gst[name].cpu().float(), wst[name].float(), **tol)
+    if gg is not None:
+        for a, b in zip(gg, wg):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_jamba_captured_greedy_decode_equals_eager(cuda):
+    """The Jamba decode step (the KV cache written at the position, the
+    Mamba states written in place, the MoE layers' routing of the B decode
+    tokens) captured once and replayed per token gives the eager loop's
+    tokens, last logits and states bit for bit: nothing syncs with the
+    host."""
+    from repro_torch.config import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, stitch_prefill_cache
+    from repro_torch.utils import tree_map
+
+    api = build_model(reduced_config("jamba-v0.1-52b"))
+    params = api.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, api.cfg.vocab_size, (3, 9), generator=torch.Generator(cuda).manual_seed(1),
+                         device=cuda, dtype=torch.int32)
+    logits, pre = api.prefill(params, {"tokens": toks})
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    eager = GreedyDecoder(api, jit=False)
+    captured = GreedyDecoder(api)
+    want, want_states = eager(params, stitch_prefill_cache(api, tree_map(torch.clone, pre), 15),
+                              first, 9, 6)
+    before = dict(launch_counts())
+    for call in range(2):
+        got, got_states = captured(params, stitch_prefill_cache(api, tree_map(torch.clone, pre), 15),
+                                   first, 9, 6)
+        assert torch.equal(got, want) and torch.equal(captured.logits, eager.logits)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got_states),
+                                                     tree_leaves(want_states)))
+    assert captured.captures == 1 and captured.replays == 2 * 6 - 1
+    assert dict(launch_counts()) == before

@@ -298,9 +298,10 @@ def test_init_draws_the_reference_distribution():
     assert abs(float(w.std()) / std - 0.88) < 0.05           # a normal cut at 2 std
 
 
-@pytest.mark.parametrize("family", ["jamba", "whisper"])
+@pytest.mark.parametrize("family", ["whisper"])
 def test_build_model_refuses_unported_families(family):
-    """rwkv6 builds since item 11d (tests/test_torch_rwkv.py)."""
+    """rwkv6 builds since item 11d (tests/test_torch_rwkv.py), jamba since
+    item 11e (tests/test_torch_jamba.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 11"):
         build_model(ModelConfig("x", family))
     with pytest.raises(ValueError, match="unknown family"):
