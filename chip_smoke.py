@@ -221,6 +221,26 @@ toolkit.  It
    loss held to the CPU's.  The reference's Jamba reaches no Pallas kernel,
    so K1-K4 must not launch over the phase (predicted 0) and no library
    attention may run.
+16. drives Whisper at full width and depth, last (``[whisper]`` lines):
+   the reduced whisper-large-v3 card against CPU (f32 prefill logits and
+   cache ``k``/``v``/``ck``/``cv``, one decode step from stitched caches,
+   ``train_loss`` and every grad leaf; bf16 logits no farther from the
+   CPU's f32 than the CPU's own bf16); whisper-large-v3 uncut (32 encoder
+   + 32 decoder layers, 1,577,530,880 f32 params, 1,500 frames), each
+   layer kind on its own card against CPU at B=1, S=32 over the 1,500
+   frames in f32 and bf16 (an encoder layer, a decoder layer, its decode
+   step against its caches), decode against prefill (B=2, S=64, f32, the
+   reference's bar), served at B=8, S=2048 over bf16 frames (prefill ms
+   beside a bound that counts the encoder, the cross K/V and the decoder;
+   one profiled prefill's host launch calls and idle share) with 64 greedy
+   tokens eager and captured (tokens identical, one capture; ms a token
+   beside the byte bound, launch calls and device kernels a token, the
+   captured decode's idle share, peak memory), trained 6 AdamW steps at
+   B=4, S=2048 with per-layer recompute (ms a step beside the bound, xent
+   per step finite, peak memory); ``serve`` and ``train`` at the reduced
+   config as subprocesses, the second train run resuming.  The reference's
+   Whisper attends through jnp, no Pallas kernel, so K1-K4 must not launch
+   over the phase (predicted 0) and no library attention may run.
 
 The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
@@ -454,6 +474,28 @@ JAMBA_SERVE_B, JAMBA_SERVE_S, JAMBA_DECODE = 8, 2048, 64
 JAMBA_PROFILE_TOKENS = 4
 JAMBA_TRAIN_B, JAMBA_TRAIN_S = 4, 2048
 JAMBA_LAUNCH_B, JAMBA_LAUNCH_S, JAMBA_LAUNCH_STEPS, JAMBA_CKPT_EVERY = 2, 64, (4, 6), 2
+# Whisper at full width (``[whisper]`` lines): whisper-large-v3
+# (src/repro_torch/configs/whisper_large_v3.py: 32 encoder and 32 decoder
+# layers, d_model 1280 in 20 heads of 64 (kv heads 20), d_ff 5120 GELU,
+# LayerNorm, biased projections, vocab 51,866 tied, 1,500 frames from the
+# stubbed audio frontend, 32,768 learned decoder positions; 1,577,530,880
+# params, 6.3 GB in f32), params drawn on the card from seed 0, bf16
+# compute.  No cut, width or depth: served at B=8, S=2048 over 1,500 frames
+# with WHISPER_DECODE greedy tokens eager and captured, and trained at B=4,
+# S=2048 for WHISPER_TRAIN_STEPS AdamW steps with per-layer recompute (25.2
+# GB of params, grads and moments).  Card against CPU: the reduced config
+# whole (f32 and bf16), and each layer kind at full width on its own at
+# B=1, S=32 over the 1,500 frames in f32 and bf16 (an encoder layer, a
+# decoder layer, a decoder layer's decode step against its caches); decode
+# against prefill at B=2, S=64 in f32 at the reference's bar
+# (tests/test_serving_consistency.py:110-131).  The launchers train the
+# reduced config twice over one checkpoint directory.
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_CONSISTENCY_TOL = 5e-2
+WHISPER_SERVE_B, WHISPER_SERVE_S, WHISPER_DECODE = 8, 2048, 64
+WHISPER_PROFILE_TOKENS = 4
+WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 4, 2048, 6
+WHISPER_LAUNCH_B, WHISPER_LAUNCH_S, WHISPER_LAUNCH_STEPS, WHISPER_CKPT_EVERY = 2, 64, (4, 6), 2
 
 
 def log(msg: str) -> None:
@@ -5077,14 +5119,15 @@ def jamba_train_mamba_layer(torch, cfg, lp, out, card) -> None:
         f"and inputs (torch.cuda.max_memory_allocated) [{card}]")
 
 
-def jamba_launchers(torch, out, card) -> None:
-    """``serve --arch jamba-v0.1-52b --reduced`` once, and ``train`` at the
-    reduced config twice over one checkpoint directory (JAMBA_LAUNCH_STEPS,
-    a checkpoint every JAMBA_CKPT_EVERY), the second resuming; every loss
-    printed finite, and the first step's loss held to the CPU's: the
-    launcher's params are drawn on the card from seed 0, so the same draw
-    here, copied to the CPU, gives the CPU's loss on the launcher's first
-    batch (bf16 compute: LM_BF16_TOL, the print's 4 decimals on top)."""
+def reduced_launchers(torch, arch, tag, b, s, steps, ckpt_every, out, card) -> None:
+    """``serve --arch <arch> --reduced`` once, and ``train`` at the reduced
+    config twice over one checkpoint directory (``steps`` = (first, second),
+    a checkpoint every ``ckpt_every``, B=``b``, S=``s``), the second
+    resuming; every loss printed finite, and the first step's loss held to
+    the CPU's: the launcher's params are drawn on the card from seed 0, so
+    the same draw here, copied to the CPU, gives the CPU's loss on the
+    launcher's first batch (bf16 compute: LM_BF16_TOL, the print's 4
+    decimals on top)."""
     import argparse
     import math
     import tempfile
@@ -5097,54 +5140,58 @@ def jamba_launchers(torch, out, card) -> None:
 
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     runs = out["launchers"] = {}
-    args = ["--batch", str(JAMBA_LAUNCH_B), "--seq-len", str(JAMBA_LAUNCH_S)]
+    args = ["--batch", str(b), "--seq-len", str(s)]
     with tempfile.TemporaryDirectory() as ckpt:
         for name, cmd in (
-                ("serve", ["repro_torch.launch.serve", "--arch", JAMBA_ARCH, "--reduced"]),
-                ("train", ["repro_torch.launch.train", "--arch", JAMBA_ARCH, "--steps",
-                           str(JAMBA_LAUNCH_STEPS[0]), "--ckpt-every", str(JAMBA_CKPT_EVERY),
+                ("serve", ["repro_torch.launch.serve", "--arch", arch, "--reduced"]),
+                ("train", ["repro_torch.launch.train", "--arch", arch, "--steps",
+                           str(steps[0]), "--ckpt-every", str(ckpt_every),
                            "--ckpt-dir", ckpt, *args]),
-                ("train_resumed", ["repro_torch.launch.train", "--arch", JAMBA_ARCH, "--steps",
-                                   str(JAMBA_LAUNCH_STEPS[1]), "--ckpt-every",
-                                   str(JAMBA_CKPT_EVERY), "--ckpt-dir", ckpt, *args])):
+                ("train_resumed", ["repro_torch.launch.train", "--arch", arch, "--steps",
+                                   str(steps[1]), "--ckpt-every",
+                                   str(ckpt_every), "--ckpt-dir", ckpt, *args])):
             t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, "-m", *cmd], capture_output=True, text=True,
                                   timeout=300, env=env, cwd=ROOT)
             wall = time.perf_counter() - t0
-            tag = "[serve]" if name == "serve" else "[train]"
-            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(tag)]
+            prefix = "[serve]" if name == "serve" else "[train]"
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(prefix)]
             done = "sample continuation" if name == "serve" else "[train] done"
             losses = [float(x) for x in re.findall(r"loss=(\S+)", proc.stdout)]
             if (proc.returncode != 0 or done not in proc.stdout
                     or not all(math.isfinite(x) for x in losses)):
-                raise AssertionError(f"[jamba] {' '.join(cmd)} (rc {proc.returncode}): "
+                raise AssertionError(f"[{tag}] {' '.join(cmd)} (rc {proc.returncode}): "
                                      f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
             runs[name] = {"rc": proc.returncode, "wall_s": wall, "lines": lines, "losses": losses}
             for ln in lines:
-                log(f"[jamba] launcher: {ln} [{card}]")
-            log(f"[jamba] launcher {' '.join(cmd[:3])} ({name}): rc 0 in {wall:.1f} s [{card}]")
-    resumed = f"[train] resumed from step {JAMBA_LAUNCH_STEPS[0]}"
+                log(f"[{tag}] launcher: {ln} [{card}]")
+            log(f"[{tag}] launcher {' '.join(cmd[:3])} ({name}): rc 0 in {wall:.1f} s [{card}]")
+    resumed = f"[train] resumed from step {steps[0]}"
     if resumed not in "\n".join(runs["train_resumed"]["lines"]) or \
             "resumed" in "\n".join(runs["train"]["lines"]):
-        raise AssertionError(f"[jamba] the second train run did not resume from step "
-                             f"{JAMBA_LAUNCH_STEPS[0]}: {runs['train_resumed']['lines']}")
-    cfg = reduced_config(JAMBA_ARCH)
+        raise AssertionError(f"[{tag}] the second train run did not resume from step "
+                             f"{steps[0]}: {runs['train_resumed']['lines']}")
+    cfg = reduced_config(arch)
     api = build_model(cfg)
     params = tree_map(lambda t: t.cpu(), api.init(torch.Generator("cuda").manual_seed(0),
                                                   device="cuda"))
-    it, to_batch = make_iterator(cfg, argparse.Namespace(batch=JAMBA_LAUNCH_B,
-                                                         seq_len=JAMBA_LAUNCH_S))
+    it, to_batch = make_iterator(cfg, argparse.Namespace(batch=b, seq_len=s))
     with torch.no_grad():
-        want, _ = api.loss(params, host_slice(to_batch(next(it))),
-                           loss_chunk=min(2048, JAMBA_LAUNCH_S))
+        want, _ = api.loss(params, host_slice(to_batch(next(it))), loss_chunk=min(2048, s))
     got = runs["train"]["losses"][0]
     if abs(got - float(want)) > LM_BF16_TOL + 5e-5:
-        raise AssertionError(f"[jamba] the launcher's first loss {got} on the card, the CPU's "
+        raise AssertionError(f"[{tag}] the launcher's first loss {got} on the card, the CPU's "
                              f"{float(want):.6f}")
     out["launcher_first_loss"] = {"card": got, "cpu": float(want)}
-    log(f"[jamba] the launcher's first step on the card: loss {got:.4f}; the CPU on the same "
+    log(f"[{tag}] the launcher's first step on the card: loss {got:.4f}; the CPU on the same "
         f"params and batch {float(want):.6f} (bar {LM_BF16_TOL}, bf16 compute); every printed "
         f"loss finite; the second run {resumed.split('] ')[1]} [{card}]")
+
+
+def jamba_launchers(torch, out, card) -> None:
+    """The launchers at jamba-v0.1-52b's reduced config (``reduced_launchers``)."""
+    reduced_launchers(torch, JAMBA_ARCH, "jamba", JAMBA_LAUNCH_B, JAMBA_LAUNCH_S,
+                      JAMBA_LAUNCH_STEPS, JAMBA_CKPT_EVERY, out, card)
 
 
 def drive_jamba(torch, results, card) -> None:
@@ -5219,6 +5266,524 @@ def drive_jamba(torch, results, card) -> None:
     jamba_launchers(torch, out, card)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[jamba] phase {out['phase_s']:.1f} s [{card}]")
+
+
+def whisper_layer_params(cfg) -> dict:
+    """Params of each part of a Whisper layer at full width: an attention
+    block (q, k, v, o and their biases), its K/V projections alone (what
+    the decode's cross step does not run), the MLP with its biases, one
+    LayerNorm; and the product weights a token meets in attention's q and o
+    (``qo``), its k and v (``kv``) and the MLP (``mlp_prod``)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return {"attn": 2 * d * q + 2 * d * kv + q + kv + d, "cross_kv": 2 * d * kv + kv,
+            "mlp": 2 * d * cfg.d_ff + cfg.d_ff + d, "norm": 2 * d,
+            "qo": 2 * d * q, "kv": 2 * d * kv, "mlp_prod": 2 * d * cfg.d_ff}
+
+
+def whisper_params(cfg) -> int:
+    """Every param of the model: both stacks, the tied table, ``dec_pos``
+    and the two final norms (1,577,530,880 for whisper-large-v3)."""
+    from repro_torch.models.whisper import MAX_DECODER_LEN
+
+    p = whisper_layer_params(cfg)
+    return (cfg.encoder_layers * (p["attn"] + p["mlp"] + 2 * p["norm"])
+            + cfg.num_layers * (2 * p["attn"] + p["mlp"] + 3 * p["norm"])
+            + (cfg.vocab_size + MAX_DECODER_LEN) * cfg.d_model + 2 * p["norm"])
+
+
+def whisper_forward_ops(cfg, b: int, s: int, t: int, unembed_rows: int) -> tuple[float, float]:
+    """(bf16 FLOP, f32 FLOP) of one forward of b x s decoder tokens over t
+    frames: bf16 the products (the encoder's over b*t frames; the decoder's
+    self q/k/v/o, cross q/o and MLP over b*s tokens; the cross K/V over the
+    memory's b*t rows; the unembed of ``unembed_rows`` rows); f32 (TF32 off:
+    the FP32 cores) attention's QK^T and PV over the visible (query, key)
+    pairs: the encoder's t x t, the decoder's causal s(s+1)/2 and cross
+    s x t."""
+    p, hd, h = whisper_layer_params(cfg), cfg.resolved_head_dim(), cfg.num_heads
+    le, ld = cfg.encoder_layers, cfg.num_layers
+    bf16 = (2.0 * b * t * le * (p["qo"] + p["kv"] + p["mlp_prod"])
+            + 2.0 * b * s * ld * (2 * p["qo"] + p["kv"] + p["mlp_prod"])
+            + 2.0 * b * t * ld * p["kv"] + 2.0 * unembed_rows * cfg.d_model * cfg.vocab_size)
+    f32 = 4.0 * hd * h * b * (le * t * t + ld * s * (s + 1) / 2 + ld * s * t)
+    return bf16, f32
+
+
+def whisper_prefill_bound(cfg, b: int, s: int, t: int) -> tuple[float, float, float]:
+    """(bf16 FLOP, f32 FLOP, bytes) of one prefill of b x s tokens over t
+    frames with the last position's logits (``whisper_forward_ops``).
+    Bytes: the f32 params read once (of ``dec_pos`` only the s rows), the
+    bf16 frames read, the bf16 cache written (self K/V of s positions,
+    cross K/V of t frames) and the bf16 logits."""
+    from repro_torch.models.whisper import MAX_DECODER_LEN
+
+    bf16, f32 = whisper_forward_ops(cfg, b, s, t, b)
+    kvw, d = cfg.num_kv_heads * cfg.resolved_head_dim(), cfg.d_model
+    nbytes = (4.0 * (whisper_params(cfg) - (MAX_DECODER_LEN - s) * d) + 2.0 * b * t * d
+              + 2.0 * 2 * cfg.num_layers * b * (s + t) * kvw + 2.0 * b * cfg.vocab_size)
+    return bf16, f32, nbytes
+
+
+def whisper_decode_bound(cfg, b: int, past: int, t: int) -> tuple[float, float, float]:
+    """(bf16 FLOP, f32 FLOP, bytes) of one decode token after ``past``
+    cached positions over t frames: bf16 the decoder's self q/k/v/o, cross
+    q/o and MLP products of b tokens and the unembed; f32 attention over
+    past + 1 self positions and the t frames.  Bytes: the f32 params the
+    step reads once (the decoder's without the cross K/V projections it
+    does not run, the table, one ``dec_pos`` row, the final norm), the bf16
+    self K/V read up to the new position (its row written), the bf16 cross
+    K/V read whole and the bf16 logits written."""
+    p, hd, h, d = whisper_layer_params(cfg), cfg.resolved_head_dim(), cfg.num_heads, cfg.d_model
+    ld, v, kvw = cfg.num_layers, cfg.vocab_size, cfg.num_kv_heads * hd
+    bf16 = 2.0 * b * ld * (2 * p["qo"] + p["kv"] + p["mlp_prod"]) + 2.0 * b * d * v
+    f32 = 4.0 * hd * h * b * ld * (past + 1 + t)
+    weights = ld * (2 * p["attn"] + p["mlp"] + 3 * p["norm"] - p["cross_kv"]) + v * d + d \
+        + p["norm"]
+    nbytes = 4.0 * weights + 2.0 * 2 * ld * b * kvw * (past + 1 + t) + 2.0 * b * v
+    return bf16, f32, nbytes
+
+
+def whisper_train_bound(cfg, b: int, s: int, t: int, n_params: int) -> tuple[float, float, float]:
+    """(bf16 FLOP, f32 FLOP, bytes) of one train step: 3 x the forward's
+    products and attention (``whisper_forward_ops`` with the unembed at
+    every one of the b*s positions: the forward, and the backward's two);
+    the f32 params and AdamW's two moments read and written once (24 bytes
+    a param, as ``lm_train_bound``), the tokens and labels and the f32
+    frames read once.  Remat's recompute is the implementation's choice
+    and is not counted."""
+    bf16, f32 = whisper_forward_ops(cfg, b, s, t, b * s)
+    return 3 * bf16, 3 * f32, 24.0 * n_params + 2 * 8.0 * b * s + 4.0 * b * t * cfg.d_model
+
+
+def whisper_check_reduced(torch, out, card) -> None:
+    """The reduced config whole (2 + 2 layers, d_model 64, 12 frames), card
+    against CPU: in f32 (TF32 off) the prefill's logits and its cache
+    (``k``, ``v``, ``ck``, ``cv``), one decode step from each side's
+    stitched cache (logits and every cache leaf), ``train_loss`` and every
+    grad leaf at the [lm-train] f32 bars; in bf16 the prefill's logits no
+    farther from the CPU's f32 ones than the CPU's own bf16 logits are,
+    plus the bf16 bar."""
+    from repro_torch.config import reduced_config
+    from repro_torch.data import LMDataConfig, make_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_map
+
+    cfg = reduced_config(WHISPER_ARCH)
+    b, s = 2, 12
+    cpu_params = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    params = tree_map(lambda t: t.cuda(), cpu_params)
+    batch = make_lm_batch(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b), 0)
+    batch["frames"] = torch.randn(b, cfg.encoder_seq_len, cfg.d_model,
+                                  generator=torch.Generator().manual_seed(1))
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    prompt = ("tokens", "frames")
+    pos = torch.tensor(s, dtype=torch.int32)
+    f32_logits = None
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        api = build_model(cfg.with_overrides(compute_dtype=dtype))
+        want, wc = api.prefill(cpu_params, {k: batch[k] for k in prompt})
+        got, gc = api.prefill(params, {k: card_batch[k] for k in prompt})
+        err = float((got.float().cpu() - want.float()).abs().max())
+        if tag == "bf16":
+            mine = float((got.float().cpu() - f32_logits).abs().max())
+            theirs = float((want.float() - f32_logits).abs().max())
+            if mine > theirs + LM_BF16_TOL:
+                raise AssertionError(f"[whisper] reduced bf16 logits: the card {mine:.4g} from "
+                                     f"the CPU's f32, the CPU's bf16 {theirs:.4g}")
+            out["reduced_bf16"] = {"logits_max_abs_err": err, "card_from_cpu_f32": mine,
+                                   "cpu_bf16_from_cpu_f32": theirs}
+            log(f"[whisper] card against CPU, {cfg.name} (d_model {cfg.d_model}) bf16, B={b} "
+                f"S={s}: prefill logits max abs err {err:.3g}; the card's {mine:.3g} and the CPU's "
+                f"own {theirs:.3g} from the CPU's f32 logits (held: the card no farther, "
+                f"+{LM_BF16_TOL}) [{card}]")
+            continue
+        f32_logits = want.float()
+        torch.testing.assert_close(got.cpu(), want, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+        cache_err = {}
+        for name in wc:
+            cache_err[name] = float((gc[name].cpu() - wc[name]).abs().max())
+            torch.testing.assert_close(gc[name].cpu(), wc[name], rtol=LM_F32_TOL, atol=LM_F32_TOL)
+        wc, gc = api.stitch(wc, s + 1), api.stitch(gc, s + 1)
+        token = batch["tokens"][:, :1]
+        wdec, _ = api.decode(cpu_params, token, wc, pos)
+        gdec, _ = api.decode(params, token.cuda(), gc, pos.cuda())
+        torch.testing.assert_close(gdec.cpu(), wdec, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+        for name in wc:
+            torch.testing.assert_close(gc[name].cpu(), wc[name], rtol=LM_F32_TOL, atol=LM_F32_TOL)
+        want_loss, wgrads = lm_value_and_grad(torch, api, cpu_params, batch, loss_chunk=s)
+        got_loss, ggrads = lm_value_and_grad(torch, api, params, card_batch, loss_chunk=s)
+        torch.testing.assert_close(got_loss.cpu(), want_loss, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+        errs = [rel_fro(torch, g.cpu(), w) for g, w in zip(ggrads, wgrads)]
+        if max(errs) > LM_TRAIN_F32_GRAD_REL:
+            raise AssertionError(f"[whisper] reduced f32 grads card vs CPU: {errs}")
+        out["reduced_f32"] = {
+            "logits_max_abs_err": err, "cache_max_abs_err": cache_err,
+            "decode_max_abs_err": float((gdec.cpu() - wdec).abs().max()),
+            "loss": float(want_loss), "loss_abs_err": abs(float(got_loss) - float(want_loss)),
+            "grad_rel_fro_max": max(errs)}
+        r = out["reduced_f32"]
+        log(f"[whisper] card against CPU, {cfg.name} ({cfg.encoder_layers} + {cfg.num_layers} "
+            f"layers, {cfg.encoder_seq_len} frames) f32, B={b} S={s}: prefill logits max abs err "
+            f"{err:.3g}, cache " + ", ".join(f"{n} {e:.3g}" for n, e in cache_err.items())
+            + f"; one decode step from each side's stitched cache {r['decode_max_abs_err']:.3g} "
+            f"(rtol = atol = {LM_F32_TOL}); train_loss {r['loss']:.6f}, abs err "
+            f"{r['loss_abs_err']:.3g}, {len(errs)} grad leaves, relative Frobenius error max "
+            f"{max(errs):.3g} (bar {LM_TRAIN_F32_GRAD_REL}) [{card}]")
+
+
+def whisper_check_kinds(torch, cfg, params, out, card) -> None:
+    """Each layer kind of the full-width model on its own, card against CPU
+    at B=1, S=32 over the 1,500 frames in f32 (TF32 off) and bf16, on equal
+    inputs: encoder layer 0 on the frames; decoder layer 0 on a prompt
+    against the CPU encoder layer's output as the memory (its output, self
+    K/V and cross K/V); that layer's decode step for one more token against
+    caches built from the CPU's K/V (its output and the self K/V row it
+    writes; ``ck``/``cv`` bit-unchanged).  Bars: LM_F32_TOL, LM_BF16_TOL."""
+    from repro_torch.models import whisper as whisper_m
+    from repro_torch.utils import tree_map
+
+    parts = {"enc": tree_map(lambda t: t[0], params["enc_layers"]),
+             "dec": tree_map(lambda t: t[0], params["dec_layers"])}
+    on_cpu = tree_map(lambda t: t.cpu(), parts)
+    rows = out["kinds"] = {}
+    b, s, t = LM_CPU_B, LM_CPU_S, cfg.encoder_seq_len
+    for tag, dtype, bf16 in (("f32", torch.float32, False), ("bf16", torch.bfloat16, True)):
+        g = torch.Generator().manual_seed(5)
+        frames = torch.randn(b, t, cfg.d_model, generator=g).to(dtype)
+        x = torch.randn(b, s + 1, cfg.d_model, generator=g).to(dtype)
+        tol = (dict(rtol=LM_BF16_TOL, atol=LM_BF16_TOL) if bf16 else
+               dict(rtol=LM_F32_TOL, atol=LM_F32_TOL))
+        t0 = time.perf_counter()
+        errs = {}
+
+        def held(name, got, want):
+            errs[name] = float((got.float().cpu() - want.float()).abs().max())
+            torch.testing.assert_close(got.float().cpu(), want.float(), **tol)
+
+        memory = whisper_m._enc_layer(on_cpu["enc"], frames, cfg)
+        held("enc_y", whisper_m._enc_layer(parts["enc"], frames.cuda(), cfg), memory)
+        prompt = x[:, :s]
+        wy, (wk, wv), (wck, wcv) = whisper_m._dec_layer(on_cpu["dec"], prompt, memory, cfg,
+                                                        LM_KV_CHUNK, 1)
+        y, (k, v), (ck, cv) = whisper_m._dec_layer(parts["dec"], prompt.cuda(), memory.cuda(), cfg,
+                                                   LM_KV_CHUNK, 1)
+        held("dec_y", y, wy)
+        held("dec_kv", torch.cat([k, v]), torch.cat([wk, wv]))
+        held("dec_cross_kv", torch.cat([ck, cv]), torch.cat([wck, wcv]))
+        pad = torch.zeros_like(wk[:, :1])
+        want_cache = {"k": torch.cat([wk, pad], 1), "v": torch.cat([wv, pad], 1), "ck": wck,
+                      "cv": wcv}
+        cache = {n: c.cuda() for n, c in want_cache.items()}
+        cross = {n: cache[n].clone() for n in ("ck", "cv")}
+        y1 = whisper_m._decode_layer(parts["dec"], cache, x[:, s:].cuda(),
+                                     torch.tensor(s, device="cuda"), cfg)
+        wy1 = whisper_m._decode_layer(on_cpu["dec"], want_cache, x[:, s:], torch.tensor(s), cfg)
+        held("step_y", y1, wy1)
+        held("step_kv_row", torch.cat([cache["k"][:, s], cache["v"][:, s]]),
+             torch.cat([want_cache["k"][:, s], want_cache["v"][:, s]]))
+        if not all(torch.equal(cache[n], cross[n]) for n in cross):
+            raise AssertionError("[whisper] the decode step wrote the cross-KV")
+        rows[tag] = dict(errs, s=time.perf_counter() - t0)
+        log(f"[whisper] card against CPU, each layer kind of {cfg.name} at full width on its "
+            f"own, {tag}, B={b} S={s} over {t} frames: " + ", ".join(
+                f"{n} {e:.3g}" for n, e in errs.items())
+            + f" (max abs err, rtol = atol = {tol['rtol']}); the decode step left ck/cv "
+            f"bit-unchanged ({rows[tag]['s']:.1f} s) [{card}]")
+
+
+def whisper_decode_vs_prefill(torch, cfg, params, out, card) -> None:
+    """Decode against prefill with the whole full-width model, f32 compute,
+    B=2, S=64 over 1,500 frames: the prefill's cache of S tokens, stitched,
+    decodes token S+1 to the last position of a prefill of S+1, at the
+    reference's bar; greedy tokens equal away from ties."""
+    from repro_torch.models import build_model
+
+    c = cfg.with_overrides(compute_dtype="float32")
+    api = build_model(c)
+    b, s = LM_CONSISTENCY_B, LM_CONSISTENCY_S
+    g = torch.Generator("cuda").manual_seed(2)
+    toks = torch.randint(0, c.vocab_size, (b, s + 1), dtype=torch.int32, device="cuda",
+                         generator=g)
+    frames = torch.randn(b, c.encoder_seq_len, c.d_model, generator=g, device="cuda")
+    full, _ = api.prefill(params, {"tokens": toks, "frames": frames})
+    _, pre = api.prefill(params, {"tokens": toks[:, :-1], "frames": frames})
+    dec, _ = api.decode(params, toks[:, -1:], api.stitch(pre, s + 1),
+                        torch.tensor(s, dtype=torch.int32, device="cuda"))
+    want, got = full[:, -1].float(), dec[:, -1].float()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=WHISPER_CONSISTENCY_TOL,
+                               atol=WHISPER_CONSISTENCY_TOL)
+    decided = greedy_decided(torch, want, 23)
+    if not torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided]):
+        raise AssertionError(f"[whisper] decode against prefill: greedy {got.argmax(-1).tolist()} "
+                             f"against {want.argmax(-1).tolist()}")
+    out["decode_vs_prefill"] = {"max_abs_err": err, "tokens": want.argmax(-1).tolist(),
+                                "ties": int((~decided).sum())}
+    log(f"[whisper] decode against prefill, {c.name} at full width ({c.encoder_layers} + "
+        f"{c.num_layers} layers) f32 (TF32 off), B={b} over {c.encoder_seq_len} frames: the "
+        f"stitched cache of a {s}-token prefill decodes token {s + 1}: logits max abs err "
+        f"{err:.3g} against a {s + 1}-token prefill's last position (bar "
+        f"{WHISPER_CONSISTENCY_TOL}, the reference's); greedy tokens {want.argmax(-1).tolist()} "
+        f"equal ({int((~decided).sum())} ties) [{card}]")
+
+
+def whisper_serve(torch, cfg, params, out, card) -> None:
+    """The full model served: prefill at WHISPER_SERVE_B x WHISPER_SERVE_S
+    over 1,500 bf16 frames beside its bound, one prefill profiled for the
+    host's launch calls, the device's idle share and its largest kernels;
+    then WHISPER_DECODE greedy tokens eager and captured (twice), each from
+    its own stitched cache: tokens identical, one capture; ms a token beside
+    the bound, launch calls and device kernels a token, the captured
+    decode's idle share; peak memory."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, build_prefill_step
+    from repro_torch.utils import tree_map
+
+    api = build_model(cfg)
+    b, s, n, t = WHISPER_SERVE_B, WHISPER_SERVE_S, WHISPER_DECODE, cfg.encoder_seq_len
+    g = torch.Generator("cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32, device="cuda",
+                                     generator=g),
+             "frames": torch.randn(b, t, cfg.d_model, generator=g,
+                                   device="cuda").to(torch.bfloat16)}
+    step = build_prefill_step(api, kv_chunk=LM_KV_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = []
+    for call in range(2):       # the first call also loads cuBLAS's kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, pre = step(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    if not torch.isfinite(logits).all() or not all(torch.isfinite(c).all() for c in pre.values()):
+        raise AssertionError(f"[whisper] {cfg.name} prefill: non-finite logits or cache")
+    del logits, pre
+    held = {}
+    prof = device_busy_over(torch, lambda: held.update(out=step(params, batch)), names=True)
+    logits, pre = held.pop("out")
+    prof.pop("names")
+    top = list(prof["device_ms_by_name"].items())[:MOE_TOP_KERNELS]
+    first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    runs, decoders = {}, {"eager": GreedyDecoder(api, jit=False), "captured": GreedyDecoder(api)}
+    for name, decoder in decoders.items():
+        for call in range(2 if name == "captured" else 1):   # captured: capture, then replays
+            cache = api.stitch(tree_map(torch.clone, pre), s + n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens, _ = decoder(params, cache, first, s, n)
+            torch.cuda.synchronize()
+            runs.setdefault(name, []).append(((time.perf_counter() - t0) * 1e3, tokens,
+                                              decoder.logits))
+            del cache
+    want_tokens = runs["eager"][0][1]
+    if not all(torch.equal(tk, want_tokens) for _, tk, _ in runs["captured"]):
+        raise AssertionError(f"[whisper] {cfg.name}: captured greedy tokens differ from the "
+                             f"eager loop's")
+    if decoders["captured"].captures != 1:
+        raise AssertionError(f"[whisper] {decoders['captured'].captures} decode captures, "
+                             f"expected 1")
+    logits_equal = all(torch.equal(lg, runs["eager"][0][2]) for _, _, lg in runs["captured"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    pf = whisper_prefill_bound(cfg, b, s, t)
+    pf_bound, pf_by = mixed_bound(*pf)
+    dc = whisper_decode_bound(cfg, b, s + n // 2, t)
+    dc_bound, dc_by = mixed_bound(*dc)
+    out.update({
+        "prefill_ms": prefill_ms[1], "prefill_first_ms": prefill_ms[0],
+        "prefill_bound_ms": pf_bound, "prefill_bound_by": pf_by, "prefill_bf16_flops": pf[0],
+        "prefill_f32_flops": pf[1], "prefill_bytes": pf[2],
+        "profiled_prefill": dict(prof, device_ms_by_name=dict(top)),
+        "decode_bound_ms_per_token": dc_bound, "decode_bound_by": dc_by,
+        "decode_bytes_per_token": dc[2], "peak_memory_gb": peak_gb,
+        "captures": decoders["captured"].captures, "replays": decoders["captured"].replays,
+        "last_logits_bit_equal": logits_equal, "tokens_row0": want_tokens[0, :16].tolist()})
+    log(f"[whisper] {cfg.name} prefill B={b} S={s} over {t} bf16 frames (kv_chunk {LM_KV_CHUNK}, "
+        f"eager): {prefill_ms[1]:.1f} ms (first call {prefill_ms[0]:.1f} ms); bound "
+        f"{pf_bound:.2f} ms by {pf_by}, the largest of: {pf[0] / 1e12:.2f} TFLOP of products at "
+        f"the bf16 dense peak {pf[0] / PEAK_BF16_FLOPS * 1e3:.2f} ms (the encoder, the decoder, "
+        f"the cross K/V), {pf[1] / 1e12:.3f} TFLOP of f32 attention (encoder, causal self, "
+        f"cross) at the FP32 peak {pf[1] / PEAK_F32_FLOPS * 1e3:.2f} ms, {pf[2] / 1e9:.2f} GB at "
+        f"HBM bandwidth {pf[2] / PEAK_BYTES * 1e3:.2f} ms; {prefill_ms[1] / pf_bound:.2f}x the "
+        f"bound [{card}]")
+    log(f"[whisper] {cfg.name} one profiled prefill: {prof['host_calls']:,} launch calls on the "
+        f"host, {prof['device_ops']:,} device kernels/copies, {prof['wall_ms']:.1f} ms, the device "
+        f"busy {prof['device_busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}); the largest "
+        f"{len(top)} kernel names by device time: "
+        + "; ".join(f"{name[:64]} {ms:.1f} ms" for name, ms in top) + f" [{card}]")
+    for name in ("eager", "captured"):
+        ms = runs[name][-1][0]
+        out[name] = {"decode_ms_per_token": ms / n, "tokens_per_s": b * n / (ms / 1e3)}
+        capture = ""
+        if name == "captured":
+            out[name]["capture_call_ms_per_token"] = runs[name][0][0] / n
+            capture = f" (the call that captured: {runs[name][0][0] / n:.3f} ms/token)"
+        log(f"[whisper] {cfg.name} decode {name} B={b}, {n} tokens after the prefill: "
+            f"{ms / n:.3f} ms/token, {b * n / (ms / 1e3):,.0f} tokens/s{capture}; bound "
+            f"{dc_bound:.3f} ms/token by {dc_by} ({dc[2] / 1e9:.2f} GB a token: the decoder's f32 "
+            f"weights, the self-KV up to the position and the cross-KV of {t} frames) [{card}]")
+    cache = api.stitch(tree_map(torch.clone, pre), s + n)     # the captured graph's signature
+    for name, decoder in decoders.items():
+        lpd = host_launches(torch, lambda: decoder(params, cache, first, s, WHISPER_PROFILE_TOKENS))
+        out[name]["host_calls_per_token"] = lpd["host_total"] / WHISPER_PROFILE_TOKENS
+        out[name]["device_ops_per_token"] = lpd["device_ops"] / WHISPER_PROFILE_TOKENS
+        log(f"[whisper] {cfg.name} decode {name}: "
+            f"{lpd['host_total'] / WHISPER_PROFILE_TOKENS:.1f} launch calls per token on the host, "
+            f"{lpd['device_ops'] / WHISPER_PROFILE_TOKENS:.1f} device kernels/copies per token "
+            f"(one torch.profiler pass over {WHISPER_PROFILE_TOKENS} tokens, the cache's copies "
+            f"in and out included) [{card}]")
+    busy = device_busy_over(
+        torch, lambda: decoders["captured"](params, cache, first, s, WHISPER_PROFILE_TOKENS))
+    if decoders["captured"].captures != 1:
+        raise AssertionError(f"[whisper] the profiled decodes captured again "
+                             f"({decoders['captured'].captures} captures)")
+    out["profiled_captured_decode"] = busy
+    log(f"[whisper] {cfg.name} captured tokens equal the eager loop's ({n} tokens x {b} rows, "
+        f"both captured calls; last logits bit-equal: {logits_equal}); "
+        f"{decoders['captured'].captures} capture, {decoders['captured'].replays} replays; a "
+        f"profiled captured decode of {WHISPER_PROFILE_TOKENS} tokens: the device busy "
+        f"{busy['device_busy_ms']:.1f} of {busy['wall_ms']:.1f} ms (idle share "
+        f"{busy['idle_share']:.3f}); peak memory serving {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated) [{card}]")
+
+
+def whisper_train(torch, cfg, params, out, card) -> None:
+    """The full model trained: WHISPER_TRAIN_STEPS AdamW steps at
+    WHISPER_TRAIN_B x WHISPER_TRAIN_S from the launcher's iterator (tokens
+    from ``LMIterator``, f32 frames drawn per batch index), remat per
+    layer: ms a step beside the bound, xent per step (all finite), peak
+    memory."""
+    import argparse
+    import math
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.train import make_iterator
+    from repro_torch.models import build_model
+    from repro_torch.training import build_train_step, init_train_state
+    from repro_torch.utils import tree_leaves
+
+    b, s, t = WHISPER_TRAIN_B, WHISPER_TRAIN_S, cfg.encoder_seq_len
+    api = build_model(cfg)
+    tc = TrainConfig(learning_rate=1e-4, total_steps=WHISPER_TRAIN_STEPS, loss_chunk=min(2048, s))
+    state = init_train_state(params, tc)
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    step = build_train_step(api, tc)
+    it, to_batch = make_iterator(cfg, argparse.Namespace(batch=b, seq_len=s))
+    t0 = time.perf_counter()
+    host_batches = [to_batch(next(it)) for _ in range(WHISPER_TRAIN_STEPS)]
+    data_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, xents = [], []
+    for hb in host_batches:
+        batch = {k: v.to("cuda") for k, v in hb.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        xents.append(float(metrics["xent"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in xents):
+        raise AssertionError(f"[whisper] a training xent is not finite: {xents}")
+    if peak_gb > 80.0:
+        raise AssertionError(f"[whisper] training peaked at {peak_gb:.2f} GB, past 80 GB")
+    steady = ms[1:]
+    bf16, f32, nbytes = whisper_train_bound(cfg, b, s, t, n_params)
+    bound_ms, bound_by = mixed_bound(bf16, f32, nbytes)
+    mean_ms = statistics.mean(steady)
+    out["train"] = {"params": n_params, "batch": b, "seq_len": s, "steps": WHISPER_TRAIN_STEPS,
+                    "ms": ms, "xent": xents, "ms_per_step_mean": mean_ms,
+                    "tokens_per_s": b * s / (mean_ms / 1e3), "data_ms_per_batch": data_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bf16_flops": bf16,
+                    "f32_flops": f32, "bytes": nbytes, "peak_memory_gb": peak_gb}
+    log(f"[whisper] {cfg.name} trained at full width and depth ({n_params:,} params, f32 master "
+        f"weights, bf16 compute, remat={tc.remat}, AdamW f32), B={b} S={s} over {t} frames: "
+        f"{WHISPER_TRAIN_STEPS} steps, xent {', '.join(f'{x:.4f}' for x in xents)} (all finite); "
+        f"first step {ms[0]:.1f} ms, steps 2-{WHISPER_TRAIN_STEPS} "
+        f"{', '.join(f'{x:.1f}' for x in steady)} ms (mean {mean_ms:.1f}), "
+        f"{b * s / (mean_ms / 1e3):,.0f} tokens/s; the host's batch {data_ms:.1f} ms (outside "
+        f"the timed step) [{card}]")
+    log(f"[whisper] train bound {bound_ms:.2f} ms a step by {bound_by} ({bf16 / 1e12:.2f} TFLOP "
+        f"of products at the bf16 peak {bf16 / PEAK_BF16_FLOPS * 1e3:.2f} ms, {f32 / 1e12:.2f} "
+        f"TFLOP of f32 attention at the FP32 peak {f32 / PEAK_F32_FLOPS * 1e3:.2f} ms, "
+        f"{nbytes / 1e9:.1f} GB of state at HBM bandwidth {nbytes / PEAK_BYTES * 1e3:.2f} ms); "
+        f"{mean_ms / bound_ms:.1f}x the bound; peak memory training {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated) [{card}]")
+
+
+def drive_whisper(torch, results, card) -> None:
+    """Whisper at full width and depth on the card (``[whisper]`` lines),
+    last: the reduced config card against CPU; whisper-large-v3 uncut, each
+    layer kind card against CPU, decode against prefill, served at B=8,
+    S=2048 over 1,500 frames eager and captured, trained 6 AdamW steps at
+    B=4, S=2048; the launchers at the reduced config.  The reference's
+    Whisper attends through jnp (``blocked_attention``, ``decode_attention``),
+    no Pallas kernel, so the code predicts 0 launches of K1-K4 over the
+    phase, and no library attention (both counted)."""
+    import gc
+
+    import torch.nn.functional as F
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves
+
+    out = results["whisper"] = {"arch": WHISPER_ARCH}
+    cfg = get_config(WHISPER_ARCH)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[whisper] at the phase's start {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved on the card [{card}]")
+    sdpa = F.scaled_dot_product_attention
+    sdpa_calls = [0]
+
+    def counted_sdpa(*args, **kw):
+        sdpa_calls[0] += 1
+        return sdpa(*args, **kw)
+
+    F.scaled_dot_product_attention = counted_sdpa
+    reset_launch_counts()
+    try:
+        whisper_check_reduced(torch, out, card)
+        t0 = time.perf_counter()
+        params = build_model(cfg).init(torch.Generator("cuda").manual_seed(0), device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        if n_params != whisper_params(cfg):
+            raise AssertionError(f"[whisper] {n_params:,} params drawn, the count predicts "
+                                 f"{whisper_params(cfg):,}")
+        out.update({"params": n_params, "init_s": time.perf_counter() - t0})
+        log(f"[whisper] {cfg.name} at full width and depth, no cut ({cfg.encoder_layers} encoder "
+            f"+ {cfg.num_layers} decoder layers, d_model {cfg.d_model}, {cfg.encoder_seq_len} "
+            f"frames): {n_params:,} params in f32 ({4 * n_params / 1e9:.2f} GB) drawn on the card "
+            f"from seed 0 in {out['init_s']:.2f} s; compute {cfg.compute_dtype}, caches bf16 "
+            f"[{card}]")
+        whisper_check_kinds(torch, cfg, params, out, card)
+        whisper_decode_vs_prefill(torch, cfg, params, out, card)
+        whisper_serve(torch, cfg, params, out.setdefault("serve", {}), card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        whisper_train(torch, cfg, params, out, card)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        F.scaled_dot_product_attention = sdpa
+    counts = launch_counts()
+    out["port_kernel_launches"], out["sdpa_calls"] = dict(counts), sdpa_calls[0]
+    if any(counts.values()) or sdpa_calls[0]:
+        raise AssertionError(f"[whisper] the Whisper path launched port kernels {dict(counts)} or "
+                             f"library attention ({sdpa_calls[0]} SDPA calls); the code predicts "
+                             f"none")
+    log(f"[whisper] port kernel launches over the phase {dict(counts)} (K1-K4), predicted 0 "
+        f"each: held; scaled_dot_product_attention calls 0 [{card}]")
+    reduced_launchers(torch, WHISPER_ARCH, "whisper", WHISPER_LAUNCH_B, WHISPER_LAUNCH_S,
+                      WHISPER_LAUNCH_STEPS, WHISPER_CKPT_EVERY, out, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[whisper] phase {out['phase_s']:.1f} s [{card}]")
 
 
 def main(argv=None) -> int:
@@ -5306,6 +5871,7 @@ def main(argv=None) -> int:
     drive_moe(torch, results, card)
     drive_rwkv(torch, results, card)
     drive_jamba(torch, results, card)
+    drive_whisper(torch, results, card)
 
     kernels = {"kernels": [{
         "name": "lstm_cell",

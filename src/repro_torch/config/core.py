@@ -2,8 +2,8 @@
 
 A copy of the JAX package's ``repro/config/core.py``: the LSTM-AE family,
 the LM families' ``ModelConfig`` fields with ``MoEConfig``, ``SSMConfig``
-and ``RWKVConfig`` (the port runs the dense and MoE transformers,
-RWKV-6 and Jamba), the LSTM-AE shapes and
+and ``RWKVConfig`` (the port runs every family: the dense and MoE
+transformers, RWKV-6, Jamba and Whisper), the LSTM-AE shapes and
 ``TrainConfig``.  The port imports nothing of that package, so the copy
 is held to it field for field by
 ``tests/test_torch_*.py``.  One difference of wording: the reference's
@@ -73,9 +73,9 @@ class LSTMAEConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Every field of the reference ``ModelConfig``.  The port runs the
-    families "lstm_ae", "transformer" (dense, or MoE with ``moe`` set) and
-    "rwkv6"."""
+    """Every field of the reference ``ModelConfig``.  The port runs every
+    family: "lstm_ae", "transformer" (dense, or MoE with ``moe`` set),
+    "rwkv6", "jamba" and "whisper"."""
     name: str
     family: str              # transformer | rwkv6 | jamba | whisper | lstm_ae
     num_layers: int = 0

@@ -2,9 +2,9 @@
 
 Each ``repro_torch/configs/<id>.py`` module defines ``CONFIG`` (the paper's
 configuration) and ``reduced()`` (a smoke-test-sized config of the same
-family).  The port serves the paper's four LSTM-AE models, the
-transformer LMs, dense and MoE, the RWKV-6 LM and the Jamba hybrid; the
-Whisper config comes with its family (ROADMAP.md, queue 1, item 11f).
+family).  The port serves every architecture of the reference's registry:
+the paper's four LSTM-AE models, the transformer LMs, dense and MoE, the
+RWKV-6 LM, the Jamba hybrid and the Whisper encoder-decoder.
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ _ARCH_MODULES: dict[str, str] = {
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
     # attention-free recurrent LM
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    # encoder-decoder with the audio frontend stubbed
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
     # dense decoder-only transformers of the reference's assigned pool
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",

@@ -9,6 +9,7 @@ CONFIG = ModelConfig(
     family="lstm_ae",
     num_layers=2,
     lstm_ae=LSTMAEConfig(input_features=32, depth=2),
+    subquadratic=True,
 )
 
 

@@ -9,6 +9,7 @@ CONFIG = ModelConfig(
     family="lstm_ae",
     num_layers=6,
     lstm_ae=LSTMAEConfig(input_features=32, depth=6),
+    subquadratic=True,
 )
 
 

@@ -48,15 +48,20 @@ counterpart of the reference's ``XLA_FLAGS`` device-count passthrough).
 The ready lines then print ``mesh=Nxdata``.
 
 An LM arch (``--arch tinyllama-1.1b``; the transformers, dense and MoE,
-and ``rwkv6-7b``) runs ``serve_lm``: params drawn on the device from seed
-0, random prompt tokens (``--batch`` x ``--seq-len``; under the vision
-stub also random patch embeddings) from seed 1, a prefill, the prefill's
-KV cache stitched into a decode cache of every position the prefill
-covered plus ``--decode-tokens`` (RWKV-6: the prefill's recurrent state as
-it is), then greedy decoding from there with the decode step captured
-into a CUDA graph (``serving.GreedyDecoder``; the CPU runs it eagerly).
-It prints the reference's two ``[serve]`` lines.  The reference decodes
-against a zeroed cache or state instead (ROADMAP.md, queue 3).
+``rwkv6-7b``, ``jamba-v0.1-52b`` and ``whisper-large-v3``) runs
+``serve_lm``: params drawn on the device from seed 0, random prompt
+tokens (``--batch`` x ``--seq-len``; under the vision stub also random
+patch embeddings) from seed 1, for Whisper random bf16 frames
+(``--batch`` x ``encoder_seq_len`` x ``d_model``) from seed 2, a
+prefill, the prefill's cache stitched into a decode cache of every
+position the prefill covered plus ``--decode-tokens`` (RWKV-6: the
+prefill's recurrent state as it is; Whisper: its self-KV stitched, its
+cross-KV of the frames as it is), then greedy decoding from there with the
+decode step captured into a CUDA graph (``serving.GreedyDecoder``; the
+CPU runs it eagerly).  It prints the reference's two ``[serve]`` lines.
+The reference decodes against a zeroed cache or state instead, for
+Whisper a zeroed cross-KV, so its continuation never sees the frames
+(ROADMAP.md, queue 3); the port's decodes from the prefill's.
 ``--gateway``, ``--http``, ``--workers`` and ``--mesh`` serve the LSTM-AE
 only and refuse an LM arch.
 
@@ -359,10 +364,14 @@ def serve_workers(cfg, args) -> None:
           f"sessions_lost={summary['sessions_lost']}", flush=True)
 
 
+FRAMES_SEED = 2     # the reference's PRNGKey(2) for Whisper's frames
+
+
 def serve_lm(cfg, args) -> None:
     """Prefill a random prompt batch, then greedy-decode ``--decode-tokens``
     tokens against the prefill's own KV cache (RWKV-6: from the prefill's
-    own recurrent state; Jamba: from its KV cache and Mamba states; the
+    own recurrent state; Jamba: from its KV cache and Mamba states;
+    Whisper: from its self-KV and the cross-KV of its frames; the
     reference decodes each from zeros)."""
     device = resolve_device(args.device)
     api = build_model(cfg)
@@ -371,6 +380,10 @@ def serve_lm(cfg, args) -> None:
     gen = torch.Generator(device=device).manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                                      device=device, dtype=torch.int32)}
+    if cfg.family == "whisper":
+        batch["frames"] = torch.randn(
+            (b, cfg.encoder_seq_len, cfg.d_model), device=device,
+            generator=torch.Generator(device=device).manual_seed(FRAMES_SEED)).to(torch.bfloat16)
     if cfg.frontend == "vision_stub":
         batch["image_embeds"] = torch.randn((b, cfg.vision_patches, cfg.d_model),
                                             generator=gen, device=device).to(torch.bfloat16)

@@ -9,7 +9,12 @@ resume from the newest one in ``--ckpt-dir`` (params, optimizer state and
 the iterator's position), and a heartbeat monitor that names stragglers.
 An LM trains with per-layer recompute (``TrainConfig.remat="layer"``) and
 ``loss_chunk=min(2048, seq_len)``; the vision stub trains on text, as the
-reference's iterator gives no ``image_embeds``.
+reference's iterator gives no ``image_embeds``.  Whisper's batches also
+carry ``frames`` (B, encoder_seq_len, d_model), standard normal f32 drawn
+with numpy from (seed, batch index), so a resumed run sees the frames an
+uninterrupted one would.  This departs from the reference, whose trainer
+gives Whisper token batches only and so raises ``KeyError: 'frames'``
+in its loss (ROADMAP.md, queue 3).
 
 One device: the GPU by default (raises without one), ``--device cpu`` on
 request.  The reference builds a production mesh and shards its step only
@@ -24,6 +29,7 @@ import os
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -63,7 +69,16 @@ def make_iterator(cfg, args):
     it = LMIterator(LMDataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len, global_batch=args.batch,
     ))
-    return it, lambda b: b
+    if cfg.family != "whisper":
+        return it, lambda b: b
+
+    def with_frames(b):
+        # the batch just drawn is number it.index - 1; its own stream of draws
+        rng = np.random.default_rng(np.random.SeedSequence([it.cfg.seed, it.index - 1, 1]))
+        frames = rng.standard_normal((args.batch, cfg.encoder_seq_len, cfg.d_model),
+                                     dtype=np.float32)
+        return dict(b, frames=torch.from_numpy(frames))
+    return it, with_frames
 
 
 def main(argv=None) -> None:

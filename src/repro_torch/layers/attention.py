@@ -1,5 +1,5 @@
-"""Grouped-query attention: prefill (memory-bounded blocked softmax) and
-decode (one token against a KV cache).
+"""Grouped-query attention: prefill (memory-bounded blocked softmax),
+decode (one token against a KV cache) and Whisper's cross-attention.
 
 Counterpart of ``repro/layers/attention.py``, as plain PyTorch on tensors.
 The reference attends through these jnp functions and never reaches its
@@ -16,8 +16,11 @@ Decode writes the new token's K/V row into the cache **in place** at
 tensors: the caller's cache changes, where the reference's caller keeps
 its old cache unchanged.  ``cache_len`` is a 0-d integer tensor on the
 device, never read on the host, so one captured decode step serves every
-position.  Cross-attention, attention without RoPE and
-``update_cache=False`` come with Whisper (ROADMAP.md, queue 1, item 11f).
+position.  Cross-attention (Whisper's) projects K/V from ``x_kv``; its
+decode step passes ``update_cache=False``, which writes nothing and leaves
+the token's own K/V unprojected (the reference computes them and never
+reads them), and may pass ``cache_len`` as a Python int, so that a
+captured step copies nothing from the host.
 """
 from __future__ import annotations
 
@@ -140,16 +143,18 @@ def apply_attention(
     causal: bool,
     positions: Optional[torch.Tensor] = None,
     use_rope: bool = True,
+    x_kv: Optional[torch.Tensor] = None,
     kv_chunk: int = 1024,
     q_chunks: int = 1,
     return_kv: bool = False,
 ):
-    """Full-sequence attention (prefill). x: (B, S, D).
+    """Full-sequence attention (train / prefill). x: (B, S, D); K/V are
+    projected from ``x_kv`` (B, Sk, D) when it is given (cross-attention).
 
     With ``return_kv`` also returns the (post-RoPE, un-expanded) K/V for KV
     cache population at prefill.
     """
-    q, k, v = _project_qkv(params, x, x, cfg)
+    q, k, v = _project_qkv(params, x, x if x_kv is None else x_kv, cfg)
     if use_rope:
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
@@ -180,26 +185,36 @@ def decode_attention(
     *,
     cfg: ModelConfig,
     use_rope: bool = True,
+    update_cache: bool = True,
 ) -> tuple[torch.Tensor, Params]:
     """One-token decode: x (B, 1, D) against cache (B, S_max, Hkv, hd).
 
     Writes the token's K/V at ``cache_len`` into ``cache`` in place and
-    returns (y, cache).  The softmax over the cached sequence is computed in
+    returns (y, cache); with ``update_cache=False`` it writes nothing and
+    attends to the cache as it is.  ``cache_len`` is a 0-d integer tensor
+    or a Python int.  The softmax over the cached sequence is computed in
     fp32, masking positions > cache_len.
     """
     b, one, _ = x.shape
     if one != 1:
         raise ValueError(f"decode takes one token per row, got {one}")
     hd = cfg.resolved_head_dim()
-    cache_len = torch.as_tensor(cache_len, device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, x, cfg)
-    pos = cache_len.reshape(1)
+    if not isinstance(cache_len, int):
+        cache_len = torch.as_tensor(cache_len, device=x.device)
+    if use_rope or update_cache:        # an int is filled on the device: no copy from the host
+        pos = (torch.full((1,), cache_len, dtype=torch.long, device=x.device)
+               if isinstance(cache_len, int) else cache_len.reshape(1).long())
+    k_cache, v_cache = cache["k"], cache["v"]
+    if update_cache:
+        q, k_new, v_new = _project_qkv(params, x, x, cfg)
+        if use_rope:
+            k_new = apply_rope(k_new, pos, cfg.rope_theta)
+        k_cache.index_copy_(1, pos, k_new.to(k_cache.dtype))
+        v_cache.index_copy_(1, pos, v_new.to(v_cache.dtype))
+    else:
+        q = apply_linear(params["q"], x).reshape(b, 1, cfg.num_heads, hd)
     if use_rope:
         q = apply_rope(q, pos, cfg.rope_theta)
-        k_new = apply_rope(k_new, pos, cfg.rope_theta)
-    k_cache, v_cache = cache["k"], cache["v"]
-    k_cache.index_copy_(1, pos.long(), k_new.to(k_cache.dtype))
-    v_cache.index_copy_(1, pos.long(), v_new.to(v_cache.dtype))
 
     s_max = k_cache.shape[1]
     group = cfg.num_heads // cfg.num_kv_heads

@@ -14,15 +14,18 @@ Counterpart of ``repro/models/api.py``.  ``build_model(cfg)`` returns a
 - stitch(prefill_cache, max_len) -> the decode cache that continues a
   prefill (None where the family has no prefill-then-decode)
 
-The port builds the "transformer" (dense and MoE), "rwkv6", "jamba" and
-"lstm_ae" families; the transformer's and Jamba's ``loss`` is
-``train_loss`` (a MoE layer adds ``aux_weight`` times its load-balance
-loss).  RWKV-6's decode cache is its recurrent state (``init_cache`` and
-``stitch`` ignore ``max_len``: the state is position-free, and the
-prefill's state is the decode cache as it is).  Jamba's mixes the two: a
-KV cache at its attention position, stitched to ``max_len`` positions,
-and the Mamba states passed through as they are.  The others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The port builds every family of the reference: "transformer" (dense and
+MoE), "rwkv6", "jamba", "whisper" and "lstm_ae"; the LMs' ``loss`` is
+their ``train_loss`` (a MoE layer adds ``aux_weight`` times its
+load-balance loss).  RWKV-6's decode cache is its recurrent state
+(``init_cache`` and ``stitch`` ignore ``max_len``: the state is
+position-free, and the prefill's state is the decode cache as it is).
+Jamba's mixes the two: a KV cache at its attention position, stitched to
+``max_len`` positions, and the Mamba states passed through as they are.
+Whisper's holds the decoder's self-KV, stitched to ``max_len`` positions,
+and the cross-KV of the encoder's memory, passed through as it is.  A
+family listed in ``UNPORTED_FAMILIES`` (none today) raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 The reference's ``param_specs``/``cache_specs`` (sharding) and its
 ``input_specs``/``cache_struct``/``param_struct`` (the dry-run launcher)
 come with ROADMAP.md, queue 1, item 11g.
@@ -41,11 +44,11 @@ from repro_torch.models import jamba as jamba_m
 from repro_torch.models import lstm_ae as lstm_ae_m
 from repro_torch.models import rwkv6 as rwkv6_m
 from repro_torch.models import transformer as tf_m
+from repro_torch.models import whisper as whisper_m
 from repro_torch.utils import Params
 
-UNPORTED_FAMILIES = {
-    "whisper": "ROADMAP.md, queue 1, item 11f (models/whisper.py)",
-}
+# family -> the ROADMAP item that ports it
+UNPORTED_FAMILIES: dict[str, str] = {}
 
 
 @dataclass(frozen=True)
@@ -92,6 +95,17 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             init_cache=lambda batch, max_len, device=None: jamba_m.init_states(
                 cfg, batch, max_len, device=resolve_device(device)),
             stitch=lambda states, max_len: jamba_m.stitch_states(cfg, states, max_len),
+        )
+    if cfg.family == "whisper":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen, device=None: whisper_m.init_whisper(gen, cfg, resolve_device(device)),
+            loss=lambda p, b, **kw: whisper_m.train_loss(p, b, cfg, **kw),
+            prefill=lambda p, b, **kw: whisper_m.prefill(p, b, cfg, **kw),
+            decode=lambda p, t, c, n: whisper_m.decode_step(p, t, c, n, cfg),
+            init_cache=lambda batch, max_len, device=None: whisper_m.init_decode_cache(
+                cfg, batch, max_len, device=resolve_device(device)),
+            stitch=lambda cache, max_len: whisper_m.stitch_decode_cache(cfg, cache, max_len),
         )
     if cfg.family == "lstm_ae":
         # prefill runs a named engine schedule: pass schedule=... through kw

@@ -10,8 +10,9 @@ The reference jits its greedy loop whole.  The port's counterpart is
 a CUDA graph (``engine/capture.py``) per (batch, cache length, params)
 signature and replays it once per token.  The step closes over static
 buffers (the token, the position and the cache, which the decode step
-writes in place: the transformer's KV cache, RWKV-6's recurrent state or
-Jamba's KV cache and Mamba states), so the graph clones only the next
+writes in place: the transformer's KV cache, RWKV-6's recurrent state,
+Jamba's KV cache and Mamba states, or Whisper's self-KV beside its
+cross-KV, which the step only reads), so the graph clones only the next
 token and its logits, never the cache; the argmax token and
 ``cache_len + 1`` stay on the device, so decoding syncs with the host
 once per loop, not per token.
@@ -67,8 +68,9 @@ def stitch_prefill_cache(api: ModelAPI, prefill_cache: Params, max_len: int) -> 
     """The decode cache of ``max_len`` positions that continues a prefill,
     as ``api.stitch`` builds it: the transformer's KV cache holding the
     prefill's K/V at every position it covered, RWKV-6's prefill state as
-    it is (position-free), or Jamba's states, its KV cache stitched and its
-    Mamba states as they are."""
+    it is (position-free), Jamba's states, its KV cache stitched and its
+    Mamba states as they are, or Whisper's self-KV stitched and its
+    cross-KV as it is."""
     if api.stitch is None:
         raise ValueError(f"family {api.cfg.family!r} has no decode cache to stitch")
     return api.stitch(prefill_cache, max_len)

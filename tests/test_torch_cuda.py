@@ -1506,6 +1506,9 @@ def _lm_setup(arch, dtype, device, b=2, s=12):
     if api.cfg.frontend == "vision_stub":
         batch["image_embeds"] = torch.randn(b, api.cfg.vision_patches, api.cfg.d_model,
                                             generator=torch.Generator().manual_seed(1))
+    if api.cfg.family == "whisper":
+        batch["frames"] = torch.randn(b, api.cfg.encoder_seq_len, api.cfg.d_model,
+                                      generator=torch.Generator().manual_seed(1))
     on = tree_map(lambda t: t.to(device), params), {k: v.to(device) for k, v in batch.items()}
     return api, (params, batch), on
 
@@ -1858,5 +1861,98 @@ def test_jamba_captured_greedy_decode_equals_eager(cuda):
         assert torch.equal(got, want) and torch.equal(captured.logits, eager.logits)
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got_states),
                                                      tree_leaves(want_states)))
+    assert captured.captures == 1 and captured.replays == 2 * 6 - 1
+    assert dict(launch_counts()) == before
+
+
+# -- Whisper on the card: attention through the blocked softmax, no kernel of K1-K4
+
+def _whisper_prompt(batch):
+    return {"tokens": batch["tokens"], "frames": batch["frames"]}
+
+
+@pytest.mark.cuda
+def test_whisper_model_card_matches_cpu(cuda):
+    """The reduced whisper-large-v3 in f32 (TF32 off) on the card against
+    the CPU: prefill logits and the cache (``k``, ``v``, ``ck``, ``cv``) at
+    1e-4, one decode step from each side's stitched cache (logits and every
+    leaf; ``ck``/``cv`` unwritten), then ``train_loss`` and every grad leaf
+    at the CPU parity bar; no K1-K4 launch (the reference's Whisper
+    reaches no Pallas kernel)."""
+    api, cpu, card = _lm_setup("whisper-large-v3", "float32", cuda)
+    before = dict(launch_counts())
+    want, wc = api.prefill(cpu[0], _whisper_prompt(cpu[1]))
+    got, gc = api.prefill(card[0], _whisper_prompt(card[1]))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for name in wc:
+        torch.testing.assert_close(gc[name].cpu(), wc[name], rtol=1e-4, atol=1e-4)
+    s = cpu[1]["tokens"].shape[1]
+    wc, gc = api.stitch(wc, s + 1), api.stitch(gc, s + 1)
+    cross = {n: gc[n].clone() for n in ("ck", "cv")}
+    token = cpu[1]["tokens"][:, :1]
+    want, _ = api.decode(cpu[0], token, wc, torch.tensor(s))
+    got, _ = api.decode(card[0], token.to(cuda), gc, torch.tensor(s, device=cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for name in wc:
+        torch.testing.assert_close(gc[name].cpu(), wc[name], rtol=1e-4, atol=1e-4)
+    assert all(torch.equal(gc[n], cross[n]) for n in cross)
+    wloss, wgrads = _lm_value_and_grad(api, *cpu, loss_chunk=5)
+    gloss, ggrads = _lm_value_and_grad(api, *card, loss_chunk=5)
+    torch.testing.assert_close(gloss.cpu(), wloss, **LM_TRAIN_F32)
+    for g, w in zip(ggrads, wgrads):
+        torch.testing.assert_close(g.cpu(), w, **LM_TRAIN_F32)
+    assert dict(launch_counts()) == before
+
+
+@pytest.mark.cuda
+def test_whisper_bf16_card_no_farther_than_cpu(cuda):
+    """The reduced whisper-large-v3 in bf16 on the card: its prefill logits
+    lie no farther (+6e-2) from the CPU's f32 logits than the CPU's own
+    bf16 logits do, and the loss is within 6e-2 of the CPU's bf16 loss."""
+    api32, cpu, _ = _lm_setup("whisper-large-v3", "float32", cuda)
+    api, _, card = _lm_setup("whisper-large-v3", "bfloat16", cuda)
+    ref32, _ = api32.prefill(cpu[0], _whisper_prompt(cpu[1]))
+    ref16, _ = api.prefill(cpu[0], _whisper_prompt(cpu[1]))
+    got, _ = api.prefill(card[0], _whisper_prompt(card[1]))
+    mine = float((got.float().cpu() - ref32).abs().max())
+    theirs = float((ref16.float() - ref32).abs().max())
+    assert mine <= theirs + 6e-2, (mine, theirs)
+    wloss, _ = api.loss(cpu[0], cpu[1], loss_chunk=5)
+    gloss, _ = api.loss(card[0], card[1], loss_chunk=5)
+    torch.testing.assert_close(gloss.cpu(), wloss, rtol=6e-2, atol=6e-2)
+
+
+@pytest.mark.cuda
+def test_whisper_captured_greedy_decode_equals_eager(cuda):
+    """The Whisper decode step (the self-KV written at the position, the
+    cross-KV only read with the cross mask's length a Python int, ``dec_pos``
+    read on the device) captured once and replayed per token gives the
+    eager loop's tokens, last logits and cache bit for bit: nothing syncs
+    with the host or copies from it."""
+    from repro_torch.config import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, stitch_prefill_cache
+    from repro_torch.utils import tree_map
+
+    api = build_model(reduced_config("whisper-large-v3"))
+    params = api.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, api.cfg.vocab_size, (3, 9), generator=g, device=cuda,
+                         dtype=torch.int32)
+    frames = torch.randn(3, api.cfg.encoder_seq_len, api.cfg.d_model, generator=g, device=cuda)
+    logits, pre = api.prefill(params, {"tokens": toks, "frames": frames})
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    eager = GreedyDecoder(api, jit=False)
+    captured = GreedyDecoder(api)
+    want, want_cache = eager(params, stitch_prefill_cache(api, tree_map(torch.clone, pre), 15),
+                             first, 9, 6)
+    before = dict(launch_counts())
+    for call in range(2):
+        got, got_cache = captured(params, stitch_prefill_cache(api, tree_map(torch.clone, pre), 15),
+                                  first, 9, 6)
+        assert torch.equal(got, want) and torch.equal(captured.logits, eager.logits)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got_cache),
+                                                     tree_leaves(want_cache)))
+    assert torch.equal(want_cache["ck"], pre["ck"]) and torch.equal(want_cache["cv"], pre["cv"])
     assert captured.captures == 1 and captured.replays == 2 * 6 - 1
     assert dict(launch_counts()) == before

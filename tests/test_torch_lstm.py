@@ -28,9 +28,23 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
 
 
 def test_config_copy_matches_reference():
+    """Every arch of the reference's registry is the port's, field for field
+    (``dataclasses.asdict``), full and reduced: the paper configs'
+    ``subquadratic=True`` included."""
+    import dataclasses
+
+    from repro.config import list_archs as jax_list_archs
+    from repro.config import reduced_config as jax_reduced_config
+    from repro_torch.config import list_archs, reduced_config
+
+    assert list_archs() == jax_list_archs()
+    for arch in jax_list_archs():
+        for mine, ref in ((get_config(arch), jax_get_config(arch)),
+                          (reduced_config(arch), jax_reduced_config(arch))):
+            assert dataclasses.asdict(mine) == dataclasses.asdict(ref), arch
     for arch in PAPER_ARCHS:
         mine, ref = get_config(arch), jax_get_config(arch)
-        assert (mine.name, mine.family, mine.num_layers) == (ref.name, ref.family, ref.num_layers)
+        assert mine.subquadratic and reduced_config(arch).subquadratic
         assert mine.lstm_ae.layer_sizes() == ref.lstm_ae.layer_sizes()
         assert mine.lstm_ae.layer_input_sizes() == ref.lstm_ae.layer_input_sizes()
     from repro.config import LSTMAE_SHAPES as ref_shapes

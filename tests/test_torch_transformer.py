@@ -298,14 +298,37 @@ def test_init_draws_the_reference_distribution():
     assert abs(float(w.std()) / std - 0.88) < 0.05           # a normal cut at 2 std
 
 
-@pytest.mark.parametrize("family", ["whisper"])
-def test_build_model_refuses_unported_families(family):
-    """rwkv6 builds since item 11d (tests/test_torch_rwkv.py), jamba since
-    item 11e (tests/test_torch_jamba.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 11"):
-        build_model(ModelConfig("x", family))
+def _reference_families():
+    from repro.config import list_archs as jax_list_archs
+
+    return sorted({jax_reduced_config(a).family for a in jax_list_archs()})
+
+
+@pytest.mark.parametrize("family", _reference_families())
+def test_build_model_builds_every_reference_family(family):
+    """Every family the reference's ``build_model`` knows builds in the port
+    (rwkv6 since item 11d, jamba since 11e, whisper since 11f): none is
+    left in ``UNPORTED_FAMILIES``, and an unknown family raises."""
+    from repro.config import list_archs as jax_list_archs
+    from repro_torch.models.api import UNPORTED_FAMILIES
+
+    arch = next(a for a in jax_list_archs() if jax_reduced_config(a).family == family)
+    api = build_model(reduced_config(arch))
+    assert api.cfg.family == family and callable(api.loss) and callable(api.prefill)
+    assert family not in UNPORTED_FAMILIES
     with pytest.raises(ValueError, match="unknown family"):
         build_model(ModelConfig("x", "nope"))
+
+
+def test_build_model_refuses_unported_families(monkeypatch):
+    """A family listed in ``UNPORTED_FAMILIES`` (none since item 11f; the
+    mechanism stays for item 11g) raises ``NotImplementedError`` naming the
+    ROADMAP item that ports it."""
+    from repro_torch.models import api as api_m
+
+    monkeypatch.setitem(api_m.UNPORTED_FAMILIES, "later", "ROADMAP.md, queue 1, item 11g")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 11g"):
+        build_model(ModelConfig("x", "later"))
 
 
 def test_moe_and_lm_loss_raise():
