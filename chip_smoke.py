@@ -241,6 +241,19 @@ toolkit.  It
    config as subprocesses, the second train run resuming.  The reference's
    Whisper attends through jnp, no Pallas kernel, so K1-K4 must not launch
    over the phase (predicted 0) and no library attention may run.
+17. holds the sharding specs to the models, last (``[specs]`` lines, one
+   per registered arch, each at full width and depth): ``param_struct``
+   (the family's own ``init`` on the meta device: nothing is allocated,
+   dbrx-132b's 40 layers and jamba-v0.1-52b's four periods included)
+   against ``param_specs`` (the same tree, each spec's length the tensor's
+   rank, every axis name one ``ShardingRules`` knows), ``cache_struct``
+   against ``cache_specs`` at each decode cell of ``shapes_for``, and
+   ``input_specs`` for every cell of ``shapes_for``; then the specs
+   against the params the model phases above drew on the card
+   (tinyllama-1.1b, moonshot-v1-16b-a3b at 24 layers, dbrx-132b at 2,
+   rwkv6-7b, one Jamba period, whisper-large-v3): the same paths, shapes
+   and dtypes as ``param_struct`` of the same depth, and the phase's own
+   param count.  The card's allocated bytes must not move over the phase.
 
 The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
@@ -254,6 +267,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -3152,6 +3166,7 @@ def drive_lm(torch, results, card) -> None:
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
     out["params"] = sum(t.numel() for t in tree_leaves(params))
+    out["card_tree"] = card_tree(cfg, params)
     log(f"[lm] {cfg.name}: {out['params']:,} params in f32 drawn on the card from seed 0 in "
         f"{out['init_s']:.2f} s; compute {cfg.compute_dtype}, decode cache bf16 [{card}]")
 
@@ -3830,7 +3845,8 @@ def moe_serve(torch, cfg, n: int, out: dict, card) -> None:
     params = api.init(torch.Generator("cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    out.update({"layers": cfg.num_layers, "params": n_params, "init_s": time.perf_counter() - t0})
+    out.update({"layers": cfg.num_layers, "params": n_params, "init_s": time.perf_counter() - t0,
+                "card_tree": card_tree(cfg, params)})
     log(f"[moe] {cfg.name} at full width, {cfg.num_layers} of its layers: {n_params:,} params "
         f"in f32 ({4 * n_params / 1e9:.2f} GB) drawn on the card from seed 0 in "
         f"{out['init_s']:.2f} s; compute {cfg.compute_dtype}, decode cache bf16 [{card}]")
@@ -4374,7 +4390,8 @@ def rwkv_serve(torch, cfg, out, k3, rec, card) -> None:
     params = api.init(torch.Generator("cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    out.update({"layers": nl, "params": n_params, "init_s": time.perf_counter() - t0})
+    out.update({"layers": nl, "params": n_params, "init_s": time.perf_counter() - t0,
+                "card_tree": card_tree(cfg, params)})
     log(f"[rwkv] {cfg.name} at full width and all {nl} layers: {n_params:,} params in f32 "
         f"({4 * n_params / 1e9:.2f} GB) drawn on the card from seed 0 in {out['init_s']:.2f} s; "
         f"compute {cfg.compute_dtype}, WKV state f32 [{card}]")
@@ -5236,7 +5253,7 @@ def drive_jamba(torch, results, card) -> None:
         torch.cuda.synchronize()
         n_params = sum(t.numel() for t in tree_leaves(params))
         out.update({"layers": cfg.num_layers, "params": n_params,
-                    "init_s": time.perf_counter() - t0})
+                    "init_s": time.perf_counter() - t0, "card_tree": card_tree(cfg, params)})
         log(f"[jamba] {cfg.name} at full width, cut to {JAMBA_PERIODS} period of "
             f"{full.num_layers // 8} ({cfg.num_layers} of {full.num_layers} layers: "
             f"{jamba_kinds(cfg)}): {n_params:,} params in f32 ({4 * n_params / 1e9:.2f} GB) drawn "
@@ -5755,7 +5772,8 @@ def drive_whisper(torch, results, card) -> None:
         if n_params != whisper_params(cfg):
             raise AssertionError(f"[whisper] {n_params:,} params drawn, the count predicts "
                                  f"{whisper_params(cfg):,}")
-        out.update({"params": n_params, "init_s": time.perf_counter() - t0})
+        out.update({"params": n_params, "init_s": time.perf_counter() - t0,
+                    "card_tree": card_tree(cfg, params)})
         log(f"[whisper] {cfg.name} at full width and depth, no cut ({cfg.encoder_layers} encoder "
             f"+ {cfg.num_layers} decoder layers, d_model {cfg.d_model}, {cfg.encoder_seq_len} "
             f"frames): {n_params:,} params in f32 ({4 * n_params / 1e9:.2f} GB) drawn on the card "
@@ -5784,6 +5802,141 @@ def drive_whisper(torch, results, card) -> None:
                       WHISPER_LAUNCH_STEPS, WHISPER_CKPT_EVERY, out, card)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[whisper] phase {out['phase_s']:.1f} s [{card}]")
+
+
+# where the model phases keep the tree of the params they drew on the card
+CARD_TREES = (("lm",), ("moe", "serve"), ("moe", "dbrx"), ("rwkv", "serve"), ("jamba",),
+              ("whisper",))
+SHARDED_AXES = ("tp", "fsdp", "expert")
+
+
+def tree_paths(tree, is_leaf=lambda v: False, path: str = "") -> dict:
+    """path -> leaf of a tree of dicts and sequences (``is_leaf`` keeps a
+    spec tuple whole)."""
+    if is_leaf(tree):
+        return {path: tree}
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in tree_paths(tree[key], is_leaf, f"{path}/{key}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {k: v for i, x in enumerate(tree)
+                for k, v in tree_paths(x, is_leaf, f"{path}[{i}]").items()}
+    return {path: tree}
+
+
+def card_tree(cfg, params) -> dict:
+    """What the [specs] phase reads of params a model phase drew on the card:
+    the config's depth and every leaf's shape and dtype."""
+    return {"arch": cfg.name, "num_layers": cfg.num_layers,
+            "leaves": {p: (tuple(t.shape), str(t.dtype), t.device.type)
+                       for p, t in tree_paths(params).items()}}
+
+
+def specs_match(what: str, specs, struct, rules, is_spec_leaf) -> dict:
+    """Hold a spec tree to a tree of tensors: the same paths, each spec's
+    length the tensor's rank, every axis name known to ``rules``."""
+    spec_leaves, leaves = tree_paths(specs, is_spec_leaf), tree_paths(struct)
+    if spec_leaves.keys() != leaves.keys():
+        raise AssertionError(f"[specs] {what}: the spec tree and the tensors differ: "
+                             f"{sorted(spec_leaves.keys() ^ leaves.keys())[:6]}")
+    for path, t in leaves.items():
+        spec = spec_leaves[path]
+        if len(spec) != t.ndim:
+            raise AssertionError(f"[specs] {what}{path}: spec {spec} for a rank-{t.ndim} tensor")
+        rules.spec(spec)     # raises KeyError on an unknown axis name
+    return spec_leaves
+
+
+def drive_specs(torch, results, card) -> None:
+    """The sharding specs held to every registered arch at full width and
+    depth (``[specs]`` lines), last: param and cache structs on the meta
+    device against the spec trees, input structs for every dry-run cell,
+    then the specs against the params the model phases drew on the card."""
+    from repro_torch.config import get_config, list_archs, shapes_for
+    from repro_torch.distributed.sharding import ShardingRules, is_spec_leaf
+    from repro_torch.models import build_model
+    from repro_torch.models.api import cache_struct, input_specs, param_struct
+    from repro_torch.utils import tree_leaves
+
+    out = results["specs"] = {}
+    rules = ShardingRules()
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    on_card = {}
+    for keys in CARD_TREES:
+        rec = results
+        for k in keys:
+            rec = rec.get(k, {})
+        if "card_tree" not in rec:
+            raise AssertionError(f"[specs] no params tree kept by the {'/'.join(keys)} phase")
+        on_card.setdefault(rec["card_tree"]["arch"], []).append((keys, rec))
+    for arch in list_archs():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        api = build_model(cfg)
+        params = param_struct(api)
+        if not all(t.is_meta for t in tree_leaves(params)):
+            raise AssertionError(f"[specs] {arch}: param_struct left the meta device")
+        specs = specs_match(arch, api.param_specs(), params, rules, is_spec_leaf)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        sharded = sum(1 for spec in specs.values() if set(spec) & set(SHARDED_AXES))
+        rec = {"params": n_params, "leaves": len(specs), "sharded_leaves": sharded,
+               "cells": [], "caches": [], "on_card": []}
+        for shape in shapes_for(cfg):
+            inputs = input_specs(cfg, shape)
+            if not inputs or not all(t.is_meta for t in inputs.values()):
+                raise AssertionError(f"[specs] {arch} {shape.name}: inputs {inputs}")
+            rec["cells"].append({shape.name: {k: list(t.shape) for k, t in inputs.items()}})
+            if shape.kind != "decode":
+                continue
+            cache = cache_struct(api, shape.global_batch, shape.seq_len)
+            if not all(t.is_meta for t in tree_leaves(cache)):
+                raise AssertionError(f"[specs] {arch}: cache_struct left the meta device")
+            specs_match(f"{arch} {shape.name} cache", api.cache_specs(), cache, rules,
+                        is_spec_leaf)
+            rec["caches"].append({shape.name: sum(t.numel() * t.element_size()
+                                                  for t in tree_leaves(cache))})
+        for keys, phase in on_card.get(arch, ()):
+            kept = phase["card_tree"]
+            cut = build_model(cfg.with_overrides(num_layers=kept["num_layers"]))
+            want = {p: (tuple(t.shape), str(t.dtype))
+                    for p, t in tree_paths(param_struct(cut)).items()}
+            got = {p: leaf[:2] for p, leaf in kept["leaves"].items()}
+            if got != want or {leaf[2] for leaf in kept["leaves"].values()} != {"cuda"}:
+                raise AssertionError(f"[specs] {arch}: the params the {'/'.join(keys)} phase "
+                                     f"drew on the card differ from param_struct at "
+                                     f"{kept['num_layers']} layers")
+            cut_specs = tree_paths(cut.param_specs(), is_spec_leaf)
+            if cut_specs.keys() != got.keys() or any(
+                    len(cut_specs[p]) != len(shape) for p, (shape, _) in got.items()):
+                raise AssertionError(f"[specs] {arch}: param_specs do not fit the card's params")
+            cut_n = sum(math.prod(shape) for shape, _ in got.values())
+            if cut_n != phase["params"]:
+                raise AssertionError(f"[specs] {arch}: {cut_n:,} params in the card's tree, the "
+                                     f"{'/'.join(keys)} phase counted {phase['params']:,}")
+            rec["on_card"].append({"phase": "/".join(keys), "layers": kept["num_layers"],
+                                   "params": cut_n})
+        rec["s"] = time.perf_counter() - t0
+        out[arch] = rec
+        card_note = "; ".join(
+            f"on the card ({c['phase']} phase): {c['layers']} of {cfg.num_layers} layers, "
+            f"{c['params']:,} params, every leaf's path, shape, dtype and spec rank agree"
+            for c in rec["on_card"]) or "not drawn on the card"
+        caches = ", ".join(f"{name} {nbytes / 1e9:.2f} GB" for c in rec["caches"]
+                           for name, nbytes in c.items()) or "none"
+        log(f"[specs] {arch}: {n_params:,} params from param_struct (meta) in {len(specs)} "
+            f"leaves, {sharded} sharded on {'/'.join(SHARDED_AXES)}; spec tree, ranks and axis "
+            f"names match; caches at the decode cells: {caches}; input_specs for "
+            f"{len(rec['cells'])} cells ({', '.join(s.name for s in shapes_for(cfg))}); "
+            f"{card_note}; {rec['s']:.2f} s [{card}]")
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != allocated:
+        raise AssertionError(f"[specs] the phase moved the card's allocated bytes: {allocated:,} "
+                             f"-> {torch.cuda.memory_allocated():,}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[specs] {len(list_archs())} archs, {sum(len(v) for v in on_card.values())} card "
+        f"param trees held; 0 bytes allocated on the card; phase {out['phase_s']:.1f} s [{card}]")
 
 
 def main(argv=None) -> int:
@@ -5872,6 +6025,7 @@ def main(argv=None) -> int:
     drive_rwkv(torch, results, card)
     drive_jamba(torch, results, card)
     drive_whisper(torch, results, card)
+    drive_specs(torch, results, card)
 
     kernels = {"kernels": [{
         "name": "lstm_cell",

@@ -3,8 +3,10 @@
 A copy of the JAX package's ``repro/config/core.py``: the LSTM-AE family,
 the LM families' ``ModelConfig`` fields with ``MoEConfig``, ``SSMConfig``
 and ``RWKVConfig`` (the port runs every family: the dense and MoE
-transformers, RWKV-6, Jamba and Whisper), the LSTM-AE shapes and
-``TrainConfig``.  The port imports nothing of that package, so the copy
+transformers, RWKV-6, Jamba and Whisper), the LM and LSTM-AE shapes with
+``shapes_for`` (the dry-run cells of an architecture), ``TrainConfig``
+and the production mesh shapes ``MeshShape``, ``SINGLE_POD`` and
+``MULTI_POD``.  The port imports nothing of that package, so the copy
 is held to it field for field by
 ``tests/test_torch_*.py``.  One difference of wording: the reference's
 ``LSTMAEConfig`` docstring calls the per-layer hidden sizes
@@ -139,12 +141,33 @@ class ShapeConfig:
     global_batch: int
     kind: str                # train | prefill | decode
 
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+# The four LM shapes, reused by every LM-family architecture.
+TRAIN_4K = ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train")
+PREFILL_32K = ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, kind="prefill")
+DECODE_32K = ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, kind="decode")
+LONG_500K = ShapeConfig("long_500k", seq_len=524_288, global_batch=1, kind="decode")
+LM_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 # LSTM-AE (paper) shapes: streaming anomaly detection over T timesteps.
 LSTMAE_SHAPES = tuple(
     ShapeConfig(f"stream_{t}", seq_len=t, global_batch=4096, kind="train")
     for t in (16, 64)
 ) + (ShapeConfig("serve_64", seq_len=64, global_batch=8192, kind="prefill"),)
+
+
+def shapes_for(cfg: ModelConfig) -> tuple[ShapeConfig, ...]:
+    """The dry-run cells for an architecture: the LSTM-AE shapes, or the LM
+    shapes less ``long_500k`` for an architecture that is not
+    sub-quadratic (full attention is O(S^2) at 524k)."""
+    if cfg.family == "lstm_ae":
+        return LSTMAE_SHAPES
+    return tuple(s for s in LM_SHAPES
+                 if s.name != "long_500k" or cfg.subquadratic)
 
 
 @dataclass(frozen=True)
@@ -161,3 +184,22 @@ class TrainConfig:
     loss_chunk: int = 2048      # chunked xent: tokens per logits chunk
     grad_compression: str = "none"  # none | int8_ef
     microbatch: int = 1         # gradient accumulation steps
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """Logical mesh description (the reference concretises it in
+    ``launch/mesh.py``)."""
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshShape(shape=(16, 16), axes=("data", "model"))
+MULTI_POD = MeshShape(shape=(2, 16, 16), axes=("pod", "data", "model"))

@@ -21,9 +21,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
 from repro_torch.config.core import ModelConfig
-from repro_torch.utils import Params, truncated_normal_init
+from repro_torch.utils import Params, resolve_device_or_meta, truncated_normal_init
 
 
 def pwl_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -44,12 +43,21 @@ def _acts(pwl: bool):
 
 def init_lstm_cell(generator: torch.Generator, input_size: int, hidden_size: int,
                    device=None) -> Params:
-    dev = resolve_device(device)
+    # drawn on the CPU and moved, so a seed gives the same weights on every
+    # device; on the meta device (shapes only) nothing is drawn at all
+    dev = resolve_device_or_meta(device)
+    draw = dev if dev.type == "meta" else None
     return {
-        "wx": truncated_normal_init((input_size, 4 * hidden_size), input_size, generator).to(dev),
-        "wh": truncated_normal_init((hidden_size, 4 * hidden_size), hidden_size, generator).to(dev),
+        "wx": truncated_normal_init((input_size, 4 * hidden_size), input_size, generator,
+                                    draw).to(dev),
+        "wh": truncated_normal_init((hidden_size, 4 * hidden_size), hidden_size, generator,
+                                    draw).to(dev),
         "b": torch.zeros((4 * hidden_size,), dtype=torch.float32, device=dev),
     }
+
+
+def lstm_cell_specs() -> Params:
+    return {"wx": (None, "tp"), "wh": (None, "tp"), "b": ("tp",)}
 
 
 def lstm_cell(
@@ -102,6 +110,10 @@ def init_lstm_ae(generator: torch.Generator, cfg: ModelConfig, device=None) -> P
         for i, h in zip(ae.layer_input_sizes(), ae.layer_sizes())
     )
     return {"layers": layers}
+
+
+def lstm_ae_specs(cfg: ModelConfig) -> Params:
+    return {"layers": tuple(lstm_cell_specs() for _ in cfg.lstm_ae.layer_sizes())}
 
 
 def lstm_ae_sequential(params: Params, xs: torch.Tensor, pwl: bool = False) -> torch.Tensor:

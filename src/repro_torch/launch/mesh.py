@@ -4,7 +4,8 @@ Counterpart of ``make_host_mesh`` in ``repro/launch/mesh.py``, returning
 the port's :class:`~repro_torch.engine.placement.DeviceMesh`.  A function,
 never a module-level constant: importing this module touches no device.
 The reference's ``make_production_mesh`` (16x16 and larger) comes with the
-LM families (``ROADMAP.md``, queue 1, item 11g).
+sharded step (``ROADMAP.md``, queue 1, item 11g-2); the shapes it builds,
+``SINGLE_POD`` and ``MULTI_POD``, are in ``repro_torch.config``.
 """
 from __future__ import annotations
 

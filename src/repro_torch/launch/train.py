@@ -19,8 +19,7 @@ in its loss (ROADMAP.md, queue 3).
 One device: the GPU by default (raises without one), ``--device cpu`` on
 request.  The reference builds a production mesh and shards its step only
 at 256 devices or more (``pick_mesh``); that mesh and the sharded step
-come with the LM families' sharding rules (``ROADMAP.md``, queue 1, item
-11g).
+are ``ROADMAP.md``, queue 1, item 11g-2.
 """
 from __future__ import annotations
 
@@ -47,7 +46,7 @@ from repro_torch.models import build_model
 from repro_torch.training import build_train_step, init_train_state
 from repro_torch.utils import tree_leaves
 
-SHARDING_ITEM = "ROADMAP.md, queue 1, item 11g (the production mesh and the sharded step)"
+SHARDING_ITEM = "ROADMAP.md, queue 1, item 11g-2 (the production mesh and the sharded step)"
 
 
 def pick_mesh():

@@ -6,5 +6,6 @@ package's weights over unchanged.  The transformer's layers (linear,
 norms, rotary, embeddings, mlp, attention, moe), RWKV-6's (rwkv),
 Jamba's Mamba mixer (mamba) and Whisper's cross-attention and sinusoidal
 table (in attention and rotary) are ported: every layer module of the
-reference, less its ``*_specs`` (ROADMAP.md, queue 1, item 11g).
+reference, each with its ``*_specs`` (logical-axis spec trees, equal to
+the reference's; ``repro_torch.distributed.sharding``).
 """

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.core import ModelConfig
-from repro_torch.layers.linear import apply_linear, init_linear
+from repro_torch.layers.linear import apply_linear, init_linear, linear_specs
 from repro_torch.layers.rotary import apply_rope
 from repro_torch.utils import Params
 
@@ -50,6 +50,15 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, device=None,
                          device=device, lead=lead),
         "o": init_linear(generator, cfg.num_heads * hd, cfg.d_model, bias=cfg.qkv_bias,
                          device=device, lead=lead),
+    }
+
+
+def attention_specs(cfg: ModelConfig) -> Params:
+    return {
+        "q": linear_specs("fsdp", "tp", bias=cfg.qkv_bias),
+        "k": linear_specs("fsdp", "tp", bias=False),
+        "v": linear_specs("fsdp", "tp", bias=cfg.qkv_bias),
+        "o": linear_specs("tp", "fsdp", bias=cfg.qkv_bias),
     }
 
 
@@ -175,6 +184,11 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat
     shape = (batch, max_len, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_cache_specs() -> Params:
+    # batch over data, kv sequence over the model axis (flash-decode layout)
+    return {"k": ("batch", "tp", None, None), "v": ("batch", "tp", None, None)}
 
 
 def decode_attention(

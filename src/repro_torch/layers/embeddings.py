@@ -14,6 +14,10 @@ def init_embedding(generator: torch.Generator, vocab: int, d_model: int,
     return {"table": truncated_normal_init((vocab, d_model), d_model, generator, device)}
 
 
+def embedding_specs() -> Params:
+    return {"table": ("tp", "fsdp")}
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """tokens (B, S) int -> (B, S, D).  The reference casts the whole table
     and then gathers; a cast is per element, so gathering first gives the
@@ -24,6 +28,10 @@ def embed_tokens(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> to
 def init_unembed(generator: torch.Generator, d_model: int, vocab: int,
                  device=None) -> Params:
     return {"w": truncated_normal_init((d_model, vocab), d_model, generator, device)}
+
+
+def unembed_specs() -> Params:
+    return {"w": ("fsdp", "tp")}
 
 
 def unembed_logits(unembed_w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.core import ModelConfig
-from repro_torch.layers.linear import apply_linear, init_linear
+from repro_torch.layers.linear import apply_linear, init_linear, linear_specs
 from repro_torch.utils import Params, truncated_normal_init
 
 
@@ -66,6 +66,20 @@ def init_mamba(generator: torch.Generator, cfg: ModelConfig, device=None,
         "a_log": a.expand(lead + (d_inner, d_state)).clone(),
         "d_skip": torch.ones(lead + (d_inner,), **f32),
         "out": init_linear(generator, d_inner, d, device=device, lead=lead),
+    }
+
+
+def mamba_specs(cfg: ModelConfig) -> Params:
+    return {
+        "in_x": linear_specs("fsdp", "tp"),
+        "in_z": linear_specs("fsdp", "tp"),
+        "conv_w": (None, "tp"),
+        "conv_b": ("tp",),
+        "x_proj": linear_specs("tp", None),
+        "dt_proj": linear_specs(None, "tp", bias=True),
+        "a_log": ("tp", None),
+        "d_skip": ("tp",),
+        "out": linear_specs("tp", "fsdp"),
     }
 
 
@@ -133,6 +147,10 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=
         "ssm": torch.zeros((batch, d_inner, d_state), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, d_inner), dtype=dtype, device=device),
     }
+
+
+def mamba_state_specs() -> Params:
+    return {"ssm": ("batch", "tp", None), "conv": ("batch", None, "tp")}
 
 
 def apply_mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -5,7 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.core import ModelConfig
-from repro_torch.layers.linear import apply_linear, init_linear
+from repro_torch.layers.linear import apply_linear, init_linear, linear_specs
 from repro_torch.utils import Params
 
 
@@ -23,6 +23,19 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig, d_ff: int | None = No
                           lead=lead),
         "down": init_linear(generator, d_ff, cfg.d_model, bias=cfg.qkv_bias, device=device,
                             lead=lead),
+    }
+
+
+def mlp_specs(cfg: ModelConfig) -> Params:
+    if cfg.activation == "swiglu":
+        return {
+            "gate": linear_specs("fsdp", "tp"),
+            "up": linear_specs("fsdp", "tp"),
+            "down": linear_specs("tp", "fsdp"),
+        }
+    return {
+        "up": linear_specs("fsdp", "tp", bias=cfg.qkv_bias),
+        "down": linear_specs("tp", "fsdp", bias=cfg.qkv_bias),
     }
 
 

@@ -13,8 +13,8 @@ implementations (``cfg.moe.impl``):
 
 ``ep_a2a`` is the reference's expert-parallel path over a mesh
 (``apply_moe_ep``); without a mesh it is ``apply_moe``, as there, and a
-mesh raises: it comes with the sharding rules (ROADMAP.md, queue 1, item
-11g).
+mesh raises: its shard_map and all_to_all come with the sharded step
+(ROADMAP.md, queue 1, item 11g-2).
 
 Returns (y, aux_loss): aux is the Switch load-balance loss
 ``E * sum_e f_e * P_e`` (fraction dispatched x mean router prob).
@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from repro_torch.config.core import ModelConfig
 from repro_torch.utils import Params, truncated_normal_init
 
-SHARDING_ITEM = "ROADMAP.md, queue 1, item 11g (distributed/sharding.py)"
+SHARDING_ITEM = "ROADMAP.md, queue 1, item 11g-2 (the sharded step)"
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, device=None,
@@ -56,6 +56,15 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, device=None,
         "gate": truncated_normal_init(lead + (e, d, f), d, generator, device),
         "up": truncated_normal_init(lead + (e, d, f), d, generator, device),
         "down": truncated_normal_init(lead + (e, f, d), f, generator, device),
+    }
+
+
+def moe_specs(cfg: ModelConfig) -> Params:
+    return {
+        "router": (None, None),
+        "gate": ("expert", "fsdp", None),
+        "up": ("expert", "fsdp", None),
+        "down": ("expert", None, "fsdp"),
     }
 
 

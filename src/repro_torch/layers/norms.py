@@ -17,6 +17,17 @@ def init_norm(kind: str, dim: int, device=None, lead: tuple[int, ...] = ()) -> P
     raise ValueError(f"unknown norm kind {kind!r}")
 
 
+def norm_specs(kind: str) -> Params:
+    """Logical-axis specs matching :func:`init_norm` (all replicated)."""
+    if kind == "rmsnorm":
+        return {"scale": (None,)}
+    if kind == "layernorm":
+        return {"scale": (None,), "bias": (None,)}
+    if kind == "nonparametric_ln":
+        return {}
+    raise ValueError(f"unknown norm kind {kind!r}")
+
+
 def apply_norm(params: Params, x: torch.Tensor, kind: str, eps: float = 1e-5) -> torch.Tensor:
     """Normalise over the trailing dim; statistics in fp32 for stability."""
     dtype = x.dtype

@@ -34,8 +34,8 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.config.core import ModelConfig
 from repro_torch.kernels.ops import wkv6_op
-from repro_torch.layers.linear import apply_linear, init_linear
-from repro_torch.layers.norms import apply_norm, init_norm
+from repro_torch.layers.linear import apply_linear, init_linear, linear_specs
+from repro_torch.layers.norms import apply_norm, init_norm, norm_specs
 from repro_torch.utils import Params, truncated_normal_init
 
 
@@ -66,6 +66,22 @@ def init_time_mix(generator: torch.Generator, cfg: ModelConfig, device=None,
         "u": truncated_normal_init(lead + (h, hd), hd, generator, device),   # bonus
         "mix": torch.full(lead + (5, d), 0.5, **f32),     # token-shift mixes (r,k,v,g,w)
         "gn": init_norm("layernorm", hd, device, lead),    # per-head group norm
+    }
+
+
+def time_mix_specs(cfg: ModelConfig) -> Params:
+    return {
+        "r": linear_specs("fsdp", "tp"),
+        "k": linear_specs("fsdp", "tp"),
+        "v": linear_specs("fsdp", "tp"),
+        "g": linear_specs("fsdp", "tp"),
+        "o": linear_specs("tp", "fsdp"),
+        "w1": ("fsdp", None),
+        "w2": (None, "tp"),
+        "wbase": ("tp",),
+        "u": ("tp", None),
+        "mix": (None, "tp"),
+        "gn": norm_specs("layernorm"),
     }
 
 
@@ -294,6 +310,15 @@ def init_channel_mix(generator: torch.Generator, cfg: ModelConfig, device=None,
         "down": init_linear(generator, cfg.d_ff, cfg.d_model, device=device, lead=lead),
         "recv": init_linear(generator, cfg.d_model, cfg.d_model, device=device, lead=lead),
         "mix": torch.full(lead + (2, cfg.d_model), 0.5, dtype=torch.float32, device=device),
+    }
+
+
+def channel_mix_specs(cfg: ModelConfig) -> Params:
+    return {
+        "up": linear_specs("fsdp", "tp"),
+        "down": linear_specs("tp", "fsdp"),
+        "recv": linear_specs("fsdp", "tp"),
+        "mix": (None, "tp"),
     }
 
 

@@ -27,29 +27,36 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.core import ModelConfig
+from repro_torch.distributed.sharding import map_specs
 from repro_torch.layers.attention import (
     apply_attention,
+    attention_specs,
     decode_attention,
     init_attention,
     init_kv_cache,
+    kv_cache_specs,
 )
 from repro_torch.layers.embeddings import (
     chunked_xent_loss,
     embed_tokens,
+    embedding_specs,
     init_embedding,
     init_unembed,
     unembed_logits,
+    unembed_specs,
 )
 from repro_torch.layers.mamba import (
     apply_mamba,
     apply_mamba_step,
     init_mamba,
     init_mamba_state,
+    mamba_specs,
+    mamba_state_specs,
 )
-from repro_torch.layers.mlp import apply_mlp, init_mlp
-from repro_torch.layers.moe import apply_moe, apply_moe_ep, init_moe
-from repro_torch.layers.norms import apply_norm, init_norm
-from repro_torch.models.transformer import _unstack
+from repro_torch.layers.mlp import apply_mlp, init_mlp, mlp_specs
+from repro_torch.layers.moe import apply_moe, apply_moe_ep, init_moe, moe_specs
+from repro_torch.layers.norms import apply_norm, init_norm, norm_specs
+from repro_torch.models.transformer import _stack_specs, _unstack
 from repro_torch.utils import Params
 
 PERIOD = 8
@@ -71,6 +78,16 @@ def _layer_kind(cfg: ModelConfig, j: int) -> tuple[str, str]:
     mixer = "attn" if j % cfg.attn_every == cfg.attn_offset else "mamba"
     ffn = "moe" if cfg.is_moe_layer(j) else "mlp"
     return mixer, ffn
+
+
+def position_specs(cfg: ModelConfig, j: int) -> Params:
+    mixer, ffn = _layer_kind(cfg, j)
+    return {
+        "ln1": norm_specs(cfg.norm),
+        "ln2": norm_specs(cfg.norm),
+        "mixer": attention_specs(cfg) if mixer == "attn" else mamba_specs(cfg),
+        "ffn": moe_specs(cfg) if ffn == "moe" else mlp_specs(cfg),
+    }
 
 
 def init_position(generator: torch.Generator, cfg: ModelConfig, j: int, device=None,
@@ -100,6 +117,15 @@ def init_jamba(generator: torch.Generator, cfg: ModelConfig, device=None) -> Par
     }
 
 
+def jamba_specs(cfg: ModelConfig) -> Params:
+    return {
+        "embed": embedding_specs(),
+        "positions": tuple(_stack_specs(position_specs(cfg, j)) for j in range(PERIOD)),
+        "ln_f": norm_specs(cfg.norm),
+        "unembed": unembed_specs(),
+    }
+
+
 def _ffn(lp: Params, h: torch.Tensor, cfg: ModelConfig, j: int):
     """The position's feed-forward: (out, its aux loss), the MLP's a Python 0.0."""
     if _layer_kind(cfg, j)[1] == "moe":
@@ -122,6 +148,15 @@ def init_states(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16
                else init_mamba_state(cfg, batch, dtype, device))
         states.append({k: v.expand((n_p,) + v.shape).clone() for k, v in one.items()})
     return tuple(states)
+
+
+def state_specs(cfg: ModelConfig) -> Params:
+    out = []
+    for j in range(PERIOD):
+        mixer, _ = _layer_kind(cfg, j)
+        base = kv_cache_specs() if mixer == "attn" else mamba_state_specs()
+        out.append(map_specs(lambda axes: (None,) + axes, base))
+    return tuple(out)
 
 
 def _layer_fn(lp: Params, h: torch.Tensor, cfg: ModelConfig, j: int, kv_chunk: int,

@@ -11,10 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.config.core import ModelConfig
 from repro_torch.core.lstm import lstm_ae_sequential, lstm_cell
-from repro_torch.utils import Params
+from repro_torch.utils import Params, resolve_device_or_meta
 
 
 def train_loss(params: Params, batch: dict, cfg: ModelConfig, **_) -> tuple[torch.Tensor, dict]:
@@ -41,7 +40,7 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, schedule: str = "wave
 
 def init_stream_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
                       device=None) -> Params:
-    dev = resolve_device(device)
+    dev = resolve_device_or_meta(device)
     sizes = cfg.lstm_ae.layer_sizes()
     return {
         "h": tuple(torch.zeros((batch, s), dtype=dtype, device=dev) for s in sizes),

@@ -26,19 +26,23 @@ from repro_torch.config.core import ModelConfig
 from repro_torch.layers.embeddings import (
     chunked_xent_loss,
     embed_tokens,
+    embedding_specs,
     init_embedding,
     init_unembed,
     unembed_logits,
+    unembed_specs,
 )
-from repro_torch.layers.norms import apply_norm, init_norm
+from repro_torch.layers.norms import apply_norm, init_norm, norm_specs
 from repro_torch.layers.rwkv import (
     apply_channel_mix,
     apply_time_mix,
     apply_time_mix_step,
+    channel_mix_specs,
     init_channel_mix,
     init_time_mix,
+    time_mix_specs,
 )
-from repro_torch.models.transformer import _unstack
+from repro_torch.models.transformer import _stack_specs, _unstack
 from repro_torch.utils import Params
 
 STATE_KEYS = ("tm_x", "wkv", "cm_x")
@@ -58,6 +62,15 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, device=None,
     }
 
 
+def layer_specs(cfg: ModelConfig) -> Params:
+    return {
+        "ln1": norm_specs("layernorm"),
+        "tm": time_mix_specs(cfg),
+        "ln2": norm_specs("layernorm"),
+        "cm": channel_mix_specs(cfg),
+    }
+
+
 def init_rwkv6(generator: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     """Params drawn on ``device`` from ``generator`` (which lives there), in
     the reference's distributions; the layers' leaves stacked (L, ...)."""
@@ -70,6 +83,16 @@ def init_rwkv6(generator: torch.Generator, cfg: ModelConfig, device=None) -> Par
     }
 
 
+def rwkv6_specs(cfg: ModelConfig) -> Params:
+    return {
+        "embed": embedding_specs(),
+        "ln0": norm_specs("layernorm"),
+        "layers": _stack_specs(layer_specs(cfg)),
+        "ln_f": norm_specs("layernorm"),
+        "unembed": unembed_specs(),
+    }
+
+
 def init_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=None) -> Params:
     """Zeroed recurrent state, stacked (L, ...): the token-shift inputs in
     ``dtype``, the WKV state in f32."""
@@ -79,6 +102,14 @@ def init_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=None) 
         "tm_x": torch.zeros((n, batch, d), dtype=dtype, device=device),
         "wkv": torch.zeros((n, batch, h, hd, hd), dtype=torch.float32, device=device),
         "cm_x": torch.zeros((n, batch, d), dtype=dtype, device=device),
+    }
+
+
+def state_specs() -> Params:
+    return {
+        "tm_x": (None, "batch", None),
+        "wkv": (None, "batch", "tp", None, None),
+        "cm_x": (None, "batch", None),
     }
 
 

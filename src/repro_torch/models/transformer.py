@@ -15,7 +15,8 @@ layer's activations at a time.  The recompute runs the same ops, so it
 routes as the forward did.  ``forward`` sums the MoE layers' aux losses;
 ``train_loss`` is the next-token loss through ``chunked_xent_loss`` plus
 ``aux_weight`` times that sum.  ``bwd_constrain`` only pins a sharding in
-the reference, which comes with item 11g; it is not read here.
+the reference, which comes with the sharded step (item 11g-2); it is not
+read here.
 """
 from __future__ import annotations
 
@@ -25,22 +26,27 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.core import ModelConfig
+from repro_torch.distributed.sharding import map_specs
 from repro_torch.layers.attention import (
     apply_attention,
+    attention_specs,
     decode_attention,
     init_attention,
     init_kv_cache,
+    kv_cache_specs,
 )
 from repro_torch.layers.embeddings import (
     chunked_xent_loss,
     embed_tokens,
+    embedding_specs,
     init_embedding,
     init_unembed,
     unembed_logits,
+    unembed_specs,
 )
-from repro_torch.layers.mlp import apply_mlp, init_mlp
-from repro_torch.layers.moe import apply_moe, apply_moe_ep, init_moe
-from repro_torch.layers.norms import apply_norm, init_norm
+from repro_torch.layers.mlp import apply_mlp, init_mlp, mlp_specs
+from repro_torch.layers.moe import apply_moe, apply_moe_ep, init_moe, moe_specs
+from repro_torch.layers.norms import apply_norm, init_norm, norm_specs
 from repro_torch.utils import Params
 
 
@@ -66,6 +72,24 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, device=None,
     return p
 
 
+def layer_specs(cfg: ModelConfig) -> Params:
+    s = {
+        "ln1": norm_specs(cfg.norm),
+        "attn": attention_specs(cfg),
+        "ln2": norm_specs(cfg.norm),
+    }
+    if _is_moe(cfg):
+        s["moe"] = moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg)
+    return s
+
+
+def _stack_specs(specs: Params) -> Params:
+    """Prepend the stacked-layer dim (replicated) to every leaf spec."""
+    return map_specs(lambda axes: (None,) + axes, specs)
+
+
 def init_transformer(generator: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     """Params drawn on ``device`` from ``generator`` (which lives there), in
     the reference's distributions; the layers' leaves stacked (L, ...)."""
@@ -77,6 +101,17 @@ def init_transformer(generator: torch.Generator, cfg: ModelConfig, device=None) 
     if not cfg.tie_embeddings:
         p["unembed"] = init_unembed(generator, cfg.d_model, cfg.vocab_size, device)
     return p
+
+
+def transformer_specs(cfg: ModelConfig) -> Params:
+    s = {
+        "embed": embedding_specs(),
+        "layers": _stack_specs(layer_specs(cfg)),
+        "ln_f": norm_specs(cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        s["unembed"] = unembed_specs()
+    return s
 
 
 def _unembed_w(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -246,6 +281,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bf
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_cache_specs(cfg: ModelConfig) -> Params:
+    if cfg.decode_loop == "unroll":
+        return tuple(kv_cache_specs() for _ in range(cfg.num_layers))
+    return map_specs(lambda axes: (None,) + axes, kv_cache_specs())
 
 
 def stitch_decode_cache(cfg: ModelConfig, prefill_cache: Params, max_len: int) -> Params:

@@ -31,18 +31,25 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.core import ModelConfig
-from repro_torch.layers.attention import apply_attention, decode_attention, init_attention
+from repro_torch.layers.attention import (
+    apply_attention,
+    attention_specs,
+    decode_attention,
+    init_attention,
+    kv_cache_specs,
+)
 from repro_torch.layers.embeddings import (
     chunked_xent_loss,
     embed_tokens,
+    embedding_specs,
     init_embedding,
     unembed_logits,
 )
 from repro_torch.layers.linear import apply_linear
-from repro_torch.layers.mlp import apply_mlp, init_mlp
-from repro_torch.layers.norms import apply_norm, init_norm
+from repro_torch.layers.mlp import apply_mlp, init_mlp, mlp_specs
+from repro_torch.layers.norms import apply_norm, init_norm, norm_specs
 from repro_torch.layers.rotary import sinusoidal_embedding
-from repro_torch.models.transformer import _unstack
+from repro_torch.models.transformer import _stack_specs, _unstack
 from repro_torch.utils import Params, truncated_normal_init
 
 MAX_DECODER_LEN = 32_768  # sized for the reference's decode_32k shape
@@ -63,6 +70,15 @@ def init_enc_layer(generator: torch.Generator, cfg: ModelConfig, device=None,
     }
 
 
+def enc_layer_specs(cfg: ModelConfig) -> Params:
+    return {
+        "ln1": norm_specs("layernorm"),
+        "attn": attention_specs(cfg),
+        "ln2": norm_specs("layernorm"),
+        "mlp": mlp_specs(cfg),
+    }
+
+
 def init_dec_layer(generator: torch.Generator, cfg: ModelConfig, device=None,
                    lead: tuple[int, ...] = ()) -> Params:
     return {
@@ -72,6 +88,17 @@ def init_dec_layer(generator: torch.Generator, cfg: ModelConfig, device=None,
         "cross_attn": init_attention(generator, cfg, device, lead),
         "ln2": init_norm(NORM, cfg.d_model, device, lead),
         "mlp": init_mlp(generator, cfg, device=device, lead=lead),
+    }
+
+
+def dec_layer_specs(cfg: ModelConfig) -> Params:
+    return {
+        "ln1": norm_specs("layernorm"),
+        "self_attn": attention_specs(cfg),
+        "ln_x": norm_specs("layernorm"),
+        "cross_attn": attention_specs(cfg),
+        "ln2": norm_specs("layernorm"),
+        "mlp": mlp_specs(cfg),
     }
 
 
@@ -86,6 +113,17 @@ def init_whisper(generator: torch.Generator, cfg: ModelConfig, device=None) -> P
         "ln_enc": init_norm(NORM, cfg.d_model, device),
         "dec_layers": init_dec_layer(generator, cfg, device, lead=(cfg.num_layers,)),
         "ln_dec": init_norm(NORM, cfg.d_model, device),
+    }
+
+
+def whisper_specs(cfg: ModelConfig) -> Params:
+    return {
+        "embed": embedding_specs(),
+        "dec_pos": (None, "fsdp"),
+        "enc_layers": _stack_specs(enc_layer_specs(cfg)),
+        "ln_enc": norm_specs("layernorm"),
+        "dec_layers": _stack_specs(dec_layer_specs(cfg)),
+        "ln_dec": norm_specs("layernorm"),
     }
 
 
@@ -199,6 +237,16 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bf
             "v": torch.zeros(self_shape, dtype=dtype, device=device),
             "ck": torch.zeros(cross_shape, dtype=dtype, device=device),
             "cv": torch.zeros(cross_shape, dtype=dtype, device=device)}
+
+
+def decode_cache_specs(cfg: ModelConfig) -> Params:
+    base = kv_cache_specs()
+    return {
+        "k": (None,) + base["k"],
+        "v": (None,) + base["v"],
+        "ck": (None, "batch", "tp", None, None),
+        "cv": (None, "batch", "tp", None, None),
+    }
 
 
 def _decode_layer(lp: Params, cache_l: Params, h: torch.Tensor, cache_len: torch.Tensor,

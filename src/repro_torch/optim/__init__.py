@@ -6,6 +6,7 @@ from repro_torch.optim.adamw import (
     global_norm,
     init_opt_state,
     lr_schedule,
+    opt_state_specs,
 )
 from repro_torch.optim.compression import (
     compress_grads,
@@ -24,5 +25,6 @@ __all__ = [
     "init_error_feedback",
     "init_opt_state",
     "lr_schedule",
+    "opt_state_specs",
     "quantize_int8",
 ]

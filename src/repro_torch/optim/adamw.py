@@ -36,6 +36,11 @@ def init_opt_state(params: Params) -> AdamWState:
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
+def opt_state_specs(param_specs: Params) -> AdamWState:
+    """Optimizer-state spec tree mirroring the param specs."""
+    return AdamWState(step=(), mu=param_specs, nu=param_specs)
+
+
 def lr_schedule(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
     """Linear warmup to ``learning_rate``, then a cosine down to 0.1 of it,
     in f32 (``step`` an int32 tensor)."""

@@ -3,7 +3,8 @@
 greedy decoding.
 
 Counterpart of ``repro/serving/step.py``.  A mesh or sharding rules raise:
-the port's sharding rules come with ROADMAP.md, queue 1, item 11g.
+placing the params and the cache by the port's spec trees is the sharded
+step, ROADMAP.md, queue 1, item 11g-2.
 
 The reference jits its greedy loop whole.  The port's counterpart is
 :class:`GreedyDecoder`: on a CUDA device it captures one decode step into
@@ -27,7 +28,7 @@ from repro_torch.engine.capture import GraphCache, signature
 from repro_torch.models.api import ModelAPI
 from repro_torch.utils import Params, tree_leaves, tree_map
 
-SHARDING_ITEM = "ROADMAP.md, queue 1, item 11g (distributed/sharding.py)"
+SHARDING_ITEM = "ROADMAP.md, queue 1, item 11g-2 (the sharded step)"
 
 
 def _refuse_mesh(mesh, rules) -> None:

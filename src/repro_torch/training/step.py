@@ -10,8 +10,9 @@ back per leaf, accumulated in f32 over ``microbatch`` row blocks and
 compressed per leaf under ``int8_ef``.  The step is eager and unsharded:
 a ``mesh`` or sharding ``rules`` raise.  The reference shards its step
 only over a mesh that ``launch/train.py::pick_mesh`` builds at 256
-devices or more, with the LM families' rules (``distributed/sharding.py``),
-so the sharded step waits for them (``ROADMAP.md``, queue 1, item 11g).
+devices or more.  The port has the rules and the state's spec tree
+(``distributed/sharding.py``, :func:`train_state_specs`); placing the
+state by them is the sharded step (``ROADMAP.md``, queue 1, item 11g-2).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from repro_torch.optim import (
     compress_grads,
     init_error_feedback,
     init_opt_state,
+    opt_state_specs,
 )
 from repro_torch.utils import Params, tree_map
 
@@ -45,6 +47,16 @@ def init_train_state(params: Params, tc: TrainConfig) -> TrainState:
         params=params,
         opt=init_opt_state(params),
         ef=init_error_feedback(params) if tc.grad_compression == "int8_ef" else None,
+    )
+
+
+def train_state_specs(api: Any, tc: TrainConfig) -> TrainState:
+    """The logical-axis spec tree of :func:`init_train_state`'s state."""
+    ps = api.param_specs()
+    return TrainState(
+        params=ps,
+        opt=opt_state_specs(ps),
+        ef=ps if tc.grad_compression == "int8_ef" else None,
     )
 
 
@@ -71,8 +83,8 @@ def build_train_step(api: Any, tc: TrainConfig, mesh=None, rules=None):
     if mesh is not None or rules is not None:
         raise NotImplementedError(
             "a train step over a mesh or sharding rules is not ported yet: it "
-            "comes with the LM families' sharding rules, ROADMAP.md, queue 1, "
-            "item 11g (the reference builds a training mesh only at 256 devices)")
+            "is the sharded step, ROADMAP.md, queue 1, item 11g-2 (the "
+            "reference builds a training mesh only at 256 devices)")
     loss_kwargs = dict(remat=(tc.remat != "none"), loss_chunk=tc.loss_chunk)
 
     def grads_of(params: Params, batch: dict) -> tuple[Params, dict]:

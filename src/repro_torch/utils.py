@@ -17,6 +17,15 @@ from repro_torch import resolve_device
 Params = Any  # nested dict / tuple / list of tensors
 
 
+def resolve_device_or_meta(device=None) -> torch.device:
+    """:func:`repro_torch.resolve_device`, and also the meta device: tensors
+    with a shape and a dtype and no storage, for the dry-run structs
+    (``models/api.py::param_struct``, ``cache_struct``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def truncated_normal_init(
     shape: tuple[int, ...], fan_in: int | None = None,
     generator: torch.Generator | None = None, device=None,

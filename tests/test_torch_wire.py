@@ -3,10 +3,15 @@ reference's: the committed 28-frame corpus ``tests/fixtures/wire/``
 rebuilt byte for byte and decoded back to each case spec (the logic of
 ``scripts/wire_conformance.py``, run on the port's codec), the codec's
 round-trips (property-tested, and byte-equal to the reference codec's
-frames for the same inputs), zero-copy payload decode, and the framing
-errors that make a server drop a connection."""
+frames for the same inputs), zero-copy payload decode, the framing
+errors that make a server drop a connection, and ``scripts/wire_fuzz.py``'s
+two tiers on the port: its codec tier, and its live tier's attacks thrown
+at a port server."""
 import asyncio
 import importlib.util
+import random
+import re
+import socket
 import struct
 from pathlib import Path
 
@@ -163,3 +168,81 @@ def test_read_frame_from_a_stream_and_its_limits():
         asyncio.run(read([blob], limit=4))
     with pytest.raises(asyncio.IncompleteReadError):
         asyncio.run(read([blob[:-1]]))
+
+
+# -- scripts/wire_fuzz.py on the port: its codec tier, and its live tier's
+# -- attacks thrown at a port server ---------------------------------------
+
+
+def _fuzz_on_port_codec():
+    """``scripts/wire_fuzz.py`` loaded as a module, its codec pointed at the
+    port's (the script reads the module-level ``wire``)."""
+    spec = importlib.util.spec_from_file_location(
+        "wire_fuzz_port", ROOT / "scripts" / "wire_fuzz.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.wire = wire
+    return mod
+
+
+FUZZ = _fuzz_on_port_codec()
+FUZZ_SEED = 1302   # the script's default seed
+
+
+def test_wire_fuzz_codec_tier_on_the_port_codec(capsys):
+    """The codec tier at the script's 400 iterations: mutated frames in
+    adversarial chunks parse or raise WireProtocolError, the reader never
+    buffers past its cap, and fresh readers round-trip valid frames."""
+    assert FUZZ.fuzz_codec(FUZZ_SEED, 400) == 0
+    out = capsys.readouterr().out
+    assert "400 iterations" in out
+    rejected, tolerated = (int(x) for x in re.search(
+        r"\((\d+) rejected, (\d+) tolerated\)", out).groups())
+    assert rejected + tolerated == 400 and rejected > 0 and tolerated > 0
+
+
+def test_wire_fuzz_live_attacks_leave_a_port_server_answering():
+    """The live tier's 60 attacks (``_attack_bytes``: mutated frames after
+    the preamble, truncated headers, oversize length fields, raw garbage on
+    the JSON-lines path, bad magic, a doubled preamble) thrown at a port
+    GatewayServer serving lstm-ae-f32-d2 on the CPU.  After every ten, and
+    at the end on both protocols, a fresh connection still answers ping,
+    score (bit-equal to the score before any attack) and step."""
+    from repro_torch.engine import AnomalyService
+    from repro_torch.gateway.client import GatewayClient
+    from repro_torch.gateway.server import GatewayServer
+
+    rng = random.Random(FUZZ_SEED)
+    svc = AnomalyService("lstm-ae-f32-d2", schedule="wavefront", device="cpu")
+    gw = svc.open_gateway(capacity=4, max_batch=4, max_wait_ms=5.0)
+    server = GatewayServer(gw, port=0, pump_interval_ms=2.0)
+    host, port = server.start_in_thread()
+    feats = gw.pool.features
+    window = np.linspace(0.0, 1.0, 8 * feats, dtype=np.float32).reshape(8, feats)
+    try:
+        with GatewayClient(host, port, protocol="binary") as c:
+            oracle = c.score(window)
+        for i in range(60):
+            attack = FUZZ._attack_bytes(rng)
+            with socket.create_connection((host, port), timeout=10) as s:
+                # a short linger: an attack the server waits out (a header
+                # cut short) must not hold the test for the script's 10 s
+                s.settimeout(0.2)
+                try:
+                    s.sendall(attack)
+                    if rng.random() < 0.5:
+                        s.recv(4096)
+                except OSError:
+                    pass  # the server hanging up on us is a legal response
+            if i % 10 == 9:
+                proto = "binary" if rng.random() < 0.5 else "json"
+                with GatewayClient(host, port, protocol=proto) as c:
+                    assert c.request("ping")["ok"], f"attack {i}: ping failed"
+                    assert c.score(window) == oracle, f"attack {i}: score drifted"
+                    c.step(window[0])
+        for proto in ("binary", "json"):
+            with GatewayClient(host, port, protocol=proto) as c:
+                assert c.ping()
+                assert c.score(window) == oracle
+    finally:
+        server.stop_in_thread()
