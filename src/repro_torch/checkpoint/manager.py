@@ -12,9 +12,13 @@ in the order ``jax.tree_util`` flattens (dict keys sorted, sequences and
 dataclass fields in order).  So a checkpoint written by one
 package restores in the other.  ``treedef`` in ``meta.json`` describes the
 tree for a reader and is never parsed; restores follow the target's
-structure.  Only whole, unsharded leaves are restored: restoring onto
-sharded placements comes with the sharded train step (``ROADMAP.md``,
-queue 1, item 11g-2).
+structure.
+
+A tree of DTensors is saved whole: each leaf gathered (``full_tensor``, a
+collective every rank joins), and only rank 0 of the process group
+writes, so a sharded save restores unsharded, and in the JAX package.
+``restore_checkpoint(..., mesh=, spec_tree=)`` places each restored leaf
+by its spec (``distribute_tensor``), the reference's elastic remesh.
 """
 from __future__ import annotations
 
@@ -65,11 +69,22 @@ def _dtype_name(leaf) -> str:
     return np.asarray(leaf).dtype.name
 
 
+def _whole(leaf):
+    """A DTensor gathered whole (every rank joins); any other leaf as it is."""
+    return leaf.full_tensor() if hasattr(leaf, "full_tensor") else leaf
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the process
+    group, or a process outside one."""
+    return not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
+
+
 def _host(leaf) -> np.ndarray:
     """A host array of ``leaf``; bfloat16 becomes float32 (npz cannot hold
     it, and the upcast is exact)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = _whole(leaf).detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -116,14 +131,26 @@ def _restored(arr: np.ndarray, name: Optional[str], target) -> torch.Tensor:
 
 def save_checkpoint(directory: str | Path, step: int, state: Params,
                     extra_meta: Optional[dict] = None) -> Path:
-    """Atomic synchronous save.  Returns the final checkpoint path."""
+    """Atomic synchronous save.  Returns the final checkpoint path.  Every
+    rank of a process group calls it (a DTensor leaf is gathered); rank 0
+    writes, and with DTensor leaves the others wait until it has."""
     directory = Path(directory)
     final = directory / f"step_{step:08d}"
     tmp = directory / f"step_{step:08d}.tmp"
+    sharded = any(hasattr(leaf, "full_tensor") for _, leaf in _items(state))
+    flat, dtypes = _flatten(state)
+    if _writes():
+        _write(tmp, final, step, state, flat, dtypes, extra_meta)
+    if sharded:
+        torch.distributed.barrier()
+    return final
+
+
+def _write(tmp: Path, final: Path, step: int, state: Params, flat: dict, dtypes: dict,
+           extra_meta: Optional[dict]) -> None:
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    flat, dtypes = _flatten(state)
     np.savez(tmp / "leaves.npz", **flat)
     meta = {
         "step": step,
@@ -137,7 +164,6 @@ def save_checkpoint(directory: str | Path, step: int, state: Params,
     if final.exists():
         shutil.rmtree(final)
     os.replace(tmp, final)
-    return final
 
 
 class AsyncCheckpointer:
@@ -167,10 +193,14 @@ class AsyncCheckpointer:
     def save(self, step: int, state: Params, extra_meta: Optional[dict] = None):
         self.wait()
         # a copy the caller cannot change under the writer: tensors to
-        # the host now, on this thread; the worker thread only serialises
+        # the host now, on this thread (a DTensor gathered whole, with
+        # every rank); the worker thread only serialises, on rank 0
         host_state = _rebuild(state, {
-            path: leaf.detach().to("cpu", copy=True) if isinstance(leaf, torch.Tensor) else leaf
+            path: _whole(leaf).detach().to("cpu", copy=True)
+            if isinstance(leaf, torch.Tensor) else leaf
             for path, leaf in _items(state)}, ())
+        if not _writes():
+            return
 
         def _work():
             try:
@@ -223,18 +253,14 @@ def restore_checkpoint(
     path: str | Path,
     target: Params,
     *,
-    shardings: Any = None,
+    mesh=None,
+    spec_tree: Any = None,
 ) -> tuple[Params, dict]:
     """Restore into the structure of ``target`` (a tree of tensors or
     arrays, whose shapes must match).  Each leaf comes back as a tensor of
     its saved dtype, on the target leaf's device (the CPU for an array).
-    ``shardings`` (a placement per leaf) is refused until the sharded
-    train step exists (``ROADMAP.md``, queue 1, item 11g-2)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto sharded placements is not ported yet: it comes "
-            "with the sharded train step, ROADMAP.md, queue 1, item 11g-2"
-        )
+    With ``mesh`` (a torch ``DeviceMesh``) and ``spec_tree``, each leaf is
+    placed by its spec as a DTensor — the elastic-remesh path."""
     path = Path(path)
     with np.load(path / "leaves.npz") as data:
         flat = {k: data[k] for k in data.files}
@@ -249,7 +275,17 @@ def restore_checkpoint(
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs target {leaf.shape}")
         leaves[p] = _restored(arr, saved.get(key), leaf)
-    return _rebuild(target, leaves, ()), meta
+    tree = _rebuild(target, leaves, ())
+    if mesh is not None and spec_tree is not None:
+        # local import: distributed/fault.py imports this module
+        from repro_torch.distributed.sharding import (
+            device_put,
+            rules_for_mesh,
+            spec_tree_to_shardings,
+        )
+        tree = device_put(tree, mesh, spec_tree_to_shardings(mesh, rules_for_mesh(mesh),
+                                                             spec_tree))
+    return tree, meta
 
 
 def _rebuild(tree: Params, leaves: dict, prefix: tuple) -> Params:

@@ -1,10 +1,8 @@
-"""Fault tolerance and sharding specs (``repro/distributed``).
+"""Fault tolerance and sharding (``repro/distributed``).
 
-The heartbeat monitor and the recovery loop are ported, and so are the
-sharding rules and spec-tree helpers (``sharding.py``).  Placing tensors
-by those specs over a ``torch.distributed`` mesh (the reference's
-``spec_tree_to_shardings``) waits for the sharded step (``ROADMAP.md``,
-queue 1, item 11g-2).
+The heartbeat monitor and the recovery loop, and the sharding rules,
+spec-tree helpers and their DTensor placements over a ``torch.distributed``
+device mesh (``sharding.py``).
 """
 from repro_torch.distributed.fault import (
     FailureInjector,
@@ -21,6 +19,7 @@ from repro_torch.distributed.sharding import (
     map_specs,
     mesh_context,
     rules_for_mesh,
+    spec_tree_to_shardings,
 )
 
 __all__ = [
@@ -36,4 +35,5 @@ __all__ = [
     "mesh_context",
     "rules_for_mesh",
     "run_with_recovery",
+    "spec_tree_to_shardings",
 ]

@@ -16,10 +16,10 @@ uninterrupted one would.  This departs from the reference, whose trainer
 gives Whisper token batches only and so raises ``KeyError: 'frames'``
 in its loss (ROADMAP.md, queue 3).
 
-One device: the GPU by default (raises without one), ``--device cpu`` on
-request.  The reference builds a production mesh and shards its step only
-at 256 devices or more (``pick_mesh``); that mesh and the sharded step
-are ``ROADMAP.md``, queue 1, item 11g-2.
+The GPU by default (raises without one), ``--device cpu`` on request.  As
+in the reference, a process group of 256 ranks or more trains on the
+production mesh (``pick_mesh``): the state placed by its spec tree and the
+sharded step; below that, one device.
 """
 from __future__ import annotations
 
@@ -42,18 +42,26 @@ from repro_torch.data import (
     host_slice,
 )
 from repro_torch.distributed import HeartbeatMonitor
+from repro_torch.distributed.sharding import (
+    axis_names,
+    device_put,
+    rules_for_mesh,
+    spec_tree_to_shardings,
+)
+from repro_torch.launch.mesh import make_production_mesh, world_size
 from repro_torch.models import build_model
-from repro_torch.training import build_train_step, init_train_state
+from repro_torch.training import build_train_step, init_train_state, train_state_specs
 from repro_torch.utils import tree_leaves
 
-SHARDING_ITEM = "ROADMAP.md, queue 1, item 11g-2 (the production mesh and the sharded step)"
 
-
-def pick_mesh():
-    """The reference's production mesh needs 256 devices or more; below
-    that it trains on one device (``None``)."""
-    if torch.cuda.device_count() >= 256:
-        raise NotImplementedError(f"a production training mesh is not ported yet: {SHARDING_ITEM}")
+def pick_mesh(device=None):
+    """Production mesh when the process group's size allows (512 ranks:
+    multi-pod, 256: one pod), else ``None`` (one device)."""
+    n = world_size()
+    if n >= 512:
+        return make_production_mesh(multi_pod=True, device=device)
+    if n >= 256:
+        return make_production_mesh(multi_pod=False, device=device)
     return None
 
 
@@ -105,14 +113,21 @@ def main(argv=None) -> None:
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      grad_compression=args.grad_compression,
                      loss_chunk=min(2048, args.seq_len))
-    pick_mesh()   # raises at 256 devices or more, as not ported yet
+    mesh = pick_mesh(device)
+    rules = rules_for_mesh(mesh) if mesh is not None else None
     # the LSTM-AE draws on the CPU and moves its params; an LM draws on its device
     gen_device = "cpu" if cfg.family == "lstm_ae" else device
     state = init_train_state(api.init(torch.Generator(gen_device).manual_seed(0), device), tc)
     n_params = sum(p.numel() for p in tree_leaves(state.params))
-    print(f"[train] {cfg.name}: {n_params:,} params, mesh=none, device={device}", flush=True)
+    mesh_desc = "none" if mesh is None else dict(zip(axis_names(mesh), mesh.shape))
+    print(f"[train] {cfg.name}: {n_params:,} params, mesh={mesh_desc}, device={device}",
+          flush=True)
 
-    step_fn = build_train_step(api, tc)
+    step_fn = build_train_step(api, tc, mesh, rules)
+    state_specs = None
+    if mesh is not None:
+        state_specs = train_state_specs(api, tc)
+        state = device_put(state, mesh, spec_tree_to_shardings(mesh, rules, state_specs))
     it, to_batch = make_iterator(cfg, args)
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                              f"repro_torch_ckpt_{args.arch}")
@@ -120,7 +135,7 @@ def main(argv=None) -> None:
     resume = latest_checkpoint(ckpt_dir)
     start = 0
     if resume is not None:
-        state, meta = restore_checkpoint(resume, state)
+        state, meta = restore_checkpoint(resume, state, mesh=mesh, spec_tree=state_specs)
         it.load_state_dict(meta["iterator"])
         start = meta["step"]
         print(f"[train] resumed from step {start}", flush=True)

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.core import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.layers.linear import apply_linear, init_linear, linear_specs
 from repro_torch.layers.rotary import apply_rope
 from repro_torch.utils import Params
@@ -69,6 +70,9 @@ def _project_qkv(params: Params, x_q: torch.Tensor, x_kv: torch.Tensor, cfg: Mod
     q = apply_linear(params["q"], x_q).reshape(bq, sq, cfg.num_heads, hd)
     k = apply_linear(params["k"], x_kv).reshape(bk, sk, cfg.num_kv_heads, hd)
     v = apply_linear(params["v"], x_kv).reshape(bk, sk, cfg.num_kv_heads, hd)
+    q = constrain(q, ("batch", None, "tp", None))
+    k = constrain(k, ("batch", None, "tp", None))
+    v = constrain(v, ("batch", None, "tp", None))
     return q, k, v
 
 
@@ -172,7 +176,9 @@ def apply_attention(
     kv = (k, v) if return_kv else None
     out = blocked_attention(q, _expand_kv(k, cfg.num_heads), _expand_kv(v, cfg.num_heads),
                             causal=causal, kv_chunk=kv_chunk, q_chunks=q_chunks)
+    out = constrain(out, ("batch", None, "tp", None))
     y = apply_linear(params["o"], out.reshape(x.shape[0], x.shape[1], -1))
+    y = constrain(y, ("batch", "sp", None))
     if return_kv:
         return y, kv
     return y
@@ -189,6 +195,20 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat
 def kv_cache_specs() -> Params:
     # batch over data, kv sequence over the model axis (flash-decode layout)
     return {"k": ("batch", "tp", None, None), "v": ("batch", "tp", None, None)}
+
+
+def _write_row(cache: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[:, pos] = new`` in place (B, S_max, Hkv, hd).  A DTensor cache
+    (placed under a mesh, its sequence over the model axis) takes the row
+    through a mask, as DTensor would apply ``index_copy_``'s global index
+    to each shard's block; a plain cache under a mesh takes the row whole."""
+    if hasattr(cache, "placements"):
+        at = torch.arange(cache.shape[1], device=pos.device) == pos
+        cache.copy_(torch.where(at[None, :, None, None], new.to(cache.dtype), cache))
+        return
+    if hasattr(new, "full_tensor"):
+        new = new.full_tensor()
+    cache.index_copy_(1, pos, new.to(cache.dtype))
 
 
 def decode_attention(
@@ -223,12 +243,16 @@ def decode_attention(
         q, k_new, v_new = _project_qkv(params, x, x, cfg)
         if use_rope:
             k_new = apply_rope(k_new, pos, cfg.rope_theta)
-        k_cache.index_copy_(1, pos, k_new.to(k_cache.dtype))
-        v_cache.index_copy_(1, pos, v_new.to(v_cache.dtype))
+        _write_row(k_cache, pos, k_new)
+        _write_row(v_cache, pos, v_new)
     else:
-        q = apply_linear(params["q"], x).reshape(b, 1, cfg.num_heads, hd)
+        q = constrain(apply_linear(params["q"], x).reshape(b, 1, cfg.num_heads, hd),
+                      ("batch", None, "tp", None))
     if use_rope:
         q = apply_rope(q, pos, cfg.rope_theta)
+    # the layout read below; the cache itself keeps its own, written above
+    k_cache = constrain(k_cache, ("batch", "tp", None, None))
+    v_cache = constrain(v_cache, ("batch", "tp", None, None))
 
     s_max = k_cache.shape[1]
     group = cfg.num_heads // cfg.num_kv_heads
@@ -241,4 +265,4 @@ def decode_attention(
     p = p / p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
     out = out.reshape(b, 1, cfg.num_heads * hd).to(x.dtype)
-    return apply_linear(params["o"], out), cache
+    return constrain(apply_linear(params["o"], out), ("batch", None, None)), cache

@@ -1,11 +1,13 @@
-"""Token embedding + unembedding, and chunked cross-entropy (never
-materialises full (B, S, V) logits, not even for the backward)."""
+"""Token embedding + unembedding with vocab sharding, and chunked
+cross-entropy (never materialises full (B, S, V) logits, not even for the
+backward)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain, recompute_context
 from repro_torch.utils import Params, truncated_normal_init
 
 
@@ -22,7 +24,7 @@ def embed_tokens(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> to
     """tokens (B, S) int -> (B, S, D).  The reference casts the whole table
     and then gathers; a cast is per element, so gathering first gives the
     same bits without casting every row of the table."""
-    return params["table"][tokens].to(dtype)
+    return constrain(params["table"][tokens].to(dtype), ("batch", "sp", None))
 
 
 def init_unembed(generator: torch.Generator, d_model: int, vocab: int,
@@ -36,16 +38,19 @@ def unembed_specs() -> Params:
 
 def unembed_logits(unembed_w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Logits (B, S, D) -> (B, S, V) in ``h``'s dtype."""
-    return h @ unembed_w.to(h.dtype)
+    return constrain(h @ unembed_w.to(h.dtype), ("batch", None, "tp"))
 
 
 def _chunk_nll(hb: torch.Tensor, unembed_w: torch.Tensor, lb: torch.Tensor,
                z_loss: float) -> torch.Tensor:
     """Summed masked NLL of one chunk: hb (B, c, D), lb (B, c)."""
-    logits = (hb @ unembed_w.to(hb.dtype)).float()            # (B, c, V)
+    logits = constrain(hb @ unembed_w.to(hb.dtype), ("batch", None, "tp")).float()  # (B, c, V)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, torch.clamp(lb, min=0).long()[..., None])[..., 0]
-    nll = lse - gold
+    # the gold logit keeps its trailing dim until the subtraction: a gather
+    # over vocab-sharded logits is masked per shard, and DTensor applies
+    # that mask to a tensor of the gather's own rank
+    gold = torch.gather(logits, -1, torch.clamp(lb, min=0).long()[..., None])
+    nll = (lse[..., None] - gold)[..., 0]
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
     return torch.sum(nll * (lb >= 0).float())
@@ -74,14 +79,16 @@ def chunked_xent_loss(
     chunk = min(chunk, s)
     pad = (-s) % chunk
     if pad:
-        h = F.pad(h, (0, 0, 0, pad))
+        # zeros by cat, not F.pad: torch 2.11's DTensor mis-places a padded
+        # DTensor (h under a mesh)
+        h = torch.cat([h, torch.zeros((b, pad, d), dtype=h.dtype, device=h.device)], dim=1)
         labels = F.pad(labels, (0, pad), value=-1)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s + pad, chunk):
         hb, lb = h[:, i:i + chunk], labels[:, i:i + chunk]
         if torch.is_grad_enabled():
             total = total + checkpoint(_chunk_nll, hb, unembed_w, lb, z_loss,
-                                       use_reentrant=False)
+                                       use_reentrant=False, context_fn=recompute_context)
         else:
             total = total + _chunk_nll(hb, unembed_w, lb, z_loss)
     count = torch.sum((labels >= 0).float())

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.core import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.layers.linear import apply_linear, init_linear, linear_specs
 from repro_torch.utils import Params, truncated_normal_init
 
@@ -160,13 +161,16 @@ def apply_mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
         state = init_mamba_state(cfg, x.shape[0], x.dtype, x.device)
     xz = apply_linear(params["in_x"], x)
     z = apply_linear(params["in_z"], x)
+    xz = constrain(xz, ("batch", None, "tp"))
     xc, conv_state = _causal_conv(xz, params["conv_w"], params["conv_b"], state["conv"])
     xc = F.silu(xc)
     dt, b_t, c_t = _ssm_inputs(params, xc, cfg)
     a = -torch.exp(params["a_log"])
     y, ssm_state = ssm_scan(dt, b_t, c_t, xc, a, state["ssm"], chunk=chunk)
     y = (y.to(x.dtype) + params["d_skip"].to(x.dtype) * xc) * F.silu(z)
-    return apply_linear(params["out"], y), {"ssm": ssm_state, "conv": conv_state}
+    out = apply_linear(params["out"], y)
+    sp = "sp" if x.shape[1] > 1 else None
+    return constrain(out, ("batch", sp, None)), {"ssm": ssm_state, "conv": conv_state}
 
 
 def apply_mamba_step(params: Params, x: torch.Tensor, cfg: ModelConfig, state: Params):

@@ -5,6 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.core import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.layers.linear import apply_linear, init_linear, linear_specs
 from repro_torch.utils import Params
 
@@ -50,9 +51,12 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def apply_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (..., D) -> (..., D)."""
+    """x: (..., D) -> (..., D); hidden activations sharded over tp."""
     if cfg.activation == "swiglu":
         h = F.silu(apply_linear(params["gate"], x)) * apply_linear(params["up"], x)
     else:
         h = _act(apply_linear(params["up"], x), cfg.activation)
-    return apply_linear(params["down"], h)
+    h = constrain(h, ("batch",) + (None,) * (x.ndim - 2) + ("tp",))
+    y = apply_linear(params["down"], h)
+    return constrain(y, ("batch", "sp", None) if x.ndim == 3
+                     else ("batch",) + (None,) * (x.ndim - 1))

@@ -11,10 +11,23 @@ implementations (``cfg.moe.impl``):
   the (renormalised) top-k gates.  O(E) FLOPs — tests only, and the
   correctness reference for the scatter path when nothing is dropped.
 
-``ep_a2a`` is the reference's expert-parallel path over a mesh
-(``apply_moe_ep``); without a mesh it is ``apply_moe``, as there, and a
-mesh raises: its shard_map and all_to_all come with the sharded step
-(ROADMAP.md, queue 1, item 11g-2).
+``ep_a2a`` is the reference's expert-parallel path (``apply_moe_ep``):
+tokens stay on their (batch x model) shard, routing is local, and dispatch
+and combine move through an all_to_all over the model (= expert) axis;
+the expert weights are FSDP-sharded over "data" and gathered per layer.
+Without a mesh it is ``apply_moe``, as there.  The body runs on each
+rank's blocks inside ``local_map`` (the reference's ``shard_map``).  Its
+collectives are autograd functions over the c10d calls, each with its
+transpose written out: the all_to_all's is the reverse exchange, the
+all_gather's a reduce-scatter (torch's functional
+``all_to_all_single_autograd`` falls back to an all_gather and a chunk
+on gloo, where c10d's ``all_to_all_single`` runs).  A sum whose result
+every rank of a group then holds alike (the pmean of the routing
+statistics, the replicated path's combine) passes its gradient back
+unchanged, the transpose JAX gives ``psum``: each rank receives the
+whole gradient of a replicated output, so summing the gradients as well
+(what ``torch.distributed.nn.functional.all_reduce`` does) would count
+it once per rank.
 
 Returns (y, aux_loss): aux is the Switch load-balance loss
 ``E * sum_e f_e * P_e`` (fraction dispatched x mean router prob).
@@ -41,9 +54,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.core import ModelConfig
+from repro_torch.distributed.sharding import (
+    active_mesh,
+    active_rules,
+    axis_names,
+    axis_size,
+    constrain,
+    placements_of,
+    replicated,
+    to_placements,
+)
 from repro_torch.utils import Params, truncated_normal_init
-
-SHARDING_ITEM = "ROADMAP.md, queue 1, item 11g-2 (the sharded step)"
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, device=None,
@@ -94,7 +115,17 @@ def _expert_ffn(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     dt = h.dtype
     g = torch.bmm(h, params["gate"].to(dt))
     u = torch.bmm(h, params["up"].to(dt))
-    return torch.bmm(F.silu(g) * u, params["down"].to(dt))
+    # experts already occupy the model axis; hidden dim stays local
+    a = constrain(F.silu(g) * u, ("expert", None, None))
+    return torch.bmm(a, params["down"].to(dt))
+
+
+def _swiglu(h: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+            down: torch.Tensor) -> torch.Tensor:
+    """:func:`_expert_ffn` on local blocks (no layout pin)."""
+    dt = h.dtype
+    a = F.silu(torch.bmm(h, gate.to(dt))) * torch.bmm(h, up.to(dt))
+    return torch.bmm(a, down.to(dt))
 
 
 def capacity(num_tokens: int, cfg: ModelConfig) -> int:
@@ -107,21 +138,275 @@ def apply_moe(params: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.
     """x: (B, S, D) -> (B, S, D), aux loss (scalar f32)."""
     moe = cfg.moe
     b, s, d = x.shape
-    xf = x.reshape(b * s, d)
+    xf = constrain(x.reshape(b * s, d), ("tokens", None))
     weights, indices, probs = _router(params, xf, moe.top_k)
     aux = _aux_loss(probs, indices, moe.num_experts)
     combine = _dense_combine if moe.impl == "dense" else _scatter_combine
     return combine(params, xf, weights, indices, cfg).reshape(b, s, d), aux
 
 
-def apply_moe_ep(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                 mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Expert-parallel MoE: without a mesh, :func:`apply_moe` (the
-    reference's fallback when no mesh is active)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"expert-parallel MoE over a mesh is not ported yet: {SHARDING_ITEM}")
-    return apply_moe(params, x, cfg)
+class _SumInvariant(torch.autograd.Function):
+    """Sum over ``group`` of each rank's part, which every rank then holds
+    alike; the gradient, which arrives whole on each rank, passes back
+    unchanged."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Block j of ``x``'s leading dim to rank j of ``group``, block i of
+    the result from rank i; the gradient goes back by the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    torch.distributed.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in rank
+    order; the gradient is each rank's block of the gradients summed over
+    the group (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = torch.distributed.get_world_size(group)
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+        torch.distributed.all_gather_into_tensor(out, xt, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = torch.distributed.get_world_size(ctx.group)
+        gt = grad.movedim(ctx.dim, 0).contiguous()
+        out = gt.new_empty((gt.shape[0] // n,) + tuple(gt.shape[1:]))
+        torch.distributed.reduce_scatter_tensor(out, gt, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+def _pmean(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for ax in axes:
+        t = _SumInvariant.apply(t, mesh.get_group(ax)) / axis_size(mesh, ax)
+    return t
+
+
+def _positions(flat_e: torch.Tensor, e: int) -> torch.Tensor:
+    """Each entry's position among the entries routed to its expert, in
+    flat order: the exclusive cumsum of the one-hot down the entries.  It
+    is laid out expert-major, (E, N*k), and scanned as one flat array,
+    each row then less the entries of the rows before it (the scan's last
+    column one row up): a scan down (N*k, E) would run as E serial scans
+    (785 of a 1,535 ms prefill on an H100)."""
+    nk = flat_e.shape[0]
+    experts = torch.arange(e, device=flat_e.device)[:, None]
+    onehot = (experts == flat_e).to(torch.int32)                         # (E, N*k)
+    seen = torch.cumsum(onehot.reshape(-1), dim=0, dtype=torch.int32).reshape(e, nk)
+    first = torch.zeros((1, 1), dtype=seen.dtype, device=seen.device)
+    before = torch.cat([first, seen[:-1, -1:]])
+    pos = seen - before - onehot                                         # exclusive, per expert
+    return pos.gather(0, flat_e[None, :])[0]                             # (N*k,)
+
+
+def _dispatch(xf: torch.Tensor, flat_e: torch.Tensor, flat_p: torch.Tensor, e: int,
+              cap: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each (token, choice) row into an (E, cap+1, D) buffer at (expert,
+    slot), slot ``cap`` the drop bin: (buffer, row of each entry in the
+    flat (E*(cap+1), D) view).  Every other slot receives one row, so
+    adding onto zeros writes it exactly."""
+    n, d = xf.shape
+    slot = flat_e * (cap + 1) + flat_p
+    upd = xf[:, None, :].expand(n, k, d).reshape(n * k, d)               # (N*k, D)
+    buf = xf.new_zeros((e * (cap + 1), d)).index_add(0, slot, upd)
+    return buf.view(e, cap + 1, d), slot
+
+
+def _combine(out: torch.Tensor, slot: torch.Tensor, dropped: torch.Tensor,
+             weights: torch.Tensor, n: int) -> torch.Tensor:
+    """Gather each (token, choice)'s expert output (E, cap, D) at its row,
+    zero where dropped, and sum over the choices weighted: (N, D) f32."""
+    e, cap, d = out.shape
+    k = weights.shape[-1]
+    out = torch.cat([out, out.new_zeros((e, 1, d))], dim=1)
+    gathered = out.reshape(e * (cap + 1), d)[slot].reshape(n, k, d)      # dropped -> zeros
+    w = torch.where(dropped.reshape(n, k), 0.0, weights).float()
+    return torch.einsum("nkd,nk->nd", gathered.float(), w)
+
+
+def _ep_layout(mesh, rules):
+    """(batch axes, model axis, the weights' placements in, their grads')
+    of the expert-parallel bodies: router replicated, gate/up (E, D, F) over
+    (model, data, -), down (E, F, D) over (model, -, data).  A weight's
+    grad is whole on its shards and a part on the mesh axes it is not
+    sharded over; the router's a part everywhere."""
+    from torch.distributed.tensor import Partial, Shard
+
+    batch_axes = rules.batch if isinstance(rules.batch, tuple) else (rules.batch,)
+    model_axis = rules.tp
+    w_specs = ((model_axis, "data", None),) * 2 + ((model_axis, None, "data"),)
+    w_in = tuple(placements_of(mesh, s) for s in w_specs)
+    w_grad = tuple(tuple(p if isinstance(p, Shard) else Partial() for p in pl) for pl in w_in)
+    router_grad = (Partial(),) * len(axis_names(mesh))
+    return batch_axes, model_axis, (replicated(mesh),) + w_in, (router_grad,) + w_grad
+
+
+def apply_moe_ep(params: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE via ``local_map`` + all_to_all.
+
+    Layout: x (B, S, D) with B over the batch axes and S over the model
+    axis (sequence-parallel residual); experts over the model axis; expert
+    weights FSDP-sharded over "data" (all-gathered locally per layer).
+    Without an active mesh, :func:`apply_moe`; so too for decode shapes
+    (S not a multiple of the model axis), where the scatter path's small
+    (E, C, D) buffer is the better trade, as in the reference."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = active_mesh()
+    if mesh is None:
+        return apply_moe(params, x, cfg)
+    rules = active_rules()
+    moe = cfg.moe
+    batch_axes, model_axis, w_in, w_grad = _ep_layout(mesh, rules)
+    n_exp_shards = axis_size(mesh, model_axis)
+    if moe.num_experts % n_exp_shards:
+        raise ValueError(f"{moe.num_experts} experts do not split over {n_exp_shards} "
+                         f"model shards")
+    e_loc = moe.num_experts // n_exp_shards
+    if x.shape[1] % n_exp_shards != 0:
+        return apply_moe(params, x, cfg)
+    e, k = moe.num_experts, moe.top_k
+    model_group, data_group = mesh.get_group(model_axis), mesh.get_group("data")
+
+    def local_moe(router_w, gate_w, up_w, down_w, x_loc):
+        # x_loc: (B_loc, S_loc, D); weights: router (D, E) replicated,
+        # gate/up/down (E_loc, D_loc, F)/(E_loc, F, D_loc), fsdp-sharded
+        b_loc, s_loc, d = x_loc.shape
+        n_loc = b_loc * s_loc
+        xf = x_loc.reshape(n_loc, d)
+        weights, indices, probs = _router({"router": router_w}, xf, k)
+        # aux from GLOBAL sufficient statistics (pmean the per-expert
+        # fractions first; pmean of local products would differ)
+        f_e = F.one_hot(indices, e).float().sum(dim=1).mean(dim=0) / k
+        p_e = probs.mean(dim=0)
+        f_e = _pmean(f_e, mesh, (model_axis,) + tuple(batch_axes))
+        p_e = _pmean(p_e, mesh, (model_axis,) + tuple(batch_axes))
+        aux = e * torch.sum(f_e * p_e)
+
+        cap = capacity(n_loc, cfg)                       # per (source shard, expert)
+        flat_e = indices.reshape(-1)
+        flat_p = _positions(flat_e, e)
+        dropped = flat_p >= cap
+        flat_p = torch.where(dropped, cap, flat_p)
+        send, slot = _dispatch(xf, flat_e, flat_p, e, cap, k)
+
+        # exchange: expert-major blocks to their owning shard
+        # (E, cap, D) -> (n_shards, E_loc, cap, D) -> a2a -> a block from every source
+        send = send[:, :cap].reshape(n_exp_shards, e_loc, cap, d).contiguous()
+        recv = _AllToAll.apply(send, model_group)
+        recv = recv.reshape(n_exp_shards, e_loc, cap, d).transpose(0, 1)
+        recv = recv.reshape(e_loc, n_exp_shards * cap, d)
+
+        # expert FFN with fsdp all-gathered weights
+        out = _swiglu(recv, _AllGather.apply(gate_w, 1, data_group),
+                      _AllGather.apply(up_w, 1, data_group),
+                      _AllGather.apply(down_w, 2, data_group))
+
+        # return path: reverse the exchange
+        out = out.reshape(e_loc, n_exp_shards, cap, d).transpose(0, 1).contiguous()
+        back = _AllToAll.apply(out, model_group)
+        y = _combine(back.reshape(e, cap, d), slot, dropped, weights, n_loc)
+        return y.to(x_loc.dtype).reshape(b_loc, s_loc, d), aux
+
+    x_pl = placements_of(mesh, (tuple(batch_axes), model_axis, None))
+    fn = local_map(local_moe, out_placements=(x_pl, replicated(mesh)),
+                   in_placements=w_in + (x_pl,), in_grad_placements=w_grad + (x_pl,),
+                   device_mesh=mesh)
+    args = [to_placements(t, mesh, pl) for t, pl in zip(
+        (params["router"], params["gate"], params["up"], params["down"], x), w_in + (x_pl,))]
+    return fn(*args)
+
+
+def _apply_moe_ep_replicated(params, x, cfg: ModelConfig):
+    """EP for token counts too small to shard over the model axis (decode):
+    tokens replicated over model; each shard computes its local experts and
+    the outputs sum over the model axis.  Collective = one all-reduce of
+    (N, D).
+
+    As in the reference, the measured-refuted variant (per-layer weight
+    gathers and capacity padding dominate at decode token counts); decode
+    takes the scatter path, and this stays test-covered reference
+    material.  The model ranks hold the same routing, so its aux is their
+    mean: each rank's share of the router's gradient through it is then
+    1/model of the batch group's."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, rules = active_mesh(), active_rules()
+    moe = cfg.moe
+    batch_axes, model_axis, w_in, w_grad = _ep_layout(mesh, rules)
+    n_exp_shards = axis_size(mesh, model_axis)
+    e_loc = moe.num_experts // n_exp_shards
+    e, k = moe.num_experts, moe.top_k
+    model_group, data_group = mesh.get_group(model_axis), mesh.get_group("data")
+
+    def local_moe(router_w, gate_w, up_w, down_w, x_loc):
+        b_loc, s_loc, d = x_loc.shape
+        n_loc = b_loc * s_loc
+        xf = x_loc.reshape(n_loc, d)
+        weights, indices, probs = _router({"router": router_w}, xf, k)
+        f_e = F.one_hot(indices, e).float().sum(dim=1).mean(dim=0) / k
+        p_e = probs.mean(dim=0)
+        f_e = _pmean(f_e, mesh, tuple(batch_axes))
+        p_e = _pmean(p_e, mesh, tuple(batch_axes))
+        aux = _pmean(e * torch.sum(f_e * p_e), mesh, (model_axis,))
+
+        sid = mesh.get_local_rank(model_axis)
+        local = (indices // e_loc) == sid                      # (N, k) mine?
+        local_idx = torch.where(local, indices % e_loc, e_loc)  # park others
+        cap = capacity(n_loc, cfg)
+        flat_e = local_idx.reshape(-1)
+        flat_p = _positions(flat_e, e_loc + 1)
+        dropped = (flat_p >= cap) | (flat_e == e_loc)
+        flat_p = torch.where(dropped, cap, flat_p)
+        flat_e = torch.where(flat_e == e_loc, 0, flat_e)
+        buf, slot = _dispatch(xf, flat_e, flat_p, e_loc, cap, k)
+        # a parked entry lands in expert 0's drop bin, which nothing reads
+
+        out = _swiglu(buf[:, :cap], _AllGather.apply(gate_w, 1, data_group),
+                      _AllGather.apply(up_w, 1, data_group),
+                      _AllGather.apply(down_w, 2, data_group))
+        y = _combine(out, slot, dropped, weights, n_loc)
+        y = _SumInvariant.apply(y, model_group)                  # combine experts
+        return y.to(x_loc.dtype).reshape(b_loc, s_loc, d), aux
+
+    x_pl = placements_of(mesh, (tuple(batch_axes), None, None))
+    # the tokens' gradient is a part on each model rank (its experts')
+    x_grad = tuple(p if isinstance(p, Shard) else Partial() for p in x_pl)
+    fn = local_map(local_moe, out_placements=(x_pl, replicated(mesh)),
+                   in_placements=w_in + (x_pl,), in_grad_placements=w_grad + (x_grad,),
+                   device_mesh=mesh)
+    args = [to_placements(t, mesh, pl) for t, pl in zip(
+        (params["router"], params["gate"], params["up"], params["down"], x), w_in + (x_pl,))]
+    return fn(*args)
 
 
 def _dense_combine(params, xf, weights, indices, cfg: ModelConfig) -> torch.Tensor:
@@ -141,32 +426,16 @@ def _scatter_combine(params, xf, weights, indices, cfg: ModelConfig) -> torch.Te
     e, k = moe.num_experts, moe.top_k
     cap = capacity(n, cfg)
 
-    # position of each (token, choice) within its expert, in flat order: the
-    # exclusive cumsum of the one-hot down the entries.  It is laid out
-    # expert-major, (E, N*k), and scanned as one flat array, each row then
-    # less the entries of the rows before it: a scan down (N*k, E) would run
-    # as E serial scans (785 of a 1,535 ms prefill on an H100).
+    # position of each (token, choice) within its expert, in flat order
     flat_e = indices.reshape(-1).long()                                  # (N*k,)
-    experts = torch.arange(e, device=flat_e.device)[:, None]
-    onehot = (experts == flat_e).to(torch.int32)                         # (E, N*k)
-    seen = torch.cumsum(onehot.reshape(-1), dim=0, dtype=torch.int32).reshape(e, n * k)
-    before = seen[:, -1:] - onehot.sum(dim=1, keepdim=True, dtype=torch.int32)
-    pos = seen - before - onehot                                         # exclusive, per expert
-    flat_p = pos.gather(0, flat_e[None, :])[0]                           # (N*k,)
+    flat_p = _positions(flat_e, e)
     dropped = flat_p >= cap
-    flat_p = torch.where(dropped, cap, flat_p)                           # park dropped in slot `cap`
-    slot = flat_e * (cap + 1) + flat_p                                   # row of (E*(cap+1), D)
+    flat_p = torch.clamp(flat_p, max=cap)                                # park dropped in slot `cap`
 
-    # dispatch: (E, cap+1, D) buffer; slot `cap` is the drop bin.  Every
-    # other slot receives one row, so adding onto zeros writes it exactly.
-    upd = xf[:, None, :].expand(n, k, d).reshape(n * k, d)               # (N*k, D)
-    buf = xf.new_zeros((e * (cap + 1), d)).index_add(0, slot, upd)
-
-    out = _expert_ffn(params, buf.view(e, cap + 1, d)[:, :cap], cfg)    # (E, cap, D)
-    out = torch.cat([out, out.new_zeros((e, 1, d))], dim=1)
-
+    # dispatch: (E, cap+1, D) buffer; slot `cap` is the drop bin
+    buf, slot = _dispatch(xf, flat_e, flat_p, e, cap, k)
+    buf = constrain(buf, ("expert", None, None))
+    out = _expert_ffn(params, buf[:, :cap], cfg)                         # (E, cap, D)
     # combine: gather each (token, choice) result, weight, sum over k
-    gathered = out.reshape(e * (cap + 1), d)[slot].reshape(n, k, d)      # dropped -> zeros
-    w = torch.where(dropped.reshape(n, k), 0.0, weights).float()
-    y = torch.einsum("nkd,nk->nd", gathered.float(), w)
+    y = _combine(constrain(out, ("expert", None, None)), slot, dropped, weights, n)
     return y.to(xf.dtype)

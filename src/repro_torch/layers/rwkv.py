@@ -13,7 +13,11 @@ exact scan (``scan_impl="steps"``, :func:`wkv_scan`) and the decode step
 launch per call on CUDA tensors (hd in ``kernels.wkv6.HEAD_DIMS``; any
 other raises there), its plain step loop on CPU tensors.  Under autograd
 the scan is :class:`WKV6`, whose backward computes the recurrence's
-adjoint chunk by chunk in plain PyTorch from states K3 rebuilds.
+adjoint chunk by chunk in plain PyTorch from states K3 rebuilds.  K3 has
+no DTensor strategy: under a mesh the scan runs inside ``local_map`` on
+each rank's block, r, k, v and w at ``("batch", None, "tp", None)``, u at
+``("tp", None)`` and the state at ``("batch", "tp", None, None)``.  The
+recurrence is independent per (batch, head), so each block is exact.
 ``scan_impl="chunked"`` (:func:`wkv_scan_chunked`) clamps the decay to
 w >= exp(-4), a different function: it stays plain PyTorch and never
 reaches K3.
@@ -33,6 +37,13 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from repro_torch.config.core import ModelConfig
+from repro_torch.distributed.sharding import (
+    active_mesh,
+    active_rules,
+    constrain,
+    named_sharding,
+    to_placements,
+)
 from repro_torch.kernels.ops import wkv6_op
 from repro_torch.layers.linear import apply_linear, init_linear, linear_specs
 from repro_torch.layers.norms import apply_norm, init_norm, norm_specs
@@ -204,7 +215,31 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     (B,S,H,hd) decay in (0,1); u: (H,hd) bonus; state: (B,H,hd,hd).
     Returns (y (B,S,H,hd) f32, final state f32).  The reference pads S to a
     multiple of ``chunk`` (w = 1, k = v = 0: the result is unchanged) for
-    its nested scan; here ``chunk`` is only the backward's chunk length."""
+    its nested scan; here ``chunk`` is only the backward's chunk length.
+    Under a mesh each rank scans its (batch, head) block."""
+    mesh = active_mesh()
+    if mesh is None:
+        return _wkv_scan_local(r, k, v, w, u, state, chunk)
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rules = active_rules()
+    stream = named_sharding(mesh, rules, ("batch", None, "tp", None))
+    bonus = named_sharding(mesh, rules, ("tp", None))
+    carry = named_sharding(mesh, rules, ("batch", "tp", None, None))
+    # u's grad on a rank sums over its batch block only: a part on the
+    # batch axes, over which u is replicated
+    bonus_grad = tuple(p if isinstance(p, Shard) else Partial() for p in bonus)
+    placed = [to_placements(t, mesh, p) for t, p in
+              zip((r, k, v, w, u, state), (stream,) * 4 + (bonus, carry))]
+    scan = local_map(_wkv_scan_local, out_placements=(stream, carry),
+                     in_placements=(stream,) * 4 + (bonus, carry, None),
+                     in_grad_placements=(stream,) * 4 + (bonus_grad, carry, None),
+                     device_mesh=mesh)
+    return scan(*placed, chunk)
+
+
+def _wkv_scan_local(r, k, v, w, u, state, chunk):
     return WKV6.apply(r.contiguous(), k.contiguous(), v.contiguous(),
                       w.float().contiguous(), u.float().contiguous(),
                       state.float().contiguous(), chunk)
@@ -283,13 +318,18 @@ def apply_time_mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
         state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
     shifted = _token_shift(x, x_prev)
     r, k, v, g, w = _projections(params, x, shifted, cfg)
+    r = constrain(r, ("batch", None, "tp", None))
+    k = constrain(k, ("batch", None, "tp", None))
+    v = constrain(v, ("batch", None, "tp", None))
     if cfg.rwkv.scan_impl == "chunked":
         y, state = wkv_scan_chunked(r, k, v, w, params["u"], state)
     else:
         y, state = wkv_scan(r, k, v, w, params["u"], state, chunk=chunk)
     y = apply_norm(params["gn"], y, "layernorm")  # per-head norm
     y = y.reshape(b, s, d).to(x.dtype) * g
-    return apply_linear(params["o"], y), (x[:, -1, :], state)
+    out = apply_linear(params["o"], y)
+    sp = "sp" if s > 1 else None
+    return constrain(out, ("batch", sp, None)), (x[:, -1, :], state)
 
 
 def apply_time_mix_step(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -332,6 +372,8 @@ def apply_channel_mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
     xk = x + mix[0] * delta
     xr = x + mix[1] * delta
     k = torch.square(F.relu(apply_linear(params["up"], xk)))
+    k = constrain(k, ("batch", None, "tp"))
     kv = apply_linear(params["down"], k)
     r = torch.sigmoid(apply_linear(params["recv"], xr))
-    return r * kv, x[:, -1, :]
+    sp = "sp" if x.shape[1] > 1 else None
+    return constrain(r * kv, ("batch", sp, None)), x[:, -1, :]

@@ -27,7 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.core import ModelConfig
-from repro_torch.distributed.sharding import map_specs
+from repro_torch.distributed.sharding import constrain, map_specs, recompute_context
 from repro_torch.layers.attention import (
     apply_attention,
     attention_specs,
@@ -169,9 +169,9 @@ def _layer_fn(lp: Params, h: torch.Tensor, cfg: ModelConfig, j: int, kv_chunk: i
         st = {"k": k.to(h.dtype), "v": v.to(h.dtype)}
     else:
         y, st = apply_mamba(lp["mixer"], hn, cfg)
-    h = h + y
+    h = constrain(h + y, ("batch", "sp", None))
     f, aux = _ffn(lp, apply_norm(lp["ln2"], h, cfg.norm), cfg, j)
-    return h + f, aux, st
+    return constrain(h + f, ("batch", "sp", None)), aux, st
 
 
 def _period_fn(lps: list, h: torch.Tensor, cfg: ModelConfig, kv_chunk: int, q_chunks: int):
@@ -198,7 +198,7 @@ def forward(params: Params, h: torch.Tensor, cfg: ModelConfig, *, remat: bool = 
         lps = [by_position[j][p] for j in range(PERIOD)]
         if remat and torch.is_grad_enabled():
             h, aux_p, states = checkpoint(_period_fn, lps, h, cfg, kv_chunk, q_chunks,
-                                          use_reentrant=False)
+                                          use_reentrant=False, context_fn=recompute_context)
         else:
             h, aux_p, states = _period_fn(lps, h, cfg, kv_chunk, q_chunks)
         aux = aux + aux_p

@@ -23,6 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.core import ModelConfig
+from repro_torch.distributed.sharding import constrain, recompute_context
 from repro_torch.layers.embeddings import (
     chunked_xent_loss,
     embed_tokens,
@@ -125,6 +126,7 @@ def _layer_fn(lp: Params, st: Params, h: torch.Tensor, cfg: ModelConfig, chunk: 
     y, cm_x = apply_channel_mix(lp["cm"], apply_norm(lp["ln2"], h, "layernorm"), cfg,
                                 x_prev=st["cm_x"].to(h.dtype))
     h = h + y
+    h = constrain(h, ("batch", "sp" if h.shape[1] > 1 else None, None))
     return h, {"tm_x": tm_x.to(st["tm_x"].dtype), "wkv": wkv,
                "cm_x": cm_x.to(st["cm_x"].dtype)}
 
@@ -139,7 +141,8 @@ def forward(params: Params, h: torch.Tensor, cfg: ModelConfig, state: Params | N
     new = []
     for lp, st in zip(_unstack(params["layers"], n), _unstack(state, n)):
         if remat and torch.is_grad_enabled():
-            h, st = checkpoint(_layer_fn, lp, st, h, cfg, chunk, use_reentrant=False)
+            h, st = checkpoint(_layer_fn, lp, st, h, cfg, chunk, use_reentrant=False,
+                               context_fn=recompute_context)
         else:
             h, st = _layer_fn(lp, st, h, cfg, chunk)
         new.append(st)

@@ -14,9 +14,9 @@ enabled each layer runs under a non-reentrant ``torch.utils.checkpoint``
 layer's activations at a time.  The recompute runs the same ops, so it
 routes as the forward did.  ``forward`` sums the MoE layers' aux losses;
 ``train_loss`` is the next-token loss through ``chunked_xent_loss`` plus
-``aux_weight`` times that sum.  ``bwd_constrain`` only pins a sharding in
-the reference, which comes with the sharded step (item 11g-2); it is not
-read here.
+``aux_weight`` times that sum.  Under a mesh the residual stream is
+pinned to ``("batch", "sp", None)`` after each sublayer, and with
+``cfg.bwd_constrain`` at each layer's entry too, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.core import ModelConfig
-from repro_torch.distributed.sharding import map_specs
+from repro_torch.distributed.sharding import constrain, map_specs, recompute_context
 from repro_torch.layers.attention import (
     apply_attention,
     attention_specs,
@@ -142,14 +142,18 @@ def _ffn(lp: Params, h: torch.Tensor, cfg: ModelConfig):
 
 def _layer_fn(lp: Params, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
               causal: bool, kv_chunk: int, q_chunks: int):
+    if cfg.bwd_constrain:
+        # entry constraint: its backward pins the incoming gradient to the
+        # same (batch, sp) layout
+        h = constrain(h, ("batch", "sp", None))
     hn = apply_norm(lp["ln1"], h, cfg.norm)
     attn_out, kv = apply_attention(
         lp["attn"], hn, cfg=cfg, causal=causal, positions=positions,
         kv_chunk=kv_chunk, q_chunks=q_chunks, return_kv=True)
-    h = h + attn_out
+    h = constrain(h + attn_out, ("batch", "sp", None))
     hn = apply_norm(lp["ln2"], h, cfg.norm)
     f, aux = _ffn(lp, hn, cfg)
-    return h + f, kv, aux
+    return constrain(h + f, ("batch", "sp", None)), kv, aux
 
 
 def forward(
@@ -179,7 +183,8 @@ def forward(
     ks, vs = [], []
     for lp in _unstack(params["layers"], cfg.num_layers):
         if remat and torch.is_grad_enabled():
-            h, (k, v), aux_l = checkpoint(_layer_fn, lp, h, *layer_args, use_reentrant=False)
+            h, (k, v), aux_l = checkpoint(_layer_fn, lp, h, *layer_args, use_reentrant=False,
+                                          context_fn=recompute_context)
         else:
             h, (k, v), aux_l = _layer_fn(lp, h, *layer_args)
         aux = aux + aux_l
@@ -197,7 +202,7 @@ def embed_inputs(params: Params, batch: dict, cfg: ModelConfig, dtype) -> torch.
     h = embed_tokens(params["embed"], batch["tokens"], dtype)
     if cfg.frontend == "vision_stub" and "image_embeds" in batch:
         img = batch["image_embeds"].to(dtype)  # (B, P, D) precomputed patches
-        h = torch.cat([img, h], dim=1)
+        h = constrain(torch.cat([img, h], dim=1), ("batch", "sp", None))
     return h
 
 
@@ -257,7 +262,7 @@ def decode_step(
     cached).  Writes each layer's new K/V into ``cache`` in place and
     returns (logits (B, 1, V), cache).  A MoE layer routes the B decode
     tokens together, and its aux loss is dropped."""
-    h = embed_tokens(params["embed"], token, _dtype(cfg))
+    h = constrain(embed_tokens(params["embed"], token, _dtype(cfg)), ("batch", None, None))
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         cache_l = cache[i] if cfg.decode_loop == "unroll" else \
             {"k": cache["k"][i], "v": cache["v"][i]}

@@ -31,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.core import ModelConfig
+from repro_torch.distributed.sharding import constrain, recompute_context
 from repro_torch.layers.attention import (
     apply_attention,
     attention_specs,
@@ -129,8 +130,10 @@ def whisper_specs(cfg: ModelConfig) -> Params:
 
 def _enc_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     hn = apply_norm(lp["ln1"], h, NORM)
-    h = h + apply_attention(lp["attn"], hn, cfg=cfg, causal=False, use_rope=False)
-    return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, NORM), cfg)
+    h = constrain(h + apply_attention(lp["attn"], hn, cfg=cfg, causal=False, use_rope=False),
+                  ("batch", "sp", None))
+    return constrain(h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, NORM), cfg),
+                     ("batch", "sp", None))
 
 
 def _dec_layer(lp: Params, h: torch.Tensor, memory: torch.Tensor, cfg: ModelConfig,
@@ -141,19 +144,20 @@ def _dec_layer(lp: Params, h: torch.Tensor, memory: torch.Tensor, cfg: ModelConf
     hn = apply_norm(lp["ln1"], h, NORM)
     y, kv = apply_attention(lp["self_attn"], hn, cfg=cfg, causal=True, use_rope=False,
                             kv_chunk=kv_chunk, q_chunks=q_chunks, return_kv=True)
-    h = h + y
+    h = constrain(h + y, ("batch", "sp", None))
     hn = apply_norm(lp["ln_x"], h, NORM)
     y, ckv = apply_attention(lp["cross_attn"], hn, cfg=cfg, causal=False, use_rope=False,
                              x_kv=memory, return_kv=True)
-    h = h + y
-    return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, NORM), cfg), kv, ckv
+    h = constrain(h + y, ("batch", "sp", None))
+    h = constrain(h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, NORM), cfg), ("batch", "sp", None))
+    return h, kv, ckv
 
 
 def _run(fn, remat: bool, *args):
     """``fn(*args)``, recomputed in the backward under ``remat`` (only when
     grad is enabled: without it nothing is saved anyway)."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=recompute_context)
     return fn(*args)
 
 
@@ -161,7 +165,7 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *,
            remat: bool = True) -> torch.Tensor:
     """frames: (B, T_enc, D) stub frame embeddings -> encoder memory."""
     pos = sinusoidal_embedding(frames.shape[1], cfg.d_model, device=frames.device)
-    h = frames + pos.to(frames.dtype)
+    h = constrain(frames + pos.to(frames.dtype), ("batch", "sp", None))
     for lp in _unstack(params["enc_layers"], cfg.encoder_layers):
         h = _run(_enc_layer, remat, lp, h, cfg)
     return apply_norm(params["ln_enc"], h, NORM)
@@ -177,7 +181,7 @@ def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor, cfg
                  *, remat: bool = True, kv_chunk: int = 1024,
                  q_chunks: int = 1) -> torch.Tensor:
     """Teacher-forced decoder pass -> final hidden states (B, S, D)."""
-    h = _embed(params, tokens, memory.dtype)
+    h = constrain(_embed(params, tokens, memory.dtype), ("batch", "sp", None))
     for lp in _unstack(params["dec_layers"], cfg.num_layers):
         h = _run(_dec_layer, remat, lp, h, memory, cfg, kv_chunk, q_chunks)[0]
     return apply_norm(params["ln_dec"], h, NORM)

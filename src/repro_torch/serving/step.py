@@ -2,9 +2,11 @@
 -> KV cache + first logits), decode (one token against the cache) and
 greedy decoding.
 
-Counterpart of ``repro/serving/step.py``.  A mesh or sharding rules raise:
-placing the params and the cache by the port's spec trees is the sharded
-step, ROADMAP.md, queue 1, item 11g-2.
+Counterpart of ``repro/serving/step.py``.  The prefill, score and decode
+steps take a ``mesh`` (a torch ``DeviceMesh``) and ``rules`` and run under
+``mesh_context``, as the reference's: the model's ``constrain`` sites lay
+activations out over the mesh, and what comes back are DTensors.  Greedy
+decoding takes no mesh, as the reference's loop takes none.
 
 The reference jits its greedy loop whole.  The port's counterpart is
 :class:`GreedyDecoder`: on a CUDA device it captures one decode step into
@@ -24,44 +26,38 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import mesh_context, rules_for_mesh
 from repro_torch.engine.capture import GraphCache, signature
 from repro_torch.models.api import ModelAPI
 from repro_torch.utils import Params, tree_leaves, tree_map
 
-SHARDING_ITEM = "ROADMAP.md, queue 1, item 11g-2 (the sharded step)"
-
-
-def _refuse_mesh(mesh, rules) -> None:
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            f"a serving step over a mesh or sharding rules is not ported yet: {SHARDING_ITEM}")
+def _context(mesh, rules):
+    return mesh_context(mesh, rules or (rules_for_mesh(mesh) if mesh is not None else None))
 
 
 def build_prefill_step(api: ModelAPI, mesh=None, rules=None, q_chunks: int = 1,
                        kv_chunk: int = 1024):
-    _refuse_mesh(mesh, rules)
-
     def prefill_step(params, batch):
-        return api.prefill(params, batch, q_chunks=q_chunks, kv_chunk=kv_chunk)
+        with _context(mesh, rules):
+            return api.prefill(params, batch, q_chunks=q_chunks, kv_chunk=kv_chunk)
     return prefill_step
 
 
 def build_score_step(engine, mesh=None, rules=None):
     """Anomaly-scoring step over a :class:`repro_torch.engine.Engine` — the
     LSTM-AE serving path: ``engine.score_with`` under the step's params.
-    The engine owns the execution schedule and its placement."""
-    _refuse_mesh(mesh, rules)
-
+    The engine owns the execution schedule and its placement; ``mesh``
+    here only supplies sharding rules for any enclosing context."""
     def score_step(params, batch):
-        return engine.score_with(params, batch)
+        with _context(mesh, rules):
+            return engine.score_with(params, batch)
     return score_step
 
 
 def build_decode_step(api: ModelAPI, mesh=None, rules=None):
-    _refuse_mesh(mesh, rules)
-
     def decode_step(params, token, cache, cache_len):
-        return api.decode(params, token, cache, cache_len)
+        with _context(mesh, rules):
+            return api.decode(params, token, cache, cache_len)
     return decode_step
 
 

@@ -7,12 +7,21 @@ with ``jax.value_and_grad`` through plain JAX ops (no kernel, no
 params' device.  It takes the LSTM-AE's tree (tuples of layers) and the
 LM's (stacked layer leaves, a tied table read twice) alike: grads come
 back per leaf, accumulated in f32 over ``microbatch`` row blocks and
-compressed per leaf under ``int8_ef``.  The step is eager and unsharded:
-a ``mesh`` or sharding ``rules`` raise.  The reference shards its step
-only over a mesh that ``launch/train.py::pick_mesh`` builds at 256
-devices or more.  The port has the rules and the state's spec tree
-(``distributed/sharding.py``, :func:`train_state_specs`); placing the
-state by them is the sharded step (``ROADMAP.md``, queue 1, item 11g-2).
+compressed per leaf under ``int8_ef``.
+
+With a ``mesh`` (a torch ``DeviceMesh``) the step runs under
+``mesh_context``, as the reference's: the model's ``constrain`` sites lay
+activations out by the rules, on a state of DTensors placed by
+:func:`train_state_specs` (``distributed.sharding.device_put``) and a batch
+every rank holds whole.  DTensor hands a grad back in its own layout (a
+weight placed ``(Shard, Shard)`` may come back ``(Partial, Replicate)``),
+where the reference pins grads and the new state by ``out_shardings``;
+here each grad is redistributed to its parameter's placements before
+the update, so AdamW's moments keep the parameters' layout.  The loss is
+taken whole before the backward, and the global reductions (the grad
+norm, the int8 scale, the mean over microbatches) are DTensor reductions
+over every shard, made whole where they are read.  Metrics come back as
+plain 0-d tensors on every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.config.core import TrainConfig
+from repro_torch.distributed.sharding import mesh_context, rules_for_mesh, to_placements
 from repro_torch.optim import (
     AdamWState,
     adamw_update,
@@ -73,18 +83,21 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value as a plain tensor (a collective every rank
+    joins); a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def build_train_step(api: Any, tc: TrainConfig, mesh=None, rules=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``api`` is a ``ModelAPI`` (``repro_torch.models.build_model``), or any
     object whose ``loss(params, batch, **kw)`` returns ``(loss, metrics)``;
     it is called with the reference's ``remat`` and ``loss_chunk``
-    keywords.  Metrics come back as 0-d tensors."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "a train step over a mesh or sharding rules is not ported yet: it "
-            "is the sharded step, ROADMAP.md, queue 1, item 11g-2 (the "
-            "reference builds a training mesh only at 256 devices)")
+    keywords.  Metrics come back as 0-d tensors.  ``mesh`` and ``rules``
+    as the reference's (rules default to ``rules_for_mesh(mesh)``)."""
+    rules = rules or (rules_for_mesh(mesh) if mesh is not None else None)
     loss_kwargs = dict(remat=(tc.remat != "none"), loss_chunk=tc.loss_chunk)
 
     def grads_of(params: Params, batch: dict) -> tuple[Params, dict]:
@@ -93,15 +106,23 @@ def build_train_step(api: Any, tc: TrainConfig, mesh=None, rules=None):
         tree_map(leaves.append, tracked)
         with torch.enable_grad():
             loss, metrics = api.loss(tracked, batch, **loss_kwargs)
+            loss = _whole(loss)
             grads = iter(torch.autograd.grad(loss, leaves))
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: _whole(v).detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
-        return tree_map(lambda _: next(grads), tracked), metrics
+        if mesh is None:
+            return tree_map(lambda _: next(grads), tracked), metrics
+        # each grad in its parameter's layout (DTensor returns its own)
+        return tree_map(lambda p: to_placements(next(grads), mesh, p.placements)
+                        if hasattr(p, "placements") else next(grads), tracked), metrics
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        with mesh_context(mesh, rules):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         if tc.microbatch > 1:
-            g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), state.params)
+            g_sum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
             ms = []
             for mb in _split_microbatches(batch, tc.microbatch):
                 g, m = grads_of(state.params, mb)
@@ -117,7 +138,7 @@ def build_train_step(api: Any, tc: TrainConfig, mesh=None, rules=None):
             grads, ef = compress_grads(grads, ef)
 
         new_params, new_opt, opt_metrics = adamw_update(state.params, grads, state.opt, tc)
-        metrics.update(opt_metrics)
+        metrics.update({k: _whole(v) for k, v in opt_metrics.items()})
         return TrainState(params=new_params, opt=new_opt, ef=ef), metrics
 
     return train_step

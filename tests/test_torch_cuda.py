@@ -1956,3 +1956,37 @@ def test_whisper_captured_greedy_decode_equals_eager(cuda):
     assert torch.equal(want_cache["ck"], pre["ck"]) and torch.equal(want_cache["cv"], pre["cv"])
     assert captured.captures == 1 and captured.replays == 2 * 6 - 1
     assert dict(launch_counts()) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "moonshot-v1-16b-a3b", "rwkv6-7b"])
+def test_sharded_step_on_one_nccl_rank_equals_unsharded(cuda, tmp_path, arch):
+    """Two train steps of the reduced LM (f32, TF32 off) on a (1, 1) mesh of
+    one NCCL rank, the state placed by its specs, equal the unsharded steps
+    at the one-step bar (moonshot through ``ep_a2a``'s expert-parallel
+    body); rwkv6-7b's K3 runs under ``local_map``: per step and layer a
+    forward, a recompute and ceil(70 / 64) - 1 = 1 in the backward, on the
+    mesh as unsharded."""
+    import dataclasses
+
+    from test_torch_sharded_step import hold_one_rank_mesh_steps, steps_on_one_rank_mesh
+
+    from repro_torch.config import TrainConfig, reduced_config
+    from repro_torch.data import LMDataConfig, make_lm_batch
+    from repro_torch.models import build_model
+
+    cfg = reduced_config(arch).with_overrides(compute_dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, impl="ep_a2a"))
+    api = build_model(cfg)
+    params = api.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    batches = [{k: v.to(cuda) for k, v in make_lm_batch(
+        LMDataConfig(vocab_size=cfg.vocab_size, seq_len=70, global_batch=2), i).items()}
+        for i in range(2)]
+    before = _k3_launches()
+    plain, meshed = steps_on_one_rank_mesh(
+        api, TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4, loss_chunk=32),
+        params, batches, tmp_path, device="cuda")
+    hold_one_rank_mesh_steps(plain, meshed)
+    k3 = 2 * 2 * cfg.num_layers * 3 if cfg.family == "rwkv6" else 0
+    assert _k3_launches() == before + k3

@@ -174,6 +174,11 @@ def _tree():
             "pool/sq_sum": np.float32(0.5), "step": np.int64(7)}
 
 
+def _tree_specs(tree):
+    return {"layers": tuple({"wx": ("batch", "tp"), "b": (None,)} for _ in tree["layers"]),
+            "pool/sq_sum": (), "step": ()}
+
+
 def test_checkpoint_keys_and_dtypes_match_the_reference(tmp_path):
     tree = _tree()
     tensors = {**tree, "layers": jax.tree.map(torch.from_numpy, tree["layers"])}
@@ -211,10 +216,25 @@ def test_checkpoints_restore_across_packages_bf16_included(tmp_path):
 
 
 def test_checkpoint_restore_refuses_shardings_and_mismatch(tmp_path):
+    """With ``mesh=`` and ``spec_tree=`` each leaf comes back a DTensor
+    with its spec's placements (a (1, 1) mesh of one gloo rank; the (2, 2)
+    mesh: tests/test_torch_sharded_step.py); a mismatch raises."""
+    from test_torch_sharded_step import one_rank_mesh
     tree = _tree()
     path = save_checkpoint(tmp_path, 0, tree)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        restore_checkpoint(path, tree, shardings={"layers": None})
+    specs = _tree_specs(tree)
+    with one_rank_mesh(tmp_path) as mesh:
+        placed, _ = restore_checkpoint(path, tree, mesh=mesh, spec_tree=specs)
+        whole = [(t.placements, t.full_tensor()) for t in jax.tree_util.tree_leaves(
+            placed, is_leaf=lambda v: isinstance(v, torch.Tensor))]
+    plain, _ = restore_checkpoint(path, tree)
+    from repro_torch.distributed.sharding import ShardingRules, is_spec_leaf, named_sharding
+
+    want = [named_sharding(mesh, ShardingRules(), s)
+            for s in jax.tree_util.tree_leaves(specs, is_leaf=is_spec_leaf)]
+    assert len(want) == len(whole) == 6
+    for (pl, t), p, w in zip(whole, jax.tree_util.tree_leaves(plain), want):
+        assert tuple(pl) == w and torch.equal(t, p)
     with pytest.raises(ValueError, match="shape mismatch"):
         restore_checkpoint(path, {**tree, "step": np.zeros(2)})
     with pytest.raises(KeyError, match="missing leaf"):

@@ -880,8 +880,8 @@ def test_reference_int8_ef_raises_on_the_positions_tuple():
 
 def test_ep_a2a_goes_through_apply_moe_ep(monkeypatch):
     """``impl="ep_a2a"`` routes each MoE position through ``apply_moe_ep``
-    (without a mesh: ``apply_moe``), which raises naming item 11g when
-    given a mesh."""
+    (without a mesh: ``apply_moe``), which reads the mesh from the context
+    and takes none as an argument."""
     cfg = reduced_config(ARCH)
     cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, impl="ep_a2a"))
     api = build_model(cfg)
@@ -891,7 +891,7 @@ def test_ep_a2a_goes_through_apply_moe_ep(monkeypatch):
     monkeypatch.setattr(tjamba, "apply_moe_ep", lambda *a: seen.append(1) or real(*a))
     logits, _ = api.prefill(params, {"tokens": torch.from_numpy(_tokens(cfg, 1, 5))})
     assert len(seen) == 4 and torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError, match="item 11g"):
+    with pytest.raises(TypeError, match="mesh"):
         real(params["positions"][1]["ffn"], torch.zeros(1, 2, cfg.d_model), cfg, mesh=object())
 
 

@@ -308,10 +308,13 @@ def test_remat_matches_no_remat_without_select_over_stacks(arch):
     assert 0 < len(saved[True]) < len(saved[False]) / 4, {r: len(v) for r, v in saved.items()}
 
 
-def test_moe_loss_and_mesh_raise_naming_their_items():
+def test_moe_loss_and_mesh_raise_naming_their_items(tmp_path):
     """A MoE config's loss is ported (item 11c, tests/test_torch_moe.py):
-    finite, with a positive aux in its total; a mesh or sharding rules
-    raise naming item 11g."""
+    finite, with a positive aux in its total.  The dense step on a (1, 1)
+    mesh of one gloo rank equals the plain step (the (2, 2) mesh:
+    tests/test_torch_sharded_step.py)."""
+    from test_torch_sharded_step import hold_one_rank_mesh_steps, steps_on_one_rank_mesh
+
     cfg = reduced_config("tinyllama-1.1b").with_overrides(moe=MoEConfig(4, 2))
     api, _ = _port("tinyllama-1.1b")
     moe = build_model(cfg)
@@ -320,10 +323,10 @@ def test_moe_loss_and_mesh_raise_naming_their_items():
     assert torch.isfinite(loss) and float(metrics["aux"]) > 0
     assert float(loss) == pytest.approx(float(metrics["xent"]) + 0.01 * float(metrics["aux"]),
                                         rel=1e-6)
-    with pytest.raises(NotImplementedError, match="item 11g"):
-        build_train_step(api, TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11g"):
-        build_train_step(api, TrainConfig(), rules=object())
+    api, params = _port("tinyllama-1.1b")
+    batches = [_lm_batch(api.cfg, i) for i in range(2)]
+    hold_one_rank_mesh_steps(*steps_on_one_rank_mesh(api, TrainConfig(**STEP_TC), params,
+                                                     batches, tmp_path))
 
 
 # ---------------- the train step ----------------
@@ -527,16 +530,20 @@ def test_train_launcher_trains_and_resumes_every_dense_arch(tmp_path, capsys, ar
 
 
 def test_train_launcher_device_and_mesh(tmp_path, monkeypatch):
-    """The default device raises without a GPU; 256 devices or more raise
-    naming item 11g (the reference's production mesh)."""
+    """The default device raises without a GPU; a process group of 256
+    ranks or more builds the production mesh (the reference's, by its
+    device count), which needs that many ranks: a world monkeypatched to
+    256 over one real rank raises naming the need."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_launcher.main(["--arch", "tinyllama-1.1b", "--steps", "1",
                                  "--ckpt-dir", str(tmp_path)])
-    assert train_launcher.pick_mesh() is None
+    assert train_launcher.pick_mesh("cpu") is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 256)
-    with pytest.raises(NotImplementedError, match="item 11g"):
-        train_launcher.pick_mesh()
+    assert train_launcher.pick_mesh("cpu") is None        # GPUs are not ranks
+    monkeypatch.setattr(train_launcher, "world_size", lambda: 256)
+    with pytest.raises(RuntimeError, match="needs 256 ranks but the process group has 1"):
+        train_launcher.pick_mesh("cpu")
 
 
 def test_make_iterator_matches_reference():

@@ -250,14 +250,24 @@ def test_moe_aux_loss_uniform_is_one_and_skew_is_larger():
     assert float(aux_skew) > float(aux_bal)
 
 
-def test_ep_a2a_without_mesh_is_scatter_and_a_mesh_raises():
+def test_ep_a2a_without_mesh_is_scatter_and_a_mesh_raises(tmp_path):
+    """Without a mesh ``apply_moe_ep`` is the scatter path; on a (1, 1)
+    mesh of one gloo rank its all_to_all body gives the same values (the
+    (2, 2) and (2, 1, 2) meshes: tests/test_torch_sharded_step.py)."""
+    from test_torch_sharded_step import one_rank_mesh
+
+    from repro_torch.distributed import sharding
+
     params = _tiny_params(11)
     x = torch.randn(2, 8, 32, generator=torch.Generator().manual_seed(12))
     y_ep, aux_ep = tmoe.apply_moe_ep(params, x, _tiny_moe_cfg("ep_a2a"))
     y_s, aux_s = tmoe.apply_moe(params, x, _tiny_moe_cfg("scatter"))
     assert torch.equal(y_ep, y_s) and torch.equal(aux_ep, aux_s)
-    with pytest.raises(NotImplementedError, match="item 11g"):
-        tmoe.apply_moe_ep(params, x, _tiny_moe_cfg("ep_a2a"), mesh=object())
+    with one_rank_mesh(tmp_path) as mesh, sharding.mesh_context(mesh):
+        y_m, aux_m = tmoe.apply_moe_ep(params, x, _tiny_moe_cfg("ep_a2a"))
+        y_m, aux_m = y_m.full_tensor(), aux_m.full_tensor()
+    np.testing.assert_allclose(y_m.numpy(), y_s.numpy(), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(float(aux_m), float(aux_s), rtol=1e-4)
 
 
 def test_decode_shapes_never_drop():

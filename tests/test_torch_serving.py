@@ -129,14 +129,36 @@ def test_build_score_step_matches_reference():
     assert torch.equal(got, engine.bind(jparams).score({"series": series}))
 
 
-def test_steps_refuse_a_mesh():
+def test_steps_refuse_a_mesh(tmp_path):
+    """The score, prefill and decode steps on a (1, 1) mesh of one gloo
+    rank (the LM's params placed by their specs) equal the plain steps
+    (the (2, 2) mesh: tests/test_torch_sharded_step.py)."""
+    from test_torch_sharded_step import one_rank_mesh
+
+    from repro_torch.distributed import sharding
+
+    _, jparams, _, series = _setup()
     engine = build_engine(get_config(ARCH), "wavefront", device="cpu")
-    api = build_model(reduced_config("tinyllama-1.1b"))
-    for build, arg in ((build_score_step, engine), (build_prefill_step, api),
-                       (build_decode_step, api)):
-        for kw in ({"mesh": object()}, {"rules": {}}):
-            with pytest.raises(NotImplementedError, match="item 11g"):
-                build(arg, **kw)
+    api, params = _lm()
+    toks = torch.randint(0, api.cfg.vocab_size, (2, 7), generator=torch.Generator().manual_seed(4))
+    logits, cache = build_prefill_step(api)(params, {"tokens": toks})
+    dec = api.stitch(cache, 9)
+    token = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    d_logits, _ = build_decode_step(api)(params, token, dec, torch.tensor(7, dtype=torch.int32))
+    with one_rank_mesh(tmp_path) as mesh:
+        rules = sharding.rules_for_mesh(mesh)
+        placed = sharding.device_put(params, mesh, sharding.spec_tree_to_shardings(
+            mesh, rules, api.param_specs()))
+        score = build_score_step(engine, mesh)(jparams, {"series": series})
+        m_logits, m_cache = build_prefill_step(api, mesh, rules)(placed, {"tokens": toks})
+        m_dec = sharding.device_put(api.stitch(cache, 9), mesh, sharding.spec_tree_to_shardings(
+            mesh, rules, api.cache_specs()))
+        m_d_logits, _ = build_decode_step(api, mesh)(placed, token, m_dec,
+                                                     torch.tensor(7, dtype=torch.int32))
+        got = [t.full_tensor() for t in (m_logits, m_cache["k"], m_d_logits, m_dec["k"])]
+    assert torch.equal(score, engine.bind(jparams).score({"series": series}))
+    for a, b in zip(got, (logits, cache["k"], d_logits, dec["k"])):
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), rtol=1e-5, atol=1e-6)
 
 
 def _lm(arch="tinyllama-1.1b", **over):

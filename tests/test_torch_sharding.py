@@ -120,19 +120,28 @@ def test_map_specs_matches_the_reference():
     assert mapped.step == (None,)
 
 
-def test_constrain_checks_rank_and_is_a_no_op_without_a_mesh():
+def test_constrain_checks_rank_and_is_a_no_op_without_a_mesh(tmp_path):
+    """Without a mesh ``constrain`` is ``x`` itself; under a mesh (one gloo
+    rank, (1, 1)) it checks the rank and places ``x`` by the spec."""
+    from test_torch_sharded_step import one_rank_mesh
+    from torch.distributed.tensor import Replicate
+
     x = torch.zeros(2, 3)
     assert sharding.constrain(x, ("batch", None)) is x
     assert sharding.constrain(x, ("batch",)) is x      # no mesh: no check, as the reference
     assert sharding.active_mesh() is None and sharding.active_rules() is None
-    mesh = make_mesh((1, 1), ("data", "model"), ["cpu"])
-    with sharding.mesh_context(mesh):
+    assert sharding.rules_for_mesh(make_mesh((1, 1), ("data", "model"), ["cpu"])) == \
+        sharding.ShardingRules()
+    with one_rank_mesh(tmp_path) as mesh, sharding.mesh_context(mesh):
         assert sharding.active_mesh() is mesh
         assert sharding.active_rules() == sharding.ShardingRules()
         with pytest.raises(ValueError, match="does not match rank-2"):
             sharding.constrain(x, ("batch",))
-        with pytest.raises(NotImplementedError, match="11g-2"):
-            sharding.constrain(x, ("batch", "tp"))
+        placed = sharding.constrain(x, ("batch", "tp"))
+        # each axis of size 1 holds the whole dim, as Replicate
+        assert tuple(placed.placements) == sharding.named_sharding(
+            mesh, sharding.ShardingRules(), ("batch", "tp")) == (Replicate(), Replicate())
+        assert torch.equal(placed.full_tensor(), x)
         with sharding.mesh_context(None):
             assert sharding.constrain(x, ("batch",)) is x
         assert sharding.active_mesh() is mesh

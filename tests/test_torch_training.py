@@ -291,9 +291,26 @@ def test_grad_compression_in_train_step():
     assert sum(float(e.abs().sum()) for e in tree_leaves(state.ef)) > 0
 
 
-def test_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_train_step(_port_api(), TrainConfig(), mesh=object())
+def test_train_step_refuses_a_mesh(tmp_path):
+    """The LSTM-AE's step on a (1, 1) mesh of one gloo rank, its state
+    placed by its specs, equals the unsharded step (the (2, 2) and
+    (2, 1, 2) meshes: tests/test_torch_sharded_step.py)."""
+    from test_torch_sharded_step import hold_one_rank_mesh_steps, steps_on_one_rank_mesh
+
+    from repro_torch.models import build_model as port_build_model
+
+    api = port_build_model(get_config(ARCH))
+    params = init_lstm_ae_params(api)
+    rng = np.random.default_rng(5)
+    batches = [{"series": torch.from_numpy(rng.standard_normal(
+        (4, 8, api.cfg.lstm_ae.input_features)).astype(np.float32))} for _ in range(2)]
+    hold_one_rank_mesh_steps(*steps_on_one_rank_mesh(
+        api, TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4), params, batches,
+        tmp_path))
+
+
+def init_lstm_ae_params(api):
+    return api.init(torch.Generator().manual_seed(0), "cpu")
 
 
 def test_timeseries_iterator_round_trip():
