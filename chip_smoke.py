@@ -276,6 +276,21 @@ toolkit.  It
    the inputs that step gave it; then that state's params saved from the
    mesh (gathered) and restored onto it (``restore_checkpoint(mesh=,
    spec_tree=)``), every leaf equal and placed by its spec.
+19. the dry run, last (``[dryrun]`` lines; no GPU: everything on the meta
+   device, and the card's allocated bytes must not move): the cells
+   ``python -m repro_torch.launch.dryrun --mesh single`` traces over a
+   fake process group of 256 ranks (DRYRUN_CELLS, each in a subprocess
+   of its own with ``CUDA_VISIBLE_DEVICES=""``, run side by side), each
+   ``ok`` with its per-chip FLOPs, bytes, collective bytes, dominant term
+   and trace seconds; then, without a mesh, three steps at the shapes the
+   card ran above traced on meta tensors (``roofline/trace.py``): the
+   main path's fused forward (lstm-ae-f64-d6, B=8192, T=64, K1 counted
+   by its meta op), tinyllama-1.1b's prefill and rwkv6-7b's prefill at
+   B=8, S=2048 (K3 counted by its meta op): the counted FLOPs by dtype
+   and bytes, the roofline's compute and memory ms at the H100's
+   datasheet peaks, beside the FLOPs of this script's own hand bounds
+   (the K1 launches x ``k1_bound``, ``lm_prefill_bound``,
+   ``rwkv_serve_bound``) and the ms the phases above measured.
 
 The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
@@ -6237,6 +6252,154 @@ def drive_sharded(torch, results, card) -> None:
     log(f"[sharded] phase {out['phase_s']:.1f} s [{card}]")
 
 
+DRYRUN_CELLS = (("lstm-ae-f64-d6", "serve_64"), ("tinyllama-1.1b", "decode_32k"),
+                ("whisper-large-v3", "decode_32k"), ("rwkv6-7b", "decode_32k"),
+                ("jamba-v0.1-52b", "long_500k"))
+DRYRUN_CELL_TIMEOUT_S = 240
+
+
+def dryrun_cells(out_dir: str) -> dict:
+    """Each of DRYRUN_CELLS through the dry-run launcher, each in a
+    subprocess of its own without a GPU, all started together: {cell:
+    (rc, its JSON record or None, the launcher's output)}."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "single", "--arch",
+         cell[0], "--shape", cell[1], "--out", out_dir], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cell in DRYRUN_CELLS}
+    done = {}
+    try:
+        for cell, p in procs.items():
+            text, _ = p.communicate(timeout=DRYRUN_CELL_TIMEOUT_S)
+            path = os.path.join(out_dir, f"{cell[0]}__{cell[1]}__single_pod_16x16.json")
+            rec = json.load(open(path)) if os.path.exists(path) else None
+            done[cell] = (p.returncode, rec, text)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return done
+
+
+def traced_step(fn) -> dict:
+    """``fn()`` (a step on meta tensors) under the dry run's trace: its
+    counted FLOPs by dtype, bytes and roofline terms (no mesh: one card)."""
+    from repro_torch.roofline.extract import HBM_BW, compute_seconds
+    from repro_torch.roofline.trace import analyze, trace
+
+    t0 = time.perf_counter()
+    _, record = trace(fn)
+    totals = analyze(record)
+    kernel_ops: dict = {}
+    for e in record:
+        if e["op"].startswith("repro_torch."):
+            kernel_ops[e["op"]] = kernel_ops.get(e["op"], 0) + e["n"]
+    return {"flops": totals.flops, "flops_by_dtype": totals.flops_by_dtype,
+            "bytes": totals.bytes, "compute_ms": compute_seconds(totals.flops_by_dtype) * 1e3,
+            "memory_ms": totals.bytes / HBM_BW * 1e3, "ops": sum(e["n"] for e in record),
+            "kernel_ops": kernel_ops,
+            "trace_s": time.perf_counter() - t0}
+
+
+def drive_dryrun(torch, results, card) -> None:
+    """The dry run (``[dryrun]`` lines), last: the launcher's cells over a
+    fake group of 256 ranks in subprocesses, then three steps the card ran
+    traced on meta tensors beside this script's hand bounds and the phases'
+    measured ms.  Nothing runs on the card."""
+    import tempfile
+
+    from repro_torch.config import LSTMAE_SHAPES, get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.api import param_struct
+
+    out = results["dryrun"] = {"cells": {}, "steps": {}}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        cells = dryrun_cells(tmp)
+    failed = [f"{arch} {shape}: rc {rc}, {(rec or {}).get('status')}:\n{text[-2000:]}"
+              for (arch, shape), (rc, rec, text) in cells.items()
+              if rc != 0 or rec is None or rec.get("status") != "ok"]
+    if failed:
+        raise AssertionError("[dryrun] cells failed:\n" + "\n".join(failed))
+    for (arch, shape), (rc, rec, text) in cells.items():
+        out["cells"][f"{arch}__{shape}"] = {k: rec[k] for k in (
+            "flops_per_chip", "bytes_per_chip", "coll_bytes_per_chip", "coll_breakdown",
+            "dominant", "compute_s", "memory_s", "collective_s", "compile_s")}
+        log(f"[dryrun] {arch} {shape} on the 16x16 mesh (256 fake ranks, a subprocess without "
+            f"a GPU): ok; per chip {rec['flops_per_chip']:.6g} FLOP, {rec['bytes_per_chip']:.6g} "
+            f"bytes, {rec['coll_bytes_per_chip']:.6g} collective bytes "
+            f"({', '.join(f'{k} {v:,}' for k, v in sorted(rec['coll_breakdown'].items()))}); "
+            f"dominant {rec['dominant']} (compute {rec['compute_s'] * 1e3:.4g} ms, memory "
+            f"{rec['memory_s'] * 1e3:.4g} ms, collective {rec['collective_s'] * 1e3:.4g} ms at "
+            f"H100 datasheet rates); traced in {rec['compile_s']:.1f} s [{card}]")
+    out["cells_s"] = time.perf_counter() - t_phase
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    serve = next(s for s in LSTMAE_SHAPES if s.name == "serve_64")
+    steps = {}
+    cfg = get_config("lstm-ae-f64-d6")
+    api = build_model(cfg)
+    params = param_struct(api)
+    steps["lstm-ae-f64-d6 fused"] = (
+        lambda: api.prefill(params, {"series": meta(serve.global_batch, serve.seq_len,
+                                                     cfg.lstm_ae.input_features)},
+                            schedule="fused"),
+        sum(k1_bound(serve.global_batch, i, h)[0] * serve.seq_len
+            for i, h in zip(cfg.lstm_ae.layer_input_sizes(), cfg.lstm_ae.layer_sizes())),
+        results["serve"][0]["schedules"]["fused"]["ms_per_request_input_on_card"],
+        {"repro_torch.lstm_cell.default": results["serve"][0]["schedules"]["fused"]
+         ["k1_launches"] // results["serve"][0]["requests"]},
+        f"B={serve.global_batch}, T={serve.seq_len}")
+    lm = build_model(get_config(LM_ARCH))
+    lm_params = param_struct(lm)
+    tokens = meta(LM_SERVE_B, LM_SERVE_S, dtype=torch.int32)
+    steps[f"{LM_ARCH} prefill"] = (
+        lambda: lm.prefill(lm_params, {"tokens": tokens}, kv_chunk=LM_KV_CHUNK),
+        lm_prefill_bound(lm.cfg, LM_SERVE_B, LM_SERVE_S)[0], results["lm"]["prefill_ms"], {},
+        f"B={LM_SERVE_B}, S={LM_SERVE_S}")
+    rwkv = build_model(get_config(RWKV_ARCH))
+    rwkv_params = param_struct(rwkv)
+    rwkv_tokens = meta(RWKV_SERVE_B, RWKV_SERVE_S, dtype=torch.int32)
+    rwkv_served = results["rwkv"]["serve"]
+    bf16, f32, _ = rwkv_serve_bound(rwkv.cfg, RWKV_SERVE_B, RWKV_SERVE_S,
+                                    rwkv_served["params"], 1)
+    steps[f"{RWKV_ARCH} prefill"] = (
+        lambda: rwkv.prefill(rwkv_params, {"tokens": rwkv_tokens}),
+        bf16 + f32, rwkv_served["prefill_ms"],
+        {"repro_torch.wkv6.default": rwkv.cfg.num_layers}, f"B={RWKV_SERVE_B}, S={RWKV_SERVE_S}")
+    for name, (fn, hand_flops, measured_ms, kernel_ops, at) in steps.items():
+        with torch.no_grad():
+            rec = traced_step(fn)
+        if rec["kernel_ops"] != kernel_ops:
+            raise AssertionError(f"[dryrun] {name}: kernel meta ops {rec['kernel_ops']}, "
+                                 f"expected {kernel_ops}")
+        rec.update({"hand_bound_flops": hand_flops, "flops_over_hand_bound":
+                    rec["flops"] / hand_flops, "measured_ms": measured_ms})
+        out["steps"][name] = rec
+        by_dtype = ", ".join(f"{dt} {f:.6g}" for dt, f in sorted(rec["flops_by_dtype"].items()))
+        kernels = "; ".join(f"{op} x{n} counted by its FLOP formula"
+                            for op, n in rec["kernel_ops"].items()) or "no kernel op"
+        log(f"[dryrun] {name} at {at}, traced on meta tensors without a mesh in "
+            f"{rec['trace_s']:.1f} s ({rec['ops']:,} ops; {kernels}): FLOP by dtype {by_dtype}; "
+            f"{rec['bytes']:.6g} bytes; roofline compute {rec['compute_ms']:.4g} ms, memory "
+            f"{rec['memory_ms']:.4g} ms at H100 datasheet rates; this script's hand bound "
+            f"{hand_flops:.6g} FLOP (counted / hand {rec['flops_over_hand_bound']:.4f}); "
+            f"measured above {measured_ms:.4g} ms [{card}]")
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != allocated:
+        raise AssertionError(f"[dryrun] the phase moved the card's allocated bytes: "
+                             f"{allocated:,} -> {torch.cuda.memory_allocated():,}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dryrun] {len(cells)} cells ok, {len(steps)} steps traced; 0 bytes allocated on the "
+        f"card; phase {out['phase_s']:.1f} s [{card}]")
+
+
 def sharding_leaves(sharding, tree) -> list:
     """The placement tuples of a shardings tree in ``tree_leaves`` order."""
     if sharding.is_placements(tree):
@@ -6334,6 +6497,7 @@ def main(argv=None) -> int:
     drive_whisper(torch, results, card)
     drive_specs(torch, results, card)
     drive_sharded(torch, results, card)
+    drive_dryrun(torch, results, card)
 
     kernels = {"kernels": [{
         "name": "lstm_cell",

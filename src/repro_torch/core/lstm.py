@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.core import ModelConfig
+from repro_torch.distributed.sharding import gather_dim, lay_out
 from repro_torch.utils import Params, resolve_device_or_meta, truncated_normal_init
 
 
@@ -74,7 +75,7 @@ def lstm_cell(
     sig, tnh = _acts(pwl)
     gx = x @ params["wx"].to(x.dtype)          # MVM_X
     gh = h @ params["wh"].to(h.dtype)          # MVM_H
-    gates = (gx + gh + params["b"].to(x.dtype)).float()
+    gates = gather_dim((gx + gh + params["b"].to(x.dtype)).float(), -1)
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = sig(f) * c.float() + sig(i) * tnh(g)
     h_new = sig(o) * tnh(c_new)
@@ -91,8 +92,10 @@ def lstm_layer(
     """Run one LSTM layer over time.  xs: (T, B, In) -> ys (T, B, H)."""
     b = xs.shape[1]
     hidden = params["wh"].shape[0]
-    h = torch.zeros((b, hidden), dtype=xs.dtype, device=xs.device) if h0 is None else h0
-    c = torch.zeros((b, hidden), dtype=torch.float32, device=xs.device) if c0 is None else c0
+    h = lay_out(torch.zeros((b, hidden), dtype=xs.dtype, device=xs.device),
+                ("batch", None), like=xs) if h0 is None else h0
+    c = lay_out(torch.zeros((b, hidden), dtype=torch.float32, device=xs.device),
+                ("batch", None), like=xs) if c0 is None else c0
     ys = []
     for x_t in xs:
         h, c = lstm_cell(params, x_t, h, c, pwl=pwl)

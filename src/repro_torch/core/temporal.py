@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from repro_torch.config.core import ModelConfig
 from repro_torch.core.balancing import stage_assignment_for
 from repro_torch.core.lstm import lstm_cell, stacked_cell_params
-from repro_torch.utils import Params
+from repro_torch.distributed.sharding import lay_out, pad_last
+from repro_torch.utils import Params, tree_map
 
 
 def schedule_table(num_layers: int, timesteps: int) -> list[list[tuple[int, int]]]:
@@ -55,21 +56,29 @@ def wavefront_forward(params: Params, xs: torch.Tensor, pwl: bool = False) -> to
     layers = params["layers"]
     n = len(layers)
     t_len, b, f = xs.shape
-    stacked, _, _ = stacked_cell_params(layers)
+    # under a mesh the cells are padded and stacked from whole weights
+    # (torch 2.11's F.pad breaks a DTensor's placements), then the stacked
+    # gate columns laid out over the model axis and the carries' batch over
+    # the batch axes (each a no-op without a mesh)
+    stacked, _, _ = stacked_cell_params(tree_map(
+        lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t, layers))
     in_max = stacked["wx"].shape[1]
     h_max = stacked["wh"].shape[1]
-    cell_params = {"wx": stacked["wx"], "wh": stacked["wh"], "b": stacked["b"][:, None, :]}
+    cell_params = {k: lay_out(v, (None, None, "tp"), like=xs) for k, v in (
+        ("wx", stacked["wx"]), ("wh", stacked["wh"]), ("b", stacked["b"][:, None, :]))}
 
-    h = torch.zeros((n, b, h_max), dtype=xs.dtype, device=xs.device)
-    c = torch.zeros((n, b, h_max), dtype=torch.float32, device=xs.device)
-    x_pad = F.pad(xs, (0, in_max - f))
+    h = lay_out(torch.zeros((n, b, h_max), dtype=xs.dtype, device=xs.device),
+                (None, "batch", None), like=xs)
+    c = lay_out(torch.zeros((n, b, h_max), dtype=torch.float32, device=xs.device),
+                (None, "batch", None), like=xs)
+    x_pad = pad_last(xs, in_max - f)
     x_zero = torch.zeros_like(x_pad[0])   # drain steps read zeros
     layer_ids = torch.arange(n, device=xs.device)
     ys = []
     for k in range(t_len + n - 1):
         x_k = x_pad[k] if k < t_len else x_zero
         # layer 0 reads the fresh input; layer i reads layer i-1's carry h
-        upstream = F.pad(h[:-1], (0, in_max - h_max))
+        upstream = pad_last(h[:-1], in_max - h_max)
         in_buf = torch.cat([x_k[None], upstream], dim=0)       # (N, B, in_max)
         h_new, c_new = lstm_cell(cell_params, in_buf, h, c, pwl=pwl)
         t_for_layer = k - layer_ids

@@ -44,6 +44,8 @@ import threading
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Optional, Sequence
 
+import torch
+
 if TYPE_CHECKING:
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -185,6 +187,190 @@ def constrain(x, logical_axes: Sequence[Optional[str]]):
     return to_placements(x, ctx.mesh, named_sharding(ctx.mesh, ctx.rules, logical_axes))
 
 
+def fit_placements(placements: Sequence, shape: Sequence[int], mesh) -> tuple:
+    """``placements`` with each ``Shard`` replicated whose dim the mesh
+    axes sharding it do not divide (or which ``shape`` lacks): the
+    layout of ``shape`` every rank holds an equal block of."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    over = _shards_per_dim(placements, mesh)
+    bad = {d for d, n in over.items() if d >= len(shape) or shape[d] % n}
+    return tuple(Replicate() if isinstance(p, Shard) and p.dim in bad else p
+                 for p in placements)
+
+
+def _shards_per_dim(placements: Sequence, mesh) -> dict:
+    """{tensor dim: the number of blocks the mesh axes sharding it cut it into}."""
+    from torch.distributed.tensor import Shard
+
+    over: dict[int, int] = {}
+    for p, size in zip(placements, mesh.shape):
+        if isinstance(p, Shard):
+            over[p.dim] = over.get(p.dim, 1) * int(size)
+    return over
+
+
+def _uneven_dims(x, parts: dict) -> set:
+    """The dims of DTensor ``x`` sharded into a number of blocks that does
+    not divide ``parts[dim]``."""
+    over = _shards_per_dim(x.placements, x.device_mesh)
+    return {d for d, n in parts.items() if n % over.get(d, 1)}
+
+
+def _replicated_dims(x, dims):
+    from torch.distributed.tensor import Replicate, Shard
+
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if isinstance(p, Shard) and p.dim in dims else p for p in x.placements))
+
+
+def replicate_uneven(x, dim: int, n: int):
+    """``x`` with tensor dim ``dim`` gathered (``Replicate``) where it is
+    sharded over mesh axes whose sizes multiply to a number that does not
+    divide ``n`` (a batch of 1 over a data axis of 16, before a product
+    that merges it with the heads).  ``x`` itself if it is not a DTensor
+    or the axes divide ``n``."""
+    if not hasattr(x, "placements") or not _uneven_dims(x, {dim: n}):
+        return x
+    return _replicated_dims(x, {dim})
+
+
+class _ReshapeGathered(torch.autograd.Function):
+    """``x.reshape(shape)`` with ``dims`` of ``x`` gathered first; in the
+    backward the grad's reshaped dims are gathered before the inverse
+    reshape (DTensor refuses it on an uneven shard too), and the grad is
+    then laid out as ``x`` was."""
+
+    @staticmethod
+    def forward(ctx, x, shape, dims):
+        ctx.in_shape, ctx.in_placements = tuple(x.shape), tuple(x.placements)
+        ctx.first = next((i for i, (a, b) in enumerate(zip(ctx.in_shape, shape)) if a != b),
+                         min(len(ctx.in_shape), len(shape)))
+        return _replicated_dims(x, dims).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dims = {d for d in range(ctx.first, grad.ndim)}
+        whole = _replicated_dims(grad, dims).reshape(ctx.in_shape)
+        # in x's own layout: the product that made x takes its grad sharded
+        return whole.redistribute(whole.device_mesh, ctx.in_placements), None, None
+
+
+def reshape_uneven(x, shape, parts: dict):
+    """``x.reshape(shape)``, where each dim ``d`` of ``parts`` is split into
+    or merged from ``parts[d]`` parts (heads, tokens).  Under a mesh whose
+    axes do not divide those parts (4 kv heads over a model axis of 16),
+    those dims are gathered first, forward and backward: DTensor refuses
+    to reshape an uneven shard, where XLA's partitioner reshards it.
+    Without a mesh, or where the axes divide, the plain reshape."""
+    if not hasattr(x, "placements"):
+        return x.reshape(shape)
+    dims = _uneven_dims(x, parts)
+    if not dims:
+        return x.reshape(shape)
+    return _ReshapeGathered.apply(x, tuple(shape), dims)
+
+
+def padded_count(n: int, logical: str) -> int:
+    """``n`` rounded up to a multiple of the size of the mesh axes that
+    ``logical`` names under the installed mesh (24 heads over a model axis
+    of 16: 32), as XLA pads an uneven shard; ``n`` itself without a mesh."""
+    ctx = _current()
+    if ctx is None:
+        return n
+    axes = ctx.rules.physical(logical)
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    size = 1
+    for a in axes:
+        size *= axis_size(ctx.mesh, a)
+    return -(-n // size) * size
+
+
+def pad_last(x, n: int):
+    """``x`` with ``n`` zeros appended to its last dim: ``F.pad`` on a plain
+    tensor, a ``cat`` of zeros on a DTensor (torch 2.11's ``F.pad`` gives a
+    DTensor a one-placement spec on a 2-D mesh)."""
+    if not hasattr(x, "placements"):
+        return torch.nn.functional.pad(x, (0, n))
+    if n == 0:
+        return x
+    return torch.cat([x, x.new_zeros(tuple(x.shape[:-1]) + (n,))], dim=-1)
+
+
+def gather_dim(x, dim: int):
+    """``x`` with tensor dim ``dim`` gathered (``Replicate``) where it is a
+    DTensor sharded on it, as one differentiable redistribution whose
+    backward hands the grad back in ``x``'s layout.  Before the split of a
+    sharded dim into blocks (an LSTM's four gates): DTensor gathers it
+    for the split either way, but inside the op, so that the product that
+    made ``x`` would take a whole grad and compute its weight's grad
+    whole on each rank.  ``x`` itself otherwise."""
+    if not hasattr(x, "placements"):
+        return x
+    return _replicated_dims(x, {dim % x.ndim})
+
+
+def lay_out(x, logical_axes, even: bool = True, like=None):
+    """``x`` under the installed mesh in the layout of ``logical_axes``:
+    where the reference leaves a tensor's layout to XLA's sharding
+    propagation and DTensor's would replicate it (zero carries, weights
+    stacked from sharded ones).  ``even`` replicates the dims the mesh
+    axes do not divide; otherwise such a dim is sharded unevenly, as XLA
+    pads it.  Not one of the reference's ``constrain`` sites.  ``x``
+    itself without a mesh, and where neither ``x`` nor ``like`` is a
+    DTensor (a computation on plain tensors under a mesh stays plain)."""
+    ctx = _current()
+    if ctx is None or not (hasattr(x, "placements") or hasattr(like, "placements")):
+        return x
+    placements = named_sharding(ctx.mesh, ctx.rules, logical_axes)
+    if even:
+        placements = fit_placements(placements, x.shape, ctx.mesh)
+    return to_placements(x, ctx.mesh, placements)
+
+
+def gather_for_columns(x, w):
+    """``x`` as a product with the column-sharded weight ``w`` reads it:
+    where ``x`` shards a leading dim (the sequence) over a mesh axis that
+    shards ``w``'s output columns, that dim gathered (the sequence- to
+    tensor-parallel all-gather), as XLA's partitioner reshards it.  On
+    DTensor's own plan the product flattens a batch over data with a
+    sequence over the model axis into a strided shard, planned from index
+    lists as long as the tokens.  ``x`` itself otherwise."""
+    if not (hasattr(x, "placements") and hasattr(w, "placements")):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    out_dim = w.ndim - 1
+    cols = {i for i, p in enumerate(w.placements) if isinstance(p, Shard) and p.dim == out_dim}
+    lead = [i for i, p in enumerate(x.placements)
+            if i in cols and isinstance(p, Shard) and p.dim < x.ndim - 1]
+    if not lead:
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if i in lead else p for i, p in enumerate(x.placements)))
+
+
+def gather_fsdp(w):
+    """A weight as a product reads it: a DTensor under the installed mesh
+    with its ``fsdp`` mesh axes gathered (``Replicate``), the rest of its
+    layout kept, as FSDP and XLA's partitioner all-gather an fsdp-sharded
+    weight before its product.  Without the gather DTensor may keep the
+    weight's shards and reshard the activations instead, replicating the
+    batch over the fsdp axis, so that each rank computes the product of
+    the whole batch.  ``w`` itself otherwise."""
+    ctx = _current()
+    if ctx is None or not hasattr(w, "placements"):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    fsdp = ctx.rules.fsdp
+    fsdp = (fsdp,) if isinstance(fsdp, str) else tuple(fsdp or ())
+    names = axis_names(ctx.mesh)
+    placements = tuple(Replicate() if names[i] in fsdp and isinstance(p, Shard) else p
+                       for i, p in enumerate(w.placements))
+    return to_placements(w, ctx.mesh, placements)
+
+
 def placements_of(mesh, spec: Sequence) -> tuple:
     """The DTensor placements of a physical spec (``ShardingRules.spec``)."""
     from torch.distributed.tensor import Replicate, Shard
@@ -310,8 +496,9 @@ def _zip_shardings(fn, tree, shardings):
 
 __all__ = [
     "ActiveMesh", "ShardingRules", "active_mesh", "active_rules", "axis_names",
-    "axis_size", "constrain", "device_put", "is_placements", "is_spec_leaf", "map_specs",
-    "mesh_context", "named_sharding", "placements_of", "recompute_context", "replicated",
-    "rules_for_mesh",
-    "spec_tree_to_shardings", "to_placements",
+    "axis_size", "constrain", "device_put", "fit_placements", "gather_dim",
+    "gather_for_columns", "gather_fsdp", "is_placements", "is_spec_leaf", "lay_out",
+    "map_specs", "mesh_context", "named_sharding", "pad_last", "padded_count",
+    "placements_of", "recompute_context", "replicate_uneven", "replicated",
+    "reshape_uneven", "rules_for_mesh", "spec_tree_to_shardings", "to_placements",
 ]

@@ -32,13 +32,16 @@ time: a second thread waits on the cache's lock until the first has copied
 its arguments in, replayed and cloned its outputs.  A capture checks only
 its own thread's CUDA calls (``capture_error_mode="thread_local"``), so
 another thread's work on the device — a caller scoring in-process while
-the gateway's server thread captures a new bucket — cannot break it.
-Graphs read whatever they closed over by address, so the engine keeps its
+the gateway's server thread captures a new bucket — cannot break it;
+and Python's cyclic collector is off while a graph is captured, so that
+it cannot destroy an earlier program's graph in the middle of a capture
+(``tests/test_torch_cuda.py``).  Graphs read whatever they closed over by address, so the engine keeps its
 own copy of the bound params for them, copies new params into it in place
 and drops its caches when it must allocate a new one (``Engine.bind``).
 """
 from __future__ import annotations
 
+import gc
 import threading
 from typing import Callable, Hashable
 
@@ -81,11 +84,18 @@ class CapturedProgram:
         current.wait_stream(stream)
         before = captured_counts()
         self.graph = torch.cuda.CUDAGraph()
+        # no cyclic garbage collection while capturing: a collected cycle
+        # that holds an earlier program would destroy its graph mid-capture,
+        # a call a capturing thread may not make, and the capture is lost
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, stream=stream,
                                   capture_error_mode="thread_local"):
                 self.out = fn(*static)
         finally:
+            if collecting:
+                gc.enable()
             torch.cuda.set_stream(current)   # also when capture_end raised
         after = captured_counts()
         # kernels of the port recorded in the graph, launched at each replay

@@ -3,7 +3,8 @@
 Counterpart of ``repro/kernels/ops.py``.  The reference picks interpret
 mode off the TPU; here the device of the tensors decides: a CPU tensor goes
 to the kernel's plain PyTorch version, a CUDA tensor to the kernel, which
-launches or raises.  Nothing falls back from the kernel to the plain version.
+launches or raises, and a meta tensor (the dry run) to the kernel's meta
+op (``meta.py``: the kernel's output shapes and its FLOPs, nothing run).  Nothing falls back from the kernel to the plain version.
 
 - :func:`lstm_cell_op` — K1, one LSTM timestep; the body of the ``fused``
   schedule, and so of the gateway's bucketed one-shot scoring under it.
@@ -32,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.lstm_cell import (
     check_cell_args,
     lstm_cell_cuda,
@@ -58,6 +60,9 @@ def lstm_cell_op(params, x, h, c, *, pwl: bool = False,
     c = c.float()
     if x.device.type == "cuda":
         return lstm_cell_cuda(x, h, c, wx, wh, b, pwl=pwl, h_out=h_out, c_out=c_out)
+    if x.device.type == "meta":
+        h_new, c_new = meta.lstm_cell(x, h, c, wx, wh, b, pwl)
+        return (h_new if h_out is None else h_out), (c_new if c_out is None else c_out)
     if x.device.type != "cpu":
         raise ValueError(f"lstm_cell_op runs on cuda or cpu tensors, got {x.device}")
     h_out, c_out = check_cell_args(x, h, c, wx, wh, b, h_out, c_out)
@@ -82,6 +87,8 @@ def lstm_seq_op(params, xs, h0=None, c0=None, *, pwl: bool = False):
         else c0.float()
     if xs.device.type == "cuda":
         return lstm_seq_cuda(xs, h0, c0, wx, wh, b, pwl=pwl)
+    if xs.device.type == "meta":
+        return meta.lstm_seq(xs, h0, c0, wx, wh, b, pwl)
     if xs.device.type != "cpu":
         raise ValueError(f"lstm_seq_op runs on cuda or cpu tensors, got {xs.device}")
     check_seq_args(xs, h0, c0, wx, wh, b)
@@ -96,6 +103,8 @@ def wkv6_op(r, k, v, w, u, s0):
     call on the whole."""
     if r.device.type == "cuda":
         return wkv6_cuda(r, k, v, w, u, s0)
+    if r.device.type == "meta":
+        return meta.wkv6(r, k, v, w, u, s0)
     if r.device.type != "cpu":
         raise ValueError(f"wkv6_op runs on cuda or cpu tensors, got {r.device}")
     check_wkv6_args(r, k, v, w, u, s0)
@@ -116,6 +125,8 @@ def flash_attention_op(q, k, v, *, causal: bool = True):
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         flash_attention_cuda(qt, kt, vt, causal=causal, out=out.transpose(1, 2))
         return out
+    if q.device.type == "meta":
+        return meta.flash_attention(qt, kt, vt, causal).transpose(1, 2).contiguous()
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention_op runs on cuda or cpu tensors, got {q.device}")
     check_attention_args(qt, kt, vt)

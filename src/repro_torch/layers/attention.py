@@ -24,6 +24,7 @@ captured step copies nothing from the host.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -31,7 +32,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.core import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (
+    active_mesh,
+    active_rules,
+    constrain,
+    fit_placements,
+    lay_out,
+    named_sharding,
+    padded_count,
+    replicate_uneven,
+    reshape_uneven,
+    to_placements,
+)
 from repro_torch.layers.linear import apply_linear, init_linear, linear_specs
 from repro_torch.layers.rotary import apply_rope
 from repro_torch.utils import Params
@@ -63,17 +75,33 @@ def attention_specs(cfg: ModelConfig) -> Params:
     }
 
 
+def _split_heads(y: torch.Tensor, b: int, s: int, heads: int, hd: int) -> torch.Tensor:
+    """(B, S, heads*hd) -> (B, S, heads, hd).  Under a mesh whose model
+    axis the heads do not divide (4 kv heads over 16), the projection is
+    gathered first: DTensor refuses to reshape such a dim, where XLA's
+    partitioner reshards it; the caller's ``constrain`` lays the heads out
+    again, unevenly, as the reference's ``("batch", None, "tp", None)``."""
+    return reshape_uneven(y, (b, s, heads, hd), {2: heads})
+
+
 def _project_qkv(params: Params, x_q: torch.Tensor, x_kv: torch.Tensor, cfg: ModelConfig):
     hd = cfg.resolved_head_dim()
     bq, sq, _ = x_q.shape
     bk, sk, _ = x_kv.shape
-    q = apply_linear(params["q"], x_q).reshape(bq, sq, cfg.num_heads, hd)
-    k = apply_linear(params["k"], x_kv).reshape(bk, sk, cfg.num_kv_heads, hd)
-    v = apply_linear(params["v"], x_kv).reshape(bk, sk, cfg.num_kv_heads, hd)
+    q = _split_heads(apply_linear(params["q"], x_q), bq, sq, cfg.num_heads, hd)
+    k = _split_heads(apply_linear(params["k"], x_kv), bk, sk, cfg.num_kv_heads, hd)
+    v = _split_heads(apply_linear(params["v"], x_kv), bk, sk, cfg.num_kv_heads, hd)
     q = constrain(q, ("batch", None, "tp", None))
     k = constrain(k, ("batch", None, "tp", None))
     v = constrain(v, ("batch", None, "tp", None))
     return q, k, v
+
+
+def _pad_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, H, d) -> (B, S, heads, d), zero heads appended, laid out with
+    the heads over the model axis (under a mesh only)."""
+    zeros = t.new_zeros(t.shape[:2] + (heads - t.shape[2],) + t.shape[3:])
+    return lay_out(torch.cat([t, zeros], dim=2), ("batch", None, "tp", None))
 
 
 def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -81,7 +109,7 @@ def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
     group = num_heads // k.shape[2]
     if group == 1:
         return k
-    return torch.repeat_interleave(k, group, dim=2)
+    return torch.repeat_interleave(replicate_uneven(k, 2, k.shape[2]), group, dim=2)
 
 
 def blocked_attention(
@@ -148,6 +176,23 @@ def blocked_attention(
     return out.permute(0, 2, 1, 3).to(q.dtype)  # (B, Sq, H, d)
 
 
+def _blocked_on_shards(q, k, v, **kw):
+    """:func:`blocked_attention` under a mesh, on each rank's block of
+    (batch, heads) inside ``local_map``: attention is independent per
+    (batch, head), so each block is exact.  On DTensors each product of
+    the online softmax flattens a batch over data with heads over the
+    model axis into a strided shard, which DTensor plans from index lists
+    at every one of the chunks' products."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, rules = active_mesh(), active_rules()
+    heads = fit_placements(named_sharding(mesh, rules, ("batch", None, "tp", None)),
+                           q.shape, mesh)
+    attend = local_map(functools.partial(blocked_attention, **kw), out_placements=(heads,),
+                       in_placements=(heads, heads, heads), device_mesh=mesh)
+    return attend(*(to_placements(t, mesh, heads) for t in (q, k, v)))
+
+
 def apply_attention(
     params: Params,
     x: torch.Tensor,
@@ -174,10 +219,26 @@ def apply_attention(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     kv = (k, v) if return_kv else None
-    out = blocked_attention(q, _expand_kv(k, cfg.num_heads), _expand_kv(v, cfg.num_heads),
-                            causal=causal, kv_chunk=kv_chunk, q_chunks=q_chunks)
+    # under a mesh the expanded K/V take q's layout (batch, heads over the
+    # model axis), where DTensor would otherwise gather q's batch
+    k_all, v_all = (lay_out(_expand_kv(t, cfg.num_heads), ("batch", None, "tp", None))
+                    for t in (k, v))
+    heads = padded_count(cfg.num_heads, "tp")
+    if heads != cfg.num_heads:
+        # heads the model axis does not divide (24 over 16): zero heads up
+        # to a multiple, each rank its share, as XLA pads the shard
+        # (DTensor gathers every head of an uneven shard into one product)
+        q, k_all, v_all = (_pad_heads(t, heads) for t in (q, k_all, v_all))
+    attend = _blocked_on_shards if hasattr(q, "placements") else blocked_attention
+    out = attend(q, k_all, v_all, causal=causal, kv_chunk=kv_chunk, q_chunks=q_chunks)
+    if heads != cfg.num_heads:
+        out = out[:, :, :cfg.num_heads]
     out = constrain(out, ("batch", None, "tp", None))
-    y = apply_linear(params["o"], out.reshape(x.shape[0], x.shape[1], -1))
+    # merged heads over the model axis again (gathered for an uneven merge),
+    # so that the output projection's weight grad is each rank's block
+    out = lay_out(reshape_uneven(out, (x.shape[0], x.shape[1], -1), {2: cfg.num_heads}),
+                  ("batch", None, "tp"))
+    y = apply_linear(params["o"], out)
     y = constrain(y, ("batch", "sp", None))
     if return_kv:
         return y, kv
@@ -246,17 +307,21 @@ def decode_attention(
         _write_row(k_cache, pos, k_new)
         _write_row(v_cache, pos, v_new)
     else:
-        q = constrain(apply_linear(params["q"], x).reshape(b, 1, cfg.num_heads, hd),
+        q = constrain(_split_heads(apply_linear(params["q"], x), b, 1, cfg.num_heads, hd),
                       ("batch", None, "tp", None))
     if use_rope:
         q = apply_rope(q, pos, cfg.rope_theta)
     # the layout read below; the cache itself keeps its own, written above
     k_cache = constrain(k_cache, ("batch", "tp", None, None))
     v_cache = constrain(v_cache, ("batch", "tp", None, None))
+    # a batch the batch axes do not divide (long_500k's 1 over 16) is
+    # gathered: the products below merge it with the heads
+    k_cache, v_cache = (replicate_uneven(t, 0, b) for t in (k_cache, v_cache))
 
     s_max = k_cache.shape[1]
     group = cfg.num_heads // cfg.num_kv_heads
-    qg = q.reshape(b, cfg.num_kv_heads, group, hd)  # (B, Hkv, G, d) (Sq==1 folded)
+    # (B, Hkv, G, d) (Sq==1 folded)
+    qg = reshape_uneven(q, (b, cfg.num_kv_heads, group, hd), {0: b, 2: cfg.num_kv_heads})
     scores = torch.einsum("bhgd,bshd->bhgs", qg.float(),
                           k_cache.to(q.dtype).float()) / math.sqrt(hd)
     valid = torch.arange(s_max, device=x.device)[None, :] <= cache_len  # includes the new token
@@ -264,5 +329,7 @@ def decode_attention(
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
-    out = out.reshape(b, 1, cfg.num_heads * hd).to(x.dtype)
+    out = lay_out(reshape_uneven(out, (b, 1, cfg.num_heads * hd), {1: cfg.num_kv_heads}),
+                  ("batch", None, "tp"))
+    out = out.to(x.dtype)
     return constrain(apply_linear(params["o"], out), ("batch", None, None)), cache

@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import constrain, recompute_context
+from repro_torch.distributed.sharding import constrain, lay_out, recompute_context
 from repro_torch.utils import Params, truncated_normal_init
 
 
@@ -36,15 +36,25 @@ def unembed_specs() -> Params:
     return {"w": ("fsdp", "tp")}
 
 
+def _vocab_sharded(unembed_w: torch.Tensor) -> torch.Tensor:
+    """The unembedding (D, V) as its product reads it under a mesh: D whole,
+    the vocab over the model axis, unevenly where the axis does not divide
+    it (whisper's 51,866 over 16, placed replicated), as XLA pads it, so
+    that each rank computes its block of the logits.  ``unembed_w`` itself
+    without a mesh."""
+    return lay_out(unembed_w, (None, "tp"), even=False)
+
+
 def unembed_logits(unembed_w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Logits (B, S, D) -> (B, S, V) in ``h``'s dtype."""
-    return constrain(h @ unembed_w.to(h.dtype), ("batch", None, "tp"))
+    return constrain(h @ _vocab_sharded(unembed_w).to(h.dtype), ("batch", None, "tp"))
 
 
 def _chunk_nll(hb: torch.Tensor, unembed_w: torch.Tensor, lb: torch.Tensor,
                z_loss: float) -> torch.Tensor:
     """Summed masked NLL of one chunk: hb (B, c, D), lb (B, c)."""
-    logits = constrain(hb @ unembed_w.to(hb.dtype), ("batch", None, "tp")).float()  # (B, c, V)
+    logits = constrain(hb @ _vocab_sharded(unembed_w).to(hb.dtype),
+                       ("batch", None, "tp")).float()                     # (B, c, V)
     lse = torch.logsumexp(logits, dim=-1)
     # the gold logit keeps its trailing dim until the subtraction: a gather
     # over vocab-sharded logits is masked per shard, and DTensor applies

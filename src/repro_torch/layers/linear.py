@@ -5,6 +5,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import gather_fsdp, gather_for_columns
 from repro_torch.utils import Params, truncated_normal_init
 
 
@@ -27,7 +28,8 @@ def linear_specs(in_axis: Optional[str], out_axis: Optional[str], bias: bool = F
 
 def apply_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Weights are cast to ``x``'s dtype at use, as in the reference."""
-    y = x @ params["w"].to(x.dtype)
+    w = gather_fsdp(params["w"])
+    y = gather_for_columns(x, w) @ w.to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y

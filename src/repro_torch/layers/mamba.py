@@ -37,7 +37,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.core import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (
+    active_mesh,
+    active_rules,
+    constrain,
+    fit_placements,
+    lay_out,
+    named_sharding,
+    to_placements,
+)
 from repro_torch.layers.linear import apply_linear, init_linear, linear_specs
 from repro_torch.utils import Params, truncated_normal_init
 
@@ -107,7 +115,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _ssm_inputs(params: Params, xc: torch.Tensor, cfg: ModelConfig):
     """xc: (B, S, d_inner) post-conv activations -> dt (f32), B_t, C_t (f32)."""
     _, d_state, dt_rank = mamba_dims(cfg)
-    proj = apply_linear(params["x_proj"], xc)
+    # under a mesh the partial sums over d_inner's shards are summed here,
+    # as XLA does, before the split: DTensor would gather dt_proj's weight
+    # and form every rank's (B, S, d_inner) product whole
+    proj = lay_out(apply_linear(params["x_proj"], xc), ("batch", None, None))
     dt_lr, b_t, c_t = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
     dt = F.softplus(apply_linear(params["dt_proj"], dt_lr).float())
     return dt, b_t.float(), c_t.float()
@@ -119,17 +130,46 @@ def ssm_scan(dt, b_t, c_t, xc, a, state, chunk: int = 256):
     Returns (y (B, S, d_inner) f32, final state)."""
     s = xc.shape[1]
     h, ys = state, []
+    recur = _recurrence_on_shards(state) if hasattr(state, "placements") else _recurrence
     for t0 in range(0, s, chunk):
         dt_c = dt[:, t0:t0 + chunk, :, None]                          # (B, L, di, 1)
         da = torch.exp(dt_c * a)                                      # (B, L, di, ds)
         db = dt_c * b_t[:, t0:t0 + chunk, None, :]
         dbx = db * xc[:, t0:t0 + chunk, :, None].float()
-        hs = []
-        for da_t, dbx_t in zip(da.unbind(1), dbx.unbind(1)):
-            h = torch.addcmul(dbx_t, da_t, h)                          # da * h + db * x
-            hs.append(h)
-        ys.append(torch.einsum("blds,bls->bld", torch.stack(hs, 1), c_t[:, t0:t0 + chunk]))
+        hs, h = recur(da, dbx, h)
+        ys.append(torch.einsum("blds,bls->bld", hs, c_t[:, t0:t0 + chunk]))
     return torch.cat(ys, dim=1), h
+
+
+def _recurrence(da, dbx, h):
+    """One chunk's recurrence, a step at a time: (the stacked states
+    (B, L, d_inner, d_state), the last)."""
+    hs = []
+    for da_t, dbx_t in zip(da.unbind(1), dbx.unbind(1)):
+        h = torch.addcmul(dbx_t, da_t, h)                              # da * h + db * x
+        hs.append(h)
+    return torch.stack(hs, 1), h
+
+
+def _recurrence_on_shards(state):
+    """:func:`_recurrence` under a mesh, on each rank's block inside
+    ``local_map``: the recurrence is elementwise over (batch, d_inner,
+    d_state), so each block is exact, and each step is one op on a plain
+    tensor instead of a DTensor dispatch (a chunk of 256 steps per
+    layer and chunk).  The blocks: the batch over the batch axes, d_inner
+    over the model axis, as ``state``'s spec, and replicated where the
+    axes do not divide them."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, rules = active_mesh(), active_rules()
+    steps = fit_placements(named_sharding(mesh, rules, ("batch", None, "tp", None)),
+                           (state.shape[0], 1) + tuple(state.shape[1:]), mesh)
+    carry = fit_placements(named_sharding(mesh, rules, ("batch", "tp", None)),
+                           state.shape, mesh)
+    recur = local_map(_recurrence, out_placements=(steps, carry),
+                      in_placements=(steps, steps, carry), device_mesh=mesh)
+    return lambda da, dbx, h: recur(*(to_placements(t, mesh, p) for t, p in
+                                      ((da, steps), (dbx, steps), (h, carry))))
 
 
 def ssm_step(dt, b_t, c_t, xc, a, state):

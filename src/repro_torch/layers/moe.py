@@ -60,7 +60,10 @@ from repro_torch.distributed.sharding import (
     axis_names,
     axis_size,
     constrain,
+    gather_dim,
+    lay_out,
     placements_of,
+    replicate_uneven,
     replicated,
     to_placements,
 )
@@ -138,11 +141,16 @@ def apply_moe(params: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.
     """x: (B, S, D) -> (B, S, D), aux loss (scalar f32)."""
     moe = cfg.moe
     b, s, d = x.shape
-    xf = constrain(x.reshape(b * s, d), ("tokens", None))
+    # under a mesh (b, s) is flattened with only the batch sharded, and
+    # unflattened so too: flattening a batch over data and a sequence over
+    # the model axis makes a strided shard, each of whose redistributions
+    # DTensor plans from index lists as long as the tokens
+    xf = constrain(lay_out(x, ("batch", None, None)).reshape(b * s, d), ("tokens", None))
     weights, indices, probs = _router(params, xf, moe.top_k)
     aux = _aux_loss(probs, indices, moe.num_experts)
     combine = _dense_combine if moe.impl == "dense" else _scatter_combine
-    return combine(params, xf, weights, indices, cfg).reshape(b, s, d), aux
+    y = lay_out(combine(params, xf, weights, indices, cfg), ("batch", None))
+    return y.reshape(b, s, d), aux
 
 
 class _SumInvariant(torch.autograd.Function):
@@ -232,8 +240,12 @@ def _dispatch(xf: torch.Tensor, flat_e: torch.Tensor, flat_p: torch.Tensor, e: i
     """Each (token, choice) row into an (E, cap+1, D) buffer at (expert,
     slot), slot ``cap`` the drop bin: (buffer, row of each entry in the
     flat (E*(cap+1), D) view).  Every other slot receives one row, so
-    adding onto zeros writes it exactly."""
+    adding onto zeros writes it exactly.  Under a mesh whose token axes do
+    not divide the tokens (128 at decode over 256 ranks), the tokens are
+    gathered first: DTensor cannot flatten (token, choice) of an unevenly
+    sharded token dim."""
     n, d = xf.shape
+    xf = replicate_uneven(xf, 0, n)
     slot = flat_e * (cap + 1) + flat_p
     upd = xf[:, None, :].expand(n, k, d).reshape(n * k, d)               # (N*k, D)
     buf = xf.new_zeros((e * (cap + 1), d)).index_add(0, slot, upd)
@@ -428,7 +440,10 @@ def _scatter_combine(params, xf, weights, indices, cfg: ModelConfig) -> torch.Te
 
     # position of each (token, choice) within its expert, in flat order
     flat_e = indices.reshape(-1).long()                                  # (N*k,)
-    flat_p = _positions(flat_e, e)
+    # the positions count over every token: under a mesh the choices are
+    # gathered first (DTensor would plan each op of the scan on a strided
+    # shard of E x N*k entries, from index lists as long)
+    flat_p = _positions(gather_dim(flat_e, 0), e)
     dropped = flat_p >= cap
     flat_p = torch.clamp(flat_p, max=cap)                                # park dropped in slot `cap`
 

@@ -41,6 +41,8 @@ from repro_torch.distributed.sharding import (
     active_mesh,
     active_rules,
     constrain,
+    fit_placements,
+    lay_out,
     named_sharding,
     to_placements,
 )
@@ -115,8 +117,11 @@ def _projections(params: Params, x: torch.Tensor, shifted: torch.Tensor, cfg: Mo
     k = split_heads(apply_linear(params["k"], xk))
     v = split_heads(apply_linear(params["v"], xv))
     g = F.silu(apply_linear(params["g"], xg))
+    # under a mesh the LoRA's contraction over d runs over the model axis,
+    # as XLA lays it out (DTensor would gather the batch)
+    xw = lay_out(xw.float(), ("batch", None, "tp"))
     w_log = params["wbase"].float() + (
-        torch.tanh(xw.float() @ params["w1"].float()) @ params["w2"].float())
+        torch.tanh(xw @ lay_out(params["w1"].float(), ("tp", None))) @ params["w2"].float())
     w = split_heads(torch.exp(-torch.exp(w_log)))  # in (0,1), per channel; f32
     return r, k, v, g, w
 
@@ -224,9 +229,13 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     from torch.distributed.tensor.experimental import local_map
 
     rules = active_rules()
-    stream = named_sharding(mesh, rules, ("batch", None, "tp", None))
+    # a batch the batch axes do not divide (long_500k's 1 over 16) scans
+    # whole on each rank: local_map takes equal blocks
+    stream = fit_placements(named_sharding(mesh, rules, ("batch", None, "tp", None)),
+                            r.shape, mesh)
     bonus = named_sharding(mesh, rules, ("tp", None))
-    carry = named_sharding(mesh, rules, ("batch", "tp", None, None))
+    carry = fit_placements(named_sharding(mesh, rules, ("batch", "tp", None, None)),
+                           state.shape, mesh)
     # u's grad on a rank sums over its batch block only: a part on the
     # batch axes, over which u is replicated
     bonus_grad = tuple(p if isinstance(p, Shard) else Partial() for p in bonus)

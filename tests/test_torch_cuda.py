@@ -779,6 +779,39 @@ def test_capture_refusing_a_launch_inside_the_graph_raises(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_capture_survives_a_collected_cycle_holding_an_old_graph(cuda):
+    """An earlier program left in a garbage cycle while a new one captures
+    and allocates enough Python objects to start the cyclic collector: the
+    old graph is not destroyed mid-capture (a capturing thread may not make
+    that call, and the capture would be lost); the collector runs after."""
+    import gc
+    import weakref
+
+    from repro_torch.engine.capture import CapturedProgram
+
+    stream = torch.cuda.Stream(cuda)
+    x = torch.ones(64, device=cuda)
+    holder = [CapturedProgram(lambda t: t * 2.0, (x,), cuda, stream)]
+    gone = weakref.ref(holder[0])
+
+    def fn(t):
+        if torch.cuda.is_current_stream_capturing() and holder:
+            cycle = [holder.pop()]
+            cycle.append(cycle)            # the old program, now only in a cycle
+            del cycle
+            junk = [[i] for i in range(50_000)]
+            for j in junk:                 # allocations past gen0's threshold
+                j.append(j)
+        return t + 1.0
+
+    gc.collect()
+    program = CapturedProgram(fn, (x,), cuda, stream)
+    assert torch.equal(program((x,)), x + 1.0)
+    gc.collect()
+    assert gone() is None
+
+
+@pytest.mark.cuda
 def test_a_params_snapshot_serves_again_after_a_swap(cuda):
     """The reference's swap and restore (tests/test_gateway.py::
     test_recalibrate_swaps_params_atomically) on a captured engine: a

@@ -243,14 +243,22 @@ def test_dryrun_placement_report_matches_reference(tmp_path, argv, capsys):
 
 
 def test_dryrun_refuses_what_is_not_ported(tmp_path, capsys):
-    """Without ``--placement`` the launcher exits (the dry-run of compiled
-    cells waits for the LM families); ``--placement data=2`` reports as the
+    """``--placement`` on an LM exits, as the reference's does (the gateway
+    it reports on serves the LSTM-AE; the cells of every arch are
+    ``tests/test_torch_dryrun.py``'s); ``--placement data=2`` reports as the
     reference's ``placement_report`` does, printed lines included."""
     from repro.launch.dryrun import placement_report as ref_report
     from repro_torch.launch import dryrun
 
-    with pytest.raises(SystemExit):
-        dryrun.main(["--arch", ARCH])
+    lm = argparse.Namespace(arch="tinyllama-1.1b", placement="data=2", reduced=True,
+                            max_batch=16, seq_len=64, slo_p95_ms=None, target_rps=None,
+                            out=str(tmp_path / "ref"))
+    with pytest.raises(SystemExit) as ref_exit:
+        ref_report(lm)
+    with pytest.raises(SystemExit) as port_exit:
+        dryrun.main(["--placement", "data=2", "--arch", "tinyllama-1.1b",
+                     "--out", str(tmp_path / "port")])
+    assert str(port_exit.value) == str(ref_exit.value)
     capsys.readouterr()
     dryrun.main(["--placement", "data=2", "--arch", ARCH, "--out", str(tmp_path / "port")])
     printed = capsys.readouterr().out
