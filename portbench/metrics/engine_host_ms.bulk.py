@@ -1,0 +1,12 @@
+"""engine_host_ms.bulk: the host's time inside the program a request, in ms:
+the median over the traced run's window of the ``repro_torch.service.score``
+span's total, the program's own span, recorded with the profiler off
+(``program_spans.py``).  In bulk it is mostly the pinned copy-in, which blocks
+the host until the copy is done."""
+from portbench.program_spans import recording, root_ms
+
+beside = recording
+
+
+def read(run):
+    return root_ms(run, "engine_host_ms.bulk")

@@ -41,7 +41,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import time
 import weakref
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Union
@@ -56,6 +55,7 @@ from repro_torch.engine.capture import GraphCache, signature
 from repro_torch.engine.placement import Placement
 from repro_torch.engine.schedules import Schedule, resolve_schedule
 from repro_torch.models.lstm_ae import decode_step, init_stream_state
+from repro_torch.obs import trace
 from repro_torch.utils import Params, tree_map
 
 
@@ -198,29 +198,29 @@ class Engine:
         engine's own cache) captured at its first call per signature and
         replayed after; ``capture=False`` runs eagerly.  ``args`` hold
         tensors or arrays (containers of them too).  Each capture (eagerly:
-        the first call per (program, signature)) is timed into the
-        profile; later calls cost one lookup."""
+        the first call per (program, signature)) is timed into the profile
+        by its ``repro_torch.engine.capture`` span; later calls cost one
+        lookup, under spans of their own where ``trace.PROGRAM`` is live."""
         graphs = (graphs or self._graphs) if capture else None
-        if graphs is None:
-            dev = self.device if device is None else device
-            args = tree_map(lambda a: self._on_device(a, dev), args)
-            key = (name, signature(args))
-            if key in self._seen:
-                return fn(*args)
+        if not trace.PROGRAM.live():
+            key, args, known = self._lookup(name, args, graphs, device)
+            if known:
+                return fn(*args) if graphs is None else graphs.run(key, fn, args)
         else:
-            # host data stays on the host: the static copy moves it
-            args = tree_map(lambda a: a if isinstance(a, torch.Tensor)
-                            else torch.as_tensor(np.asarray(a)), args)
-            key = (name, signature(args))
-            if key in graphs.programs:
+            with trace.PROGRAM.span("repro_torch.engine.lookup", name):
+                key, args, known = self._lookup(name, args, graphs, device)
+            if known and graphs is not None:
                 return graphs.run(key, fn, args)
-        t0 = time.perf_counter()
-        if graphs is None:
-            out = fn(*args)
-            self._seen.add(key)
-        else:
-            out = graphs.run(key, fn, args)
-        ms = (time.perf_counter() - t0) * 1e3
+            if known:
+                with trace.PROGRAM.span("repro_torch.engine.eager", name):
+                    return fn(*args)
+        with trace.PROGRAM.span("repro_torch.engine.capture", name) as first:
+            if graphs is None:
+                out = fn(*args)
+                self._seen.add(key)
+            else:
+                out = graphs.run(key, fn, args, name=name)
+        ms = first.total_ms
         self.profile["compiles"] += 1
         self.profile["compile_ms"] += ms
         per = self.profile["per_program"].setdefault(
@@ -229,6 +229,21 @@ class Engine:
         per["compile_ms"] += ms
         per["shapes"].append(list(args[0].shape))
         return out
+
+    def _lookup(self, name: str, args: tuple, graphs: Optional[GraphCache],
+                device: Optional[torch.device]) -> tuple:
+        """(key, args, whether the key ran before): eagerly the args moved to
+        ``device``; captured, host data stays on the host (the static copy
+        moves it)."""
+        if graphs is None:
+            dev = self.device if device is None else device
+            args = tree_map(lambda a: self._on_device(a, dev), args)
+            key = (name, signature(args))
+            return key, args, key in self._seen
+        args = tree_map(lambda a: a if isinstance(a, torch.Tensor)
+                        else torch.as_tensor(np.asarray(a)), args)
+        key = (name, signature(args))
+        return key, args, key in graphs.programs
 
     def profile_info(self) -> dict:
         """First-call profile in the schema of ``repro.engine.Engine.profile_info``.

@@ -23,7 +23,10 @@ reused once the call returns), replays the graph, counts the kernels
 recorded in it as launched (``kernels.ops.add_launches``) and returns
 clones of the graph's outputs, so a later call never overwrites a tensor
 an earlier one returned.  ``fn`` may also update tensors it closes over in
-place and return None (the session pool's step).
+place and return None (the session pool's step).  While the port's tracer
+is live (``obs.trace.PROGRAM``: a recording, or a profiler session), the
+three stages run under spans of their own (``repro_torch.capture.copy_in``,
+``.replay``, ``.clone_out``) and a recording counts the bytes copied in.
 
 Nothing falls back: a capture that fails, or a kernel that refuses its
 launch while it is captured, raises.  A replay is not re-entrant (the
@@ -43,11 +46,12 @@ from __future__ import annotations
 
 import gc
 import threading
-from typing import Callable, Hashable
+from typing import Callable, Hashable, Optional
 
 import torch
 
 from repro_torch.kernels.ops import add_launches, captured_counts
+from repro_torch.obs import trace
 from repro_torch.utils import Params, tree_map
 
 
@@ -71,10 +75,11 @@ class CapturedProgram:
     """``fn`` captured once over static copies of its tensor arguments."""
 
     def __init__(self, fn: Callable, args: tuple, device: torch.device,
-                 stream: torch.cuda.Stream):
+                 stream: torch.cuda.Stream, name: str = ""):
+        self.name = name     # the program's, an attribute of its spans
         static = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device), args)
         self._inputs = _leaves(static)
-        self._copy_in(args)
+        self._copy_in(args, trace.PROGRAM.active)
         # the warm-up allocates on the side stream: with the device idle,
         # no block it reuses is still read by work queued elsewhere
         torch.cuda.synchronize(device)
@@ -102,17 +107,33 @@ class CapturedProgram:
         self.launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
         self.replays = 0
 
-    def _copy_in(self, args: tuple) -> None:
+    def _copy_in(self, args: tuple, rec: Optional[trace.Recording] = None) -> None:
+        """Copy ``args`` into the static inputs; ``rec`` counts the bytes."""
         for dst, src in zip(self._inputs, _leaves(args)):
             if src is not dst:
+                if rec is not None:
+                    rec.copied_in(src)
                 dst.copy_(src)
 
     def __call__(self, args: tuple):
+        if trace.PROGRAM.live():
+            return self._traced_call(args)
         self._copy_in(args)
         self.graph.replay()
         add_launches(self.launches)
         self.replays += 1
         return _clone(self.out)
+
+    def _traced_call(self, args: tuple):
+        """:meth:`__call__` with a span around each of its three stages."""
+        with trace.PROGRAM.span("repro_torch.capture.copy_in", self.name):
+            self._copy_in(args, trace.PROGRAM.active)
+        with trace.PROGRAM.span("repro_torch.capture.replay", self.name):
+            self.graph.replay()
+            add_launches(self.launches)
+            self.replays += 1
+        with trace.PROGRAM.span("repro_torch.capture.clone_out", self.name):
+            return _clone(self.out)
 
 
 class GraphCache:
@@ -129,13 +150,14 @@ class GraphCache:
         self._stream = torch.cuda.Stream(device)
         self._lock = threading.Lock()
 
-    def run(self, key: Hashable, fn: Callable, args: tuple):
+    def run(self, key: Hashable, fn: Callable, args: tuple, name: str = ""):
+        """``name``, the program's, is given to a program captured here."""
         # a graph captures and replays on its own device, which need not be
         # the current one (a data shard's cache on another GPU)
         with self._lock, torch.cuda.device(self.device):
             prog = self.programs.get(key)
             if prog is None:
-                prog = CapturedProgram(fn, args, self.device, self._stream)
+                prog = CapturedProgram(fn, args, self.device, self._stream, name)
                 self.programs[key] = prog
                 self.captures += 1
                 out, prog.first = prog.first, None   # the caller owns it now

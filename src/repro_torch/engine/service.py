@@ -26,6 +26,7 @@ from repro_torch.core.lstm import init_lstm_ae
 from repro_torch.data.timeseries import TimeseriesConfig, make_batch
 from repro_torch.engine.base import Engine, EngineConfig, build_engine
 from repro_torch.models.lstm_ae import train_loss
+from repro_torch.obs import trace
 from repro_torch.utils import Params
 
 _UNSET = object()  # distinguishes "not given" from an explicit None
@@ -167,8 +168,13 @@ class AnomalyService:
     # -- batch scoring ----------------------------------------------------
 
     def score(self, series) -> torch.Tensor:
-        """(B, T, F) -> per-sequence reconstruction errors (B,), on the device."""
-        return self.engine.score({"series": series})
+        """(B, T, F) -> per-sequence reconstruction errors (B,), on the device.
+        The root span of a request (``repro_torch.service.score``) where the
+        port's tracer is live."""
+        if not trace.PROGRAM.live():
+            return self.engine.score({"series": series})
+        with trace.PROGRAM.span("repro_torch.service.score"):
+            return self.engine.score({"series": series})
 
     def alerts(self, series) -> torch.Tensor:
         """(B, T, F) -> boolean alert mask (B,); requires calibration."""

@@ -148,7 +148,7 @@ def test_port_default_walk_is_clean_against_its_baseline():
         assert not entry["reason"].startswith("unreviewed")
     # the seven ASY/CON findings and the one TOR false positive
     assert {(f.rule_id, f.path, f.line) for f in suppressed} == PORT_FINDINGS | {
-        ("TOR105", "src/repro_torch/engine/base.py", 343)}
+        ("TOR105", "src/repro_torch/engine/base.py", 358)}
     # the default walk keeps each pack to its targets: no reference file
     assert all(f.path.startswith("src/repro_torch/") for f in findings)
 

@@ -696,6 +696,55 @@ def test_captured_fused_schedule_counts_every_launch(cuda):
 
 
 @pytest.mark.cuda
+def test_captured_score_spans_and_launches(cuda):
+    """The port's spans around a captured fused score.  Profiled, one request
+    holds one ``repro_torch.capture.replay`` range with the request's graph
+    launch inside it, inside the ``repro_torch.service.score`` range, and no
+    span is projected onto the device's timeline (a reader of the device's
+    trace would count the projection as a kernel).  Recorded, copy-in and
+    replay run once a request, the bytes copied in are counted by the source's
+    memory, and the port's launches a request equal the graph's launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import AnomalyService
+    from repro_torch.obs import trace
+
+    svc = AnomalyService(CAPTURE_ARCH, schedule="fused", device=cuda)
+    x = torch.randn(1, 9, 32, generator=torch.Generator().manual_seed(8))
+    svc.score(x)                                   # the capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        svc.score(x).cpu()
+    events = list(prof.events())
+
+    def host(name):
+        return [e.time_range for e in events
+                if e.name == name and e.device_type == DeviceType.CPU]
+
+    (root,), (replay,), (launch,) = (host("repro_torch.service.score"),
+                                     host("repro_torch.capture.replay"), host("cudaGraphLaunch"))
+    assert root.start <= replay.start <= launch.start <= launch.end <= replay.end <= root.end
+    assert [e.name for e in events if e.name.startswith("repro_torch.")
+            and e.device_type == DeviceType.CUDA] == []
+
+    (prog,) = svc.engine._graphs.programs.values()
+    sources = (x, x.pin_memory(), x.to(cuda))
+    before = sum(launch_counts().values())
+    with trace.PROGRAM.recording() as rec:
+        for src in sources:
+            svc.score(src)
+    assert sum(launch_counts().values()) - before == len(sources) * sum(prog.launches.values())
+    assert rec.requests == len(sources)
+    for stage in ("copy_in", "replay", "clone_out"):
+        assert rec.calls[f"repro_torch.capture.{stage}"] == len(sources)
+    assert "repro_torch.engine.capture" not in rec.calls
+    nbytes = x.numel() * x.element_size()
+    assert rec.h2d_bytes == {"pinned": nbytes, "pageable": nbytes, "device": nbytes}
+    assert {s.program for s in rec.last[-1][1:]} == {"score"}
+
+
+@pytest.mark.cuda
 def test_bind_after_capture_serves_the_new_params(cuda):
     """Binding params of the same layout copies them in place: the captured
     graph serves them, nothing is recaptured.  A new layout (f64 params on
