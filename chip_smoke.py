@@ -11,18 +11,27 @@ toolkit.  It
    bf16, with and without the PWL activations, and times it at the shapes
    of the main path (B=8192) and of the gateway's flushes (B=256) beside its
    bound, the plain version and ``torch.lstm_cell``, naming each launch's tile;
+3a. holds ``lstm_stack`` (the whole stack a launch, the ``fused`` forward at
+   small batches) to its plain version at lstm-ae-f64-d6 and lstm-ae-f32-d2,
+   B=1 and T=64 (the latency cells), the gateway's B=256 and short and
+   ragged windows, both activations, at K1's f32 bar, and times it at B=1
+   and B=256, T=64 beside its bound, the plain version and the captured K1
+   chain it replaces (whose output it must equal at that bar);
 4. drives the main path: ``AnomalyService("lstm-ae-f64-d6", schedule="fused")``
    at the ``serve_64`` shape (B=8192, T=64, F=64) — calibrate, then three
-   scoring requests — and checks that K1 ran 3 x 6 x 64 times, that the
+   scoring requests — and checks that the kernels the ``fused`` dispatch
+   picks ran (``fused_launches``: K1 3 x 6 x 64 times at B=8192, one
+   ``lstm_stack`` a request up to ``stack_max_batch`` rows), that the
    scores agree with the ``sequential`` and ``wavefront`` schedules on the
    card and with the CPU path, and times each schedule; then the same at a
-   smaller batch for ``lstm-ae-f32-d2``.  Each engine captures its
+   smaller batch for ``lstm-ae-f32-d2`` (B=1024) and at the latency cells'
+   shape for ``lstm-ae-f64-d6`` (B=1), both on ``lstm_stack``.  Each engine captures its
    programs into CUDA graphs (``engine/capture.py``); the fused path is
    also run eagerly (``EngineConfig(jit=False)``) in the same run, and the
    two are compared: ms per request from the host and with the input on
-   the card, the K1 launches inside the graph (6 x 64), and the scores
-   (within 1e-5 / 1e-6, and whether bit-equal); at the end of the run
-   (11.) one ``torch.profiler`` pass per request each gives the launch
+   the card, the launches inside the graph (6 x 64 of K1 at B=8192), and the scores
+   (within 1e-5 / 1e-6, and whether bit-equal); in 11. one
+   ``torch.profiler`` pass per request each gives the launch
    calls the host makes and the device's busy time;
 5. streams a few timesteps and checks them against batch scoring, then
    drives the Engine's per-call params on the main path's engine (``[with]``
@@ -55,10 +64,11 @@ toolkit.  It
    streams churned through the pool (16 sampled streams checked against
    solo ``stream_step``), then 512 one-shot windows of lengths 8-64, twice
    (each score checked against an eager engine's ``score_masked`` of the
-   window alone, and K1's launches against 6 x bucket_T per flush).  The
-   pool step and the flushes are captured programs: the churn must capture
-   the pool step once and never again, the first one-shot pass captures
-   one graph per bucket (6 x bucket_T K1 launches inside each) and the
+   window alone, and the kernel launches against the ``fused`` dispatch's
+   for each flush's shape: one ``lstm_stack`` a flush of at most 256 rows).
+   The pool step and the flushes are captured programs: the churn must
+   capture the pool step once and never again, the first one-shot pass
+   captures one graph per bucket (the dispatch's launches inside each) and the
    second only replays, and the pool step is timed captured and eager (a
    second gateway on an eager engine);
 8a. drives that gateway over the socket transport: a ``GatewayServer`` on
@@ -75,9 +85,10 @@ toolkit.  It
    session by its token: the finished windows must be bit-equal to an
    uninterrupted in-process run, and the restores must cause no
    recapture; 16 tickets that only the drain can flush, all answered; one
-   ``GET /metrics``.  K1's launches over the phase must be 6 x 64 per
-   flush, and at the end of the run (11.) one flush over the socket under
-   the profiler must show the device running 6 x 64 K1 kernels, after a
+   ``GET /metrics``.  The launches over the phase must be the dispatch's
+   per flush (one ``lstm_stack``), and in 11. one
+   flush over the socket under the profiler must show the device running
+   that kernel, after a
    profiled repeat of the bp1 pass that gives the device's idle share
    over it and its windows per flush;
 8b. the worker front and the launchers (``[workers]`` lines), then the
@@ -138,12 +149,19 @@ toolkit.  It
    subprocess; phi-3-vision-4.2b's vision-stub prefill at full width, cut
    to 2 layers, card against CPU, its decode cache sized to S + 576;
 11. profiles one fused request of step 4 per engine, captured and eager
-   (its profiler passes follow every capture of the run):
-   the K1 kernels the device ran, by name, must be 6 x 64 in each, and the
-   main path's launch count must be 3 requests x that figure; then splits
-   one fit step of 5a into its parts, each timed alone (the host's batch,
-   its copy to the card, the train step) with one profiler pass over the
-   train step; and profiles a bp1 pass and one socket flush of 8a.
+   (before 10a: after the LM phase the profiler's trace of a pass drops
+   its first three device events, which on ``lstm_stack`` hold the kernel):
+   the kernels the ``fused`` dispatch picks, by name, must run on the
+   device as often as counted in each (6 x 64 of K1 at B=8192, one
+   ``lstm_stack`` for lstm-ae-f32-d2 at B=1024 and lstm-ae-f64-d6 at B=1),
+   and the main path's launch count must be 3 requests x that figure;
+   profiles a bp1 pass and one socket flush of 8a (also before 10a); then,
+   after 10a, scores a request no graph has scored through each captured
+   ``lstm_stack`` graph of step 4 against the sequential schedule, and
+   profiles it behind sleep kernels, where the stack kernel must show; then
+   splits one fit step of 5a into its parts, each timed alone (the host's
+   batch, its copy to the card, the train step) with one profiler pass over
+   the train step.
 12. trains the dense LM at full width, last (``[lm-train]`` lines; its
    profiled train step records over 10,000 kernels, and 11's K1 counts
    are not to follow it): one
@@ -292,7 +310,7 @@ toolkit.  It
    (the K1 launches x ``k1_bound``, ``lm_prefill_bound``,
    ``rwkv_serve_bound``) and the ms the phases above measured.
 
-The build fails if ``ptxas`` reports a spill in any of the four kernels.  Any failed
+The build fails if ``ptxas`` reports a spill in any of the five kernels.  Any failed
 check raises and the script exits non-zero; without a GPU, or
 without the rest of the repository beside it, it exits non-zero at once.
 The line before the last is ``{"kernels": [...]}`` and the last line is
@@ -340,6 +358,15 @@ RAGGED_B = 37
 K1_SOURCE = "src/repro_torch/kernels/csrc/lstm_cell.cu"
 K1_REPLACES = "src/repro/kernels/lstm_cell.py:79"
 K1_KERNEL = "lstm_cell_kernel"   # its __global__ function's name, as the profiler sees it
+STACK_KERNEL = "lstm_stack_kernel"   # the whole stack's, the fused forward at small batches
+STACK_SOURCE = "src/repro_torch/kernels/csrc/lstm_stack.cu"
+STACK_REPLACES = ("none: the fused schedule's D x T launches of src/repro/kernels/lstm_cell.py:79 "
+                  "at a small batch, on the wavefront of src/repro/core/temporal.py")
+STACK_ARCHS = ("lstm-ae-f64-d6", "lstm-ae-f32-d2")   # the latency cells' configurations
+STACK_T = 64                 # the latency cells' window
+# sleep kernels queued ahead of a profiled request after the LM phase, where
+# the profiler's trace of a pass drops its first three device events (step 11)
+PROFILE_LEAD = 8
 K2_SOURCE = "src/repro_torch/kernels/csrc/lstm_seq.cu"
 K2_REPLACES = "src/repro/kernels/lstm_seq.py:86"
 K2_T = 64                   # timesteps per K2 launch at the main path's shape
@@ -378,7 +405,7 @@ RWKV_B_SWEEP = (8, 16, 32, 64)
 PHI_B, PHI_S, PHI_H, PHI_KV_H, PHI_HD = 4, 4096, 24, 8, 128
 
 # kernels whose ptxas report must show no spill
-NO_SPILL = ("lstm_cell", "lstm_seq", "wkv6", "flash_attention")
+NO_SPILL = ("lstm_cell", "lstm_seq", "wkv6", "flash_attention", "lstm_stack")
 
 FIT_ARCH = "lstm-ae-f64-d6"
 FIT_STEPS, FIT_HELD = 20, 3
@@ -389,6 +416,8 @@ FIT_LOSS_RTOL, FIT_PARAM_ATOL = 1e-5, 1e-5
 GATEWAY_ARCH = "lstm-ae-f64-d6"
 GATEWAY_CAPACITY = 1024
 GATEWAY_MAX_BATCH = 256
+# the latency cells' shape, the gateway's flush, and short and ragged windows
+STACK_CASES = ((1, 64), (GATEWAY_MAX_BATCH, 64), (1, 1), (2, 7), (5, 64), (RAGGED_B, 16))
 # K1 is held to its plain version at the gateway's flush width as well
 K1_BATCHES = (1, RAGGED_B, GATEWAY_MAX_BATCH, 8192)
 GATEWAY_STREAMS = 2048
@@ -653,6 +682,39 @@ def host_ms(torch, fn, iters: int = 200) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+
+def meta_layers(torch, cfg) -> list:
+    """An LSTM-AE configuration's layers {wx, wh, b} on the meta device."""
+    return [{"wx": torch.empty(i, 4 * h, device="meta"), "wh": torch.empty(h, 4 * h, device="meta"),
+             "b": torch.empty(4 * h, device="meta")}
+            for i, h in zip(cfg.lstm_ae.layer_input_sizes(), cfg.lstm_ae.layer_sizes())]
+
+
+def fused_launches(torch, layers, t_len: int, bsz: int) -> dict:
+    """The kernel launches of one ``fused`` forward of ``layers`` at (T, B),
+    as the schedule's dispatch picks them (``schedules.fused_launches``): one
+    ``lstm_stack`` at a small batch, depth x T of K1 above the crossover."""
+    from repro_torch.engine.schedules import fused_launches as dispatch
+
+    meta = [{k: v.to("meta") for k, v in layer.items()} for layer in layers]
+    return dispatch(meta, torch.empty(t_len, bsz, meta[0]["wx"].shape[0], device="meta"))
+
+
+def add_counts(total: dict, counts: dict, times: int = 1) -> dict:
+    """``total`` plus ``times`` x ``counts``, by kernel."""
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + times * n
+    return total
+
+
+def launched(counts: dict) -> dict:
+    """``launch_counts()`` without the kernels that did not launch."""
+    return {k: n for k, n in counts.items() if n}
+
+
+# the profiler's name of each kernel of the fused forward
+DEVICE_KERNEL = {"lstm_cell": K1_KERNEL, "lstm_stack": STACK_KERNEL}
+
 def cell_inputs(torch, b, in_dim, hidden, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -843,7 +905,8 @@ def drive_k2_path(torch, svc, series, results, card) -> int:
     dt = time.perf_counter() - t0
     counts = launch_counts()
     depth = len(svc.params["layers"])
-    if counts != {"lstm_cell": 0, "lstm_seq": depth, "wkv6": 0, "flash_attention": 0}:
+    if counts != {"lstm_cell": 0, "lstm_seq": depth, "wkv6": 0, "flash_attention": 0,
+                  "lstm_stack": 0}:
         raise AssertionError(f"K2 path launched {counts}, expected {depth} lstm_seq launches")
     want = svc.engine.reconstruct({"series": series})
     torch.testing.assert_close(ys.transpose(0, 1), want, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
@@ -908,8 +971,8 @@ def profile_pool_step(torch, gw, windows, card) -> dict:
 
 def drive_gateway(torch, results, card) -> int:
     """The gateway at full width over the fused schedule: pooled streaming
-    with churn, then micro-batched one-shot scoring.  Returns K1's launches
-    in the one-shot phase."""
+    with churn, then micro-batched one-shot scoring.  Returns the kernel
+    launches of the one-shot phase."""
     import numpy as np
 
     from repro_torch.data import TimeseriesConfig, make_batch
@@ -988,21 +1051,22 @@ def drive_gateway(torch, results, card) -> int:
     rng = np.random.default_rng(12)
     lens = rng.integers(8, t_len + 1, size=GATEWAY_WINDOWS)
     requests = [windows[i % GATEWAY_STREAMS, :n] for i, n in enumerate(lens)]
-    flush_t = []
+    flush_t, flush_b = [], []
     real = gw.engine.score_masked
 
-    def recorded(batch):   # bucket_T of every flush, to predict K1's launches
+    def recorded(batch):   # bucket_T and rows of every flush, to predict the launches
         flush_t.append(batch["series"].shape[1])
+        flush_b.append(batch["series"].shape[0])
         return real(batch)
 
     gw.engine.score_masked = recorded
     graphs = gw.engine._graphs
-    depth = len(svc.params["layers"])
 
     def one_pass() -> dict:
-        """Every request through submit/pump/flush; its flushes' K1 launches,
-        captures and replays."""
+        """Every request through submit/pump/flush; its flushes' kernel
+        launches, captures and replays."""
         flush_t.clear()
+        flush_b.clear()
         gw.telemetry.reset()
         captures, replays = graphs.captures, graphs.replays
         torch.cuda.synchronize()
@@ -1014,14 +1078,17 @@ def drive_gateway(torch, results, card) -> int:
             gw.pump()
         gw.flush()
         dt = time.perf_counter() - t0
-        k1 = launch_counts()["lstm_cell"]
+        got = launched(launch_counts())
+        want: dict = {}
+        for tb, rows in zip(flush_t, flush_b):
+            add_counts(want, fused_launches(torch, svc.params["layers"], tb, rows))
         s = gw.stats()
-        if k1 != depth * sum(flush_t) or len(flush_t) != s["counters"]["batch.flushes"]:
-            raise AssertionError(f"K1 launched {k1} times over {len(flush_t)} flushes "
+        if got != want or len(flush_t) != s["counters"]["batch.flushes"]:
+            raise AssertionError(f"kernels launched {got} over {len(flush_t)} flushes "
                                  f"(telemetry {s['counters']['batch.flushes']}), expected "
-                                 f"{depth * sum(flush_t)}")
+                                 f"{want} by the fused dispatch")
         return {"wall_s": dt, "flushes": len(flush_t), "bucket_t": list(flush_t),
-                "k1_launches": k1, "captures": graphs.captures - captures,
+                "kernel_launches": got, "captures": graphs.captures - captures,
                 "replays": graphs.replays - replays, "tickets": tickets,
                 "requests_per_s": s["requests_per_s"], "batch_fill": s["batch_fill_ratio"],
                 "p50_ms": s["latency_ms"]["p50"], "p95_ms": s["latency_ms"]["p95"],
@@ -1031,14 +1098,16 @@ def drive_gateway(torch, results, card) -> int:
     first, steady = one_pass(), one_pass()
     del gw.engine.score_masked
     buckets = sorted(set(steady["bucket_t"]))
-    in_graph = {key[1][0][0][1]: p.launches.get("lstm_cell", 0)
+    in_graph = {key[1][0][0][:2]: p.launches
                 for key, p in graphs.programs.items() if key[0] == "score_masked"}
     if (first["captures"] != len(buckets) or first["captures"] + first["replays"] !=
             first["flushes"] or steady["captures"] or steady["replays"] != steady["flushes"]
-            or any(in_graph[tb] != depth * tb for tb in buckets)):
+            or sorted(t for _, t in in_graph) != buckets
+            or any(n != fused_launches(torch, svc.params["layers"], t, b)
+                   for (b, t), n in in_graph.items())):
         raise AssertionError(f"flushes over buckets {buckets}: first pass {first['captures']} "
                              f"captures, {first['replays']} replays; second {steady['captures']} "
-                             f"captures, {steady['replays']} replays; K1 inside {in_graph}")
+                             f"captures, {steady['replays']} replays; kernels inside {in_graph}")
     worst = 0.0
     for run in (first, steady):
         for w, ticket in zip(requests, run.pop("tickets")):
@@ -1048,21 +1117,22 @@ def drive_gateway(torch, results, card) -> int:
             np.testing.assert_allclose(ticket.score, direct, rtol=SCHEDULE_RTOL,
                                        atol=SCHEDULE_ATOL)
             worst = max(worst, abs(ticket.score - direct))
+    in_graph = {f"{b}x{t}": n for (b, t), n in in_graph.items()}
     out["oneshot"] = {"windows": GATEWAY_WINDOWS, "first_pass": first, **steady,
-                      "k1_in_graph": in_graph, "max_abs_diff_vs_direct": worst}
+                      "kernels_in_graph": in_graph, "max_abs_diff_vs_direct": worst}
     results["gateway"] = out
     for name, run in (("first pass (captures)", first), ("second pass", steady)):
         log(f"[gateway] {GATEWAY_WINDOWS} one-shot windows (T in 8..{t_len}, buckets {buckets}), "
             f"{name}: {run['flushes']} flushes of max_batch={GATEWAY_MAX_BATCH}, "
             f"{run['requests_per_s']:,.0f} requests/s over {run['wall_s']:.3f} s, batch fill "
             f"{run['batch_fill']:.3f}, p50 {run['p50_ms']:.2f} ms, p95 {run['p95_ms']:.2f} ms, "
-            f"flush compute p50 {run['compute_ms_p50']:.2f} ms; K1 launches {run['k1_launches']} "
-            f"= {depth} x sum of bucket_T, from {run['captures']} captures and {run['replays']} "
-            f"graph replays [{card}]")
-    log(f"[gateway] K1 inside each bucket's graph {in_graph}; every score of both passes agrees "
+            f"flush compute p50 {run['compute_ms_p50']:.2f} ms; kernel launches "
+            f"{run['kernel_launches']}, the fused dispatch's by flush shape, from "
+            f"{run['captures']} captures and {run['replays']} graph replays [{card}]")
+    log(f"[gateway] kernels inside each (rows x bucket_T) graph {in_graph}; every score of both passes agrees "
         f"with the eager engine's score_masked of its window alone (max abs diff {worst:.3g}) "
         f"[{card}]")
-    return steady["k1_launches"]
+    return sum(steady["kernel_launches"].values())
 
 
 def in_threads(fn, groups) -> float:
@@ -1108,8 +1178,8 @@ def drive_transport(torch, results, card):
     ``MetricsServer``; one-shot windows over bp1 and JSON, socket streams,
     a snapshot, dropped connections, a restart on the same store with
     resume by token, and a drain that must answer every pending ticket.
-    Returns ``(gateway, windows)`` for the profiled flush at the end of the
-    run (its profiler pass must follow every capture)."""
+    Returns ``(gateway, windows)`` for the profiled flush after the LSTM-AE
+    phases (its profiler pass must follow their captures)."""
     import tempfile
     import urllib.request
 
@@ -1124,7 +1194,7 @@ def drive_transport(torch, results, card):
     from repro_torch.obs import Histogram, MetricsServer
 
     svc = AnomalyService(GATEWAY_ARCH, schedule="fused", device="cuda", seed=0)
-    feats, t_len, depth = svc.features, 64, len(svc.params["layers"])
+    feats, t_len = svc.features, 64
     data_cfg = TimeseriesConfig(features=feats, seq_len=t_len, batch=GATEWAY_STREAMS,
                                 anomaly_rate=0.05, seed=7)
     windows = make_batch(data_cfg, 0)[0].numpy()                 # (N, T, F), as drive_gateway
@@ -1303,13 +1373,18 @@ def drive_transport(torch, results, card):
         answered = [c.collect(r)["score"] for c, rids in zip(drain_clients, pending) for r in rids]
         for c in drain_clients:
             c.close()
-    k1 = launch_counts()["lstm_cell"]
+    kernels = launched(launch_counts())
     flushes = int(gw.stats()["counters"]["batch.flushes"] + gw_b.stats()["counters"]["batch.flushes"])
-    if k1 != depth * t_len * flushes or score_captures(svc) != captures_oneshot:
-        raise AssertionError(f"K1 launched {k1} times over {flushes} flushes of bucket {t_len}, "
-                             f"expected {depth * t_len * flushes}; flush captures "
-                             f"{captures_oneshot} after the one-shot passes, "
-                             f"{score_captures(svc)} at the end")
+    # every flush holds 1 to max_batch windows of bucket t_len, one kernel choice for all
+    per_flush = fused_launches(torch, svc.params["layers"], t_len, GATEWAY_MAX_BATCH)
+    if per_flush != fused_launches(torch, svc.params["layers"], t_len, 1):
+        raise AssertionError(f"the fused dispatch changes kernel between 1 and "
+                             f"{GATEWAY_MAX_BATCH} rows; count the flushes by size")
+    want = add_counts({}, per_flush, flushes)
+    if kernels != want or score_captures(svc) != captures_oneshot:
+        raise AssertionError(f"kernels launched {kernels} over {flushes} flushes of bucket {t_len}, "
+                             f"expected {want}; flush captures {captures_oneshot} after the "
+                             f"one-shot passes, {score_captures(svc)} at the end")
 
     if queued != TRANSPORT_DRAIN_TICKETS or len(answered) != TRANSPORT_DRAIN_TICKETS:
         raise AssertionError(f"{queued} tickets queued before the drain, {len(answered)} answered")
@@ -1332,7 +1407,7 @@ def drive_transport(torch, results, card):
             worst = max(worst, abs(float(got[sid, t]) - float(errs[0])))
     out.update(stream_resume_s=resume_s, replayed=sum(replayed), restore_recaptures=gw_b.pool.captures - 1,
                resumed_bit_equal=True, max_abs_diff_vs_solo=worst, drain_tickets=len(answered),
-               k1_launches=k1, flushes=flushes)
+               kernel_launches=kernels, flushes=flushes)
     results["transport"] = out
     o = out["oneshot"]
     log(f"[transport] {GATEWAY_ARCH} [fused] capacity={GATEWAY_CAPACITY}, "
@@ -1368,8 +1443,8 @@ def drive_transport(torch, results, card):
         f"(recaptures caused by {n_sess} restores: 0) [{card}]")
     log(f"[transport] drain: {TRANSPORT_DRAIN_TICKETS} tickets queued (max_wait_ms 3.6e6), "
         f"all answered by stop_in_thread; /metrics served the pool_step_ms, request_ms and "
-        f"queue series; K1 launches over the phase {k1} = {depth} x {t_len} x {flushes} "
-        f"flushes [{card}]")
+        f"queue series; kernel launches over the phase {kernels} = {flushes} flushes x {per_flush} "
+        f"[{card}]")
     return gw, oneshot
 
 
@@ -1413,7 +1488,7 @@ def drive_workers(torch, results, card) -> None:
     """The gateway at full width behind the multi-worker front: worker
     processes on the one card, each with its own CUDA context and captured
     bucket graph, clients in this process.  Scores bit-equal to an
-    in-process gateway, K1 per worker, throughput at 1 and 2 workers, a
+    in-process gateway, kernel launches per worker, throughput at 1 and 2 workers, a
     SIGKILL with durable resume, a recalibration fan-out, priority
     shedding, the control loop (knobs and a scale-down, no new capture),
     the shutdown; then ``serve --workers 2`` from a cold kernel build with
@@ -1437,7 +1512,12 @@ def drive_workers(torch, results, card) -> None:
     t_phase = time.perf_counter()
     cfg = get_config(GATEWAY_ARCH)
     svc = AnomalyService(GATEWAY_ARCH, schedule="fused", device="cuda", seed=0)
-    feats, t_len, depth = svc.features, 64, len(svc.params["layers"])
+    feats, t_len = svc.features, 64
+    # a worker's flushes hold 1 to max_batch windows of bucket t_len
+    per_flush = fused_launches(torch, svc.params["layers"], t_len, GATEWAY_MAX_BATCH)
+    if per_flush != fused_launches(torch, svc.params["layers"], t_len, 1):
+        raise AssertionError(f"the fused dispatch changes kernel between 1 and "
+                             f"{GATEWAY_MAX_BATCH} rows; count the flushes by size")
     data_cfg = TimeseriesConfig(features=feats, seq_len=t_len, batch=GATEWAY_STREAMS,
                                 anomaly_rate=0.05, seed=7)
     windows = make_batch(data_cfg, 0)[0].numpy()                 # (N, T, F), as drive_gateway
@@ -1718,13 +1798,13 @@ def drive_workers(torch, results, card) -> None:
                                                    "sessions_lost")}
         if summary["dropped_tickets"] or summary["clean_exits"] != summary["workers"]:
             raise AssertionError(f"shutdown: {out['shutdown']}")
-        k1 = {}
+        launches_by_pid = {}
         for name in os.listdir(reports):
             with open(os.path.join(reports, name)) as f:
                 rep = json.load(f)
-            k1[rep["pid"]] = rep["launches"]["lstm_cell"]
-        out["k1_per_worker"] = [{"pid": pid, "k1_launches": n, "flushes": flushes_at_exit[pid]}
-                                for pid, n in sorted(k1.items())]
+            launches_by_pid[rep["pid"]] = launched(rep["launches"])
+        out["launches_per_worker"] = [{"pid": pid, "launches": n, "flushes": flushes_at_exit[pid]}
+                                      for pid, n in sorted(launches_by_pid.items())]
         clean = len(out["control"]["scale_down"]) + summary["clean_exits"]
     out["phase_s"] = time.perf_counter() - t_phase
     results["workers"] = out
@@ -1775,17 +1855,19 @@ def drive_workers(torch, results, card) -> None:
     s = out["shutdown"]
     log(f"[workers] shutdown: {s['clean_exits']}/{s['workers']} workers exited cleanly, "
         f"{s['dropped_tickets']} dropped tickets, restarts={s['restarts']}, sessions_lost="
-        f"{s['sessions_lost']}; K1 launches per worker (pid: launches = 6 x {t_len} x flushes): "
-        + ", ".join(f"{r['pid']}: {r['k1_launches']} = 384 x {r['flushes']}"
-                    for r in out["k1_per_worker"]) + f"; phase {out['phase_s']:.1f} s [{card}]")
-    if len(out["k1_per_worker"]) != clean or any(
-            r["k1_launches"] != depth * t_len * r["flushes"] or not r["flushes"]
-            for r in out["k1_per_worker"]):
-        raise AssertionError(f"K1 per worker ({clean} clean exits): {out['k1_per_worker']}")
+        f"{s['sessions_lost']}; kernel launches per worker (pid: launches = flushes x "
+        f"{per_flush}, the fused dispatch's at bucket {t_len}): "
+        + ", ".join(f"{r['pid']}: {r['launches']} = {r['flushes']} x {per_flush}"
+                    for r in out["launches_per_worker"]) + f"; phase {out['phase_s']:.1f} s [{card}]")
+    if len(out["launches_per_worker"]) != clean or any(
+            r["launches"] != add_counts({}, per_flush, r["flushes"]) or not r["flushes"]
+            for r in out["launches_per_worker"]):
+        raise AssertionError(f"launches per worker ({clean} clean exits): "
+                             f"{out['launches_per_worker']}")
 
 
 def drive_worker_launchers(torch, results, card) -> None:
-    """``serve --workers 2`` in a subprocess from a cold K1 build (both
+    """``serve --workers 2`` in a subprocess from a cold kernel build (both
     workers build it at once) with a fit in each worker, and its SIGTERM
     drain; while its workers boot, the training launcher twice (the second
     run resumes) and ``run_with_recovery`` on the card with two injected
@@ -1812,9 +1894,12 @@ def drive_worker_launchers(torch, results, card) -> None:
     out = {}
     cfg = get_config(GATEWAY_ARCH)
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    # a cold start: the workers find no K1 library and build it together
-    for path in glob.glob(str(_build.library_path("lstm_cell").with_suffix("")) + "*"):
-        os.remove(path)
+    # a cold start: the workers find no library of the fused forward's kernels
+    # and build the one their flushes (at most 64 rows of T=64) take together
+    (kernel,) = fused_launches(torch, meta_layers(torch, cfg), 64, 64)
+    for name in ("lstm_cell", "lstm_stack"):
+        for path in glob.glob(str(_build.library_path(name).with_suffix("")) + "*"):
+            os.remove(path)
     t_serve = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--workers", "2", "--arch",
@@ -1895,13 +1980,13 @@ def drive_worker_launchers(torch, results, card) -> None:
     if proc.returncode != 0 or not drained or \
             "2/2 workers exited cleanly, 0 dropped tickets" not in drained[0]:
         raise AssertionError(f"serve --workers 2 drain (rc {proc.returncode}): {rest[-2000:]}")
-    if not _build.library_path("lstm_cell").is_file():
-        raise AssertionError("the workers' cold build left no K1 library")
+    if not _build.library_path(kernel).is_file():
+        raise AssertionError(f"the workers' cold build left no {kernel} library")
     out.update(serve_ready_line=ready.strip(), serve_drained_line=drained[0],
                fit_thresholds=thresholds, fit_thresholds_bit_equal=len(set(thresholds)) == 1,
                fit_distinct_scores=len(scores))
     results["worker_launchers"] = out
-    log(f"[workers] serve: {ready.strip()} (cold K1 build in both workers, a "
+    log(f"[workers] serve: {ready.strip()} (cold {kernel} build in both workers, a "
         f"{WORKERS_FIT_STEPS}-step fit on the card in each; ready after "
         f"{out['serve_ready_s']:.1f} s, the runs below beside it) [{card}]")
     log(f"[workers] the workers' fits from one seed: thresholds {thresholds} (bit-equal: "
@@ -2213,11 +2298,14 @@ def profile_transport_flush(torch, gw, oneshot, results, card) -> None:
     new server, under the profiler: the bp1 pass of the phase (every window
     in frames of 64) once plain and once profiled, for the device's idle
     share over the pass and the windows per flush; then one flush, a bp1
-    frame of max_batch windows, and the K1 kernels the device ran for it."""
+    frame of max_batch windows, and the kernels of the fused forward the
+    device ran for it (one ``lstm_stack`` under the crossover)."""
     from repro_torch.gateway.client import GatewayClient
     from repro_torch.gateway.server import GatewayServer
 
-    depth, t_len = len(gw.engine.params["layers"]), oneshot[0].shape[0]
+    t_len = oneshot[0].shape[0]
+    want = fused_launches(torch, gw.engine.params["layers"], t_len, GATEWAY_MAX_BATCH)
+    ((kernel, per_flush),) = want.items()
     server = GatewayServer(gw)
     host, port = server.start_in_thread()
     try:
@@ -2236,7 +2324,7 @@ def profile_transport_flush(torch, gw, oneshot, results, card) -> None:
             # each profiled pass is one flush
             prof = host_launches(torch, lambda: c.score_many(oneshot[:GATEWAY_MAX_BATCH],
                                                              windows_per_frame=GATEWAY_MAX_BATCH),
-                                 depth * t_len)
+                                 per_flush, kernel=DEVICE_KERNEL[kernel])
             flushed = (gw.stats()["counters"]["batch.flushes"] - flushes) / prof["profile_attempts"]
     finally:
         server.stop_in_thread()
@@ -2245,12 +2333,11 @@ def profile_transport_flush(torch, gw, oneshot, results, card) -> None:
                 requests_per_s=len(oneshot) / (busy["wall_ms"] / 1e3),
                 plain_requests_per_s=len(oneshot) / plain_s)
     results["transport"]["bp1_pass_profiled"] = busy
-    in_graph = [p.launches.get("lstm_cell", 0) for key, p in gw.engine._graphs.programs.items()
-                if key[0] == "score_masked"]
-    if flushed != 1 or prof["k1_device_events"] != depth * t_len or in_graph != [depth * t_len]:
-        raise AssertionError(f"one socket flush: {flushed} flushes, {prof['k1_device_events']} K1 "
-                             f"kernels on the device, {in_graph} inside the graph; expected "
-                             f"{depth * t_len}")
+    in_graph = launches_in_graph(gw.engine, "score_masked")
+    if flushed != 1 or prof["kernel_device_events"] != per_flush or in_graph != [want]:
+        raise AssertionError(f"one socket flush: {flushed} flushes, "
+                             f"{prof['kernel_device_events']} {kernel} kernels on the device, "
+                             f"{in_graph} inside the graph; expected {want}")
     results["transport"]["profiled_flush"] = prof
     log(f"[transport] the bp1 pass ({busy['windows']} windows in frames of 64) under the "
         f"profiler: {busy['wall_ms']:.3f} ms, the device busy {busy['device_busy_ms']:.3f} ms "
@@ -2260,8 +2347,8 @@ def profile_transport_flush(torch, gw, oneshot, results, card) -> None:
         f"{busy['requests_per_s']:,.0f} requests/s profiled, {busy['plain_requests_per_s']:,.0f} "
         f"in the plain pass just before [{card}]")
     log(f"[transport] one flush over the socket (a bp1 frame of {GATEWAY_MAX_BATCH} windows) "
-        f"under the profiler: the device ran {prof['k1_device_events']} K1 kernels = {depth} x "
-        f"{t_len}, as the flush graph records; device busy {prof['device_busy_ms']:.3f} ms "
+        f"under the profiler: the device ran {prof['kernel_device_events']} {kernel} kernel(s), "
+        f"as the flush graph records ({want}); device busy {prof['device_busy_ms']:.3f} ms "
         f"[{card}]")
 
 
@@ -2428,7 +2515,8 @@ def drive_k3_path(torch, results, card) -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = launch_counts()
-    if counts != {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 3, "flash_attention": 0}:
+    if counts != {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 3, "flash_attention": 0,
+                  "lstm_stack": 0}:
         raise AssertionError(f"K3 path launched {counts}, expected 3 wkv6 launches")
     if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
         raise AssertionError("K3 path produced non-finite values")
@@ -2668,7 +2756,8 @@ def drive_k4_path(torch, results, card) -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = launch_counts()
-    if counts != {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 0, "flash_attention": 1}:
+    if counts != {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 0, "flash_attention": 1,
+                  "lstm_stack": 0}:
         raise AssertionError(f"K4 path launched {counts}, expected 1 flash_attention launch")
     if out.shape != q.shape or out.dtype != q.dtype or not torch.isfinite(out.float()).all():
         raise AssertionError(f"K4 path gave {out.shape} {out.dtype} or non-finite values")
@@ -2743,20 +2832,155 @@ def time_k1(torch, b: int, results, card, tag: str = "") -> dict:
     return total
 
 
-def host_launches(torch, fn, want_k1: int | None = None, passes: int = 3) -> dict:
+def stack_case(torch, arch: str, seed: int) -> list:
+    """An LSTM-AE configuration's layers {wx, wh, b} on the card, drawn as
+    the service draws them."""
+    from repro_torch.config import get_config
+    from repro_torch.core.lstm import init_lstm_ae
+
+    params = init_lstm_ae(torch.Generator().manual_seed(seed), get_config(arch), device="cuda")
+    return [dict(layer) for layer in params["layers"]]
+
+
+def k1_chain(torch, layers, xs):
+    """The ``fused`` forward's K1 path: one ``lstm_cell_op`` a (layer,
+    timestep), layer by layer, from zero state."""
+    from repro_torch.kernels.lstm_cell import pack_weights
+    from repro_torch.kernels.ops import lstm_cell_op
+
+    ys = xs
+    t_len, bsz, _ = xs.shape
+    for layer in layers:
+        packed = pack_weights(layer)
+        hidden = packed[1].shape[1]
+        out = torch.empty((t_len, bsz, hidden), dtype=xs.dtype, device=xs.device)
+        h = torch.zeros((bsz, hidden), dtype=xs.dtype, device=xs.device)
+        c = torch.zeros((bsz, hidden), dtype=torch.float32, device=xs.device)
+        for t in range(t_len):
+            h, c = lstm_cell_op(packed, ys[t], h, c, h_out=out[t], c_out=c)
+        ys = out
+    return ys
+
+
+def captured(torch, fn):
+    """``fn`` captured into a CUDA graph after one warm-up call on a side
+    stream; returns (the graph, its output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def check_stack(torch, results) -> None:
+    """The whole-stack kernel against its plain version (the K1 chain's
+    function) at the latency cells' configurations and shape (B=1, T=64),
+    the gateway's flush (B=256) and short and ragged windows, both
+    activations, at K1's f32 bar; one counted launch and a synchronize
+    each."""
+    from repro_torch.kernels.lstm_stack import lstm_stack_cuda, lstm_stack_plain
+    from repro_torch.kernels.ops import launch_counts
+
+    err, n = 0.0, 0
+    for arch in STACK_ARCHS:
+        layers = stack_case(torch, arch, seed=10)
+        feats = layers[0]["wx"].shape[0]
+        for b, t_len in STACK_CASES:
+            for pwl in (False, True):
+                xs = torch.randn(t_len, b, feats, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(n))
+                before = launch_counts()["lstm_stack"]
+                got = lstm_stack_cuda(xs, layers, pwl=pwl)
+                torch.cuda.synchronize()
+                if launch_counts()["lstm_stack"] != before + 1:
+                    raise AssertionError(f"[stack] {arch} B={b} T={t_len}: not one counted launch")
+                want = lstm_stack_plain(xs, layers, pwl=pwl)
+                if got.shape != want.shape or got.dtype != torch.float32:
+                    raise AssertionError(f"[stack] {arch} B={b} T={t_len}: {got.shape} "
+                                         f"{got.dtype}, expected {want.shape} float32")
+                torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+                err = max(err, float((got - want).abs().max()))
+                n += 1
+    results["stack_checks"] = n
+    results["stack_max_abs_err_f32"] = err
+    log(f"[stack] {n} checks against the plain version passed: {', '.join(STACK_ARCHS)} x "
+        f"(B, T) in {list(STACK_CASES)} x pwl, f32: max abs err {err:.3g} (tol {F32_TOL})")
+
+
+def time_stack(torch, results, card) -> dict:
+    """The whole-stack kernel at the latency cells' configurations, B=1 and
+    the gateway's B=256, T=64, f32: device time a launch beside its bound
+    (the operations at the FP32 peak; the chain is T + D - 1 wavefront
+    steps), the host's time a call, the plain version, and the captured K1
+    chain it replaces at the same shape (D x T launches), whose output it
+    must equal within K1's f32 bar.  Rows land in ``results["stack_time"]``;
+    returns the lstm-ae-f64-d6 B=1 row (``f64d6.latency``'s shape)."""
+    from repro_torch.kernels.lstm_stack import (
+        layer_dims,
+        lstm_stack_cuda,
+        lstm_stack_plain,
+        lstm_stack_rows,
+    )
+
+    rows = []
+    for arch in STACK_ARCHS:
+        layers = stack_case(torch, arch, seed=11)
+        dims = layer_dims(layers)
+        for b in (1, GATEWAY_MAX_BATCH):
+            xs = torch.randn(STACK_T, b, dims[0][0], device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(b))
+            graph, chain_out = captured(torch, lambda: k1_chain(torch, layers, xs))
+            graph.replay()
+            stack_out = lstm_stack_cuda(xs, layers)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(stack_out, chain_out, rtol=F32_TOL, atol=F32_TOL)
+            flops = sum(8.0 * b * STACK_T * h * (i + h) for i, h in dims)
+            row = {
+                "arch": arch, "batch": b, "seq_len": STACK_T, "depth": len(dims),
+                "steps": STACK_T + len(dims) - 1, "k1_launches": len(dims) * STACK_T,
+                "rows_per_cluster": lstm_stack_rows(dims, STACK_T, b), "flop": flops,
+                "kernel_ms": device_ms(torch, lambda: lstm_stack_cuda(xs, layers)),
+                "kernel_host_ms": host_ms(torch, lambda: lstm_stack_cuda(xs, layers)),
+                "plain_ms": device_ms(torch, lambda: lstm_stack_plain(xs, layers), iters=2, reps=3),
+                "k1_chain_ms": device_ms(torch, graph.replay, iters=10, reps=3),
+                "max_abs_diff_vs_k1_chain": float((stack_out - chain_out).abs().max()),
+                "bound_ms": flops / PEAK_F32_FLOPS * 1e3, "bound_by": "operations",
+            }
+            row["library_ms"] = None   # cuDNN's multi-layer LSTM takes one width for every layer
+            row["step_us"] = row["kernel_ms"] * 1e3 / row["steps"]
+            rows.append(row)
+            del graph
+            log(f"[stack time] {arch} B={b} T={STACK_T} ({row['rows_per_cluster']} row(s) a "
+                f"cluster of {len(dims)} CTAs): kernel {row['kernel_ms']:.5f} ms (device; "
+                f"{row['step_us']:.3f} us a step of {row['steps']}), {row['kernel_host_ms']:.5f} ms "
+                f"a call in a Python loop; plain {row['plain_ms']:.3f} ms; the captured K1 chain "
+                f"({row['k1_launches']} launches) {row['k1_chain_ms']:.5f} ms, its output within "
+                f"{row['max_abs_diff_vs_k1_chain']:.3g}; bound {row['bound_ms']:.6f} ms "
+                f"(operations, {flops:.4g} FLOP at the FP32 peak) [{card}]")
+    results["stack_time"] = rows
+    return rows[0]
+
+
+def host_launches(torch, fn, want: int | None = None, passes: int = 3,
+                  kernel: str = K1_KERNEL) -> dict:
     """The launch calls (kernels, graphs, copies, memsets) the host makes in
     one ``fn()``, by CUDA API name, and the kernels, copies and memsets the
-    device ran with their summed time (ms), K1's among them by kernel name
-    (those inside a replayed graph too), from one ``torch.profiler`` pass.
+    device ran with their summed time (ms), those of ``kernel`` (a device
+    function's name: K1's by default) among them (those inside a replayed
+    graph too), from one ``torch.profiler`` pass.
 
     The trace is lossy: passes that agree with the launch count miss a few
     other device events (418 of a request's 421), and one pass recorded
-    none of a request's 128 K1 kernels.  So where ``want_k1`` is given, a
-    pass that does not see that many K1 kernels is logged and run again,
+    none of a request's 128 K1 kernels.  So where ``want`` is given, a
+    pass that does not see that many of ``kernel`` is logged and run again,
     ``fn`` included, at most ``passes`` times in all, as ``device_kernels``
     does.  The result is the last pass's, with ``profile_attempts`` and each
-    missed pass's (device events, K1 events) in ``lost_passes``; the
-    caller's check reads it, so a K1 kernel that never runs still fails."""
+    missed pass's (device events, kernel events) in ``lost_passes``; the
+    caller's check reads it, so a kernel that never runs still fails."""
     from torch.profiler import ProfilerActivity, profile
 
     lost = []
@@ -2766,29 +2990,28 @@ def host_launches(torch, fn, want_k1: int | None = None, passes: int = 3) -> dic
             fn()
             torch.cuda.synchronize()
         calls: dict = {}
-        device, k1, busy_us = 0, 0, 0.0
+        device, seen, busy_us = 0, 0, 0.0
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 device += 1
-                k1 += K1_KERNEL in e.name
+                seen += kernel in e.name
                 busy_us += e.time_range.elapsed_us()
             elif e.name in LAUNCH_CALLS:
                 calls[e.name] = calls.get(e.name, 0) + 1
-        if want_k1 is None or k1 == want_k1:
+        if want is None or seen == want:
             break
-        lost.append((device, k1))
-        log(f"[profiler] pass {attempt} of {passes} recorded {k1} K1 kernels of {want_k1} "
+        lost.append((device, seen))
+        log(f"[profiler] pass {attempt} of {passes} recorded {seen} {kernel} kernels of {want} "
             f"({device} device events in all)")
         time.sleep(0.5)
     return {"host_calls": calls, "host_total": sum(calls.values()), "device_ops": device,
-            "k1_device_events": k1, "device_busy_ms": busy_us / 1e3,
+            "kernel": kernel, "kernel_device_events": seen, "device_busy_ms": busy_us / 1e3,
             "profile_attempts": attempt, "lost_passes": lost}
 
 
-def k1_in_graph(engine, name: str) -> list[int]:
-    """K1 launches recorded in each captured graph of program ``name``."""
-    return [p.launches.get("lstm_cell", 0) for key, p in engine._graphs.programs.items()
-            if key[0] == name]
+def launches_in_graph(engine, name: str) -> list[dict]:
+    """Kernel launches recorded in each captured graph of program ``name``."""
+    return [p.launches for key, p in engine._graphs.programs.items() if key[0] == name]
 
 
 def drive_service(torch, arch: str, batch: int, seq_len: int, requests: int, results, card):
@@ -2801,7 +3024,8 @@ def drive_service(torch, arch: str, batch: int, seq_len: int, requests: int, res
     from repro_torch.utils import params_to_numpy
 
     fused = AnomalyService(arch, schedule="fused", device="cuda", seed=0)
-    feats, depth = fused.features, len(fused.cfg.lstm_ae.layer_sizes())
+    feats = fused.features
+    per_request = fused_launches(torch, fused.params["layers"], seq_len, batch)
     data_cfg = TimeseriesConfig(features=feats, seq_len=seq_len, batch=batch, anomaly_rate=0.05)
     series = [make_batch(data_cfg, i)[0] for i in range(requests)]
     threshold = fused.calibrate(TimeseriesConfig(features=feats, seq_len=seq_len, batch=batch))
@@ -2826,28 +3050,28 @@ def drive_service(torch, arch: str, batch: int, seq_len: int, requests: int, res
         t0 = time.perf_counter()
         scores[name] = [svc.score(s).cpu() for s in series]
         dt = time.perf_counter() - t0
-        launches = launch_counts()["lstm_cell"]
-        want = requests * depth * seq_len if name.startswith("fused") else 0
+        launches = launched(launch_counts())
+        want = add_counts({}, per_request, requests) if name.startswith("fused") else {}
         if launches != want:
-            raise AssertionError(f"{arch} [{name}]: K1 launched {launches} times, expected {want}")
+            raise AssertionError(f"{arch} [{name}]: kernels launched {launches}, expected {want}")
         alerts = sum(int((s > threshold).sum()) for s in scores[name])
         ms = dt / requests * 1e3
         rate = requests * batch * seq_len / dt
         row = out["schedules"][name] = {"ms_per_request": ms, "timesteps_per_s": rate,
-                                        "k1_launches": launches, "alerts": alerts}
+                                        "kernel_launches": launches, "alerts": alerts}
         how = "eager"
         if svc.engine._graphs is not None:
             row["replays"] = svc.engine._graphs.replays - replays
-            row["k1_in_graph"] = k1_in_graph(svc.engine, "score")
+            row["in_graph"] = launches_in_graph(svc.engine, "score")
             if row["replays"] != requests:
                 raise AssertionError(f"{arch} [{name}]: {row['replays']} graph replays for "
                                      f"{requests} requests")
-            how = f"{row['replays']} graph replays, K1 launches inside the graph {row['k1_in_graph']}"
+            how = f"{row['replays']} graph replays, launches inside the graph {row['in_graph']}"
         log(f"[serve] {arch} [{name}] B={batch} T={seq_len}: {requests} requests, "
-            f"{ms:.3f} ms/request, {rate:,.0f} timesteps/s, K1 launches {launches} ({how}), "
+            f"{ms:.3f} ms/request, {rate:,.0f} timesteps/s, kernel launches {launches} ({how}), "
             f"alerts={alerts} [{card}]")
         if name == "fused":
-            out["k1_launches"] = launches
+            out["kernel_launches"] = launches
     # the fused path captured against eager: the same requests with the
     # input already on the card (outside the counted run)
     on_card = [s.to("cuda") for s in series]
@@ -2863,10 +3087,10 @@ def drive_service(torch, arch: str, batch: int, seq_len: int, requests: int, res
             f"{row['ms_per_request_input_on_card']:.3f} ms/request [{card}]")
     out["fused_ms_per_request_input_on_card"] = out["schedules"]["fused"][
         "ms_per_request_input_on_card"]
-    graph_k1 = out["schedules"]["fused"]["k1_in_graph"]
-    if graph_k1 != [depth * seq_len]:
-        raise AssertionError(f"{arch}: the fused score graphs hold {graph_k1} K1 launches, "
-                             f"expected one graph of {depth * seq_len}")
+    in_graph = out["schedules"]["fused"]["in_graph"]
+    if in_graph != [per_request]:
+        raise AssertionError(f"{arch}: the fused score graphs hold {in_graph} launches, "
+                             f"expected one graph of {per_request}")
     for name in ("sequential", "wavefront"):
         for got, want in zip(scores["fused"], scores[name]):
             torch.testing.assert_close(got, want, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
@@ -2878,7 +3102,7 @@ def drive_service(torch, arch: str, batch: int, seq_len: int, requests: int, res
         "bit_equal": all(torch.equal(a, b) for a, b in zip(scores["fused"], scores["fused-eager"]))}
     log(f"[serve] {arch} [fused]: captured and eager scores agree (max abs diff "
         f"{out['captured_vs_eager']['max_abs_diff']:.3g}; rtol {CAPTURE_RTOL}, atol "
-        f"{CAPTURE_ATOL}), bit-equal: {out['captured_vs_eager']['bit_equal']}; {graph_k1[0]} K1 "
+        f"{CAPTURE_ATOL}), bit-equal: {out['captured_vs_eager']['bit_equal']}; {in_graph[0]} "
         f"launches inside the one score graph [{card}]")
     rows = min(batch, 256)
     cpu = AnomalyService(arch, schedule="fused", device="cpu", seed=0)
@@ -2900,27 +3124,30 @@ def drive_service(torch, arch: str, batch: int, seq_len: int, requests: int, res
 def compare_launches(torch, arch, fused, eager, request, out, card) -> None:
     """The launch calls the host makes for one fused request with the input
     on the card, captured against eager, and the [capture] summary.  Run
-    after every other phase: its profiler passes come last."""
+    after the LSTM-AE phases and before the LM ones: its profiler passes
+    follow every LSTM-AE capture."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
 
-    want = len(fused.cfg.lstm_ae.layer_sizes()) * out["seq_len"]
+    ((kernel, want),) = fused_launches(torch, fused.params["layers"], out["seq_len"],
+                                       out["batch"]).items()
     for name, svc in (("fused", fused), ("fused-eager", eager)):
         # the count is reset inside each profiled pass: it reads the last pass
-        lp = host_launches(torch, lambda: (reset_launch_counts(), svc.score(request).cpu()), want)
-        lp["k1_counted_launches"] = launch_counts()["lstm_cell"]
-        if lp["k1_device_events"] != want or lp["k1_counted_launches"] != want:
+        lp = host_launches(torch, lambda: (reset_launch_counts(), svc.score(request).cpu()), want,
+                           kernel=DEVICE_KERNEL[kernel])
+        lp["wrapper"], lp["counted_launches"] = kernel, launch_counts()[kernel]
+        if lp["kernel_device_events"] != want or lp["counted_launches"] != want:
             raise AssertionError(
-                f"{arch} [{name}]: one request ran {lp['k1_device_events']} K1 kernels on the "
-                f"device ({lp['device_ops']} device events in all, pass {lp['profile_attempts']}; "
-                f"earlier passes {lp['lost_passes']}), and the launch count says "
-                f"{lp['k1_counted_launches']}; expected {want}")
+                f"{arch} [{name}]: one request ran {lp['kernel_device_events']} {kernel} kernels "
+                f"on the device ({lp['device_ops']} device events in all, pass "
+                f"{lp['profile_attempts']}; earlier passes {lp['lost_passes']}), and the launch "
+                f"count says {lp['counted_launches']}; expected {want}")
         out["schedules"][name]["launches_per_request"] = lp
         row = out["schedules"][name]
         lp["device_busy_share"] = lp["device_busy_ms"] / row["ms_per_request_input_on_card"]
         log(f"[serve] {arch} [{name}] one request with the input on the card: the host made "
             f"{lp['host_total']} launch calls {lp['host_calls']}, the device ran "
-            f"{lp['device_ops']} kernels/copies, {lp['k1_device_events']} of them K1 (profiler "
-            f"events; the launch count says {lp['k1_counted_launches']}), busy "
+            f"{lp['device_ops']} kernels/copies, {lp['kernel_device_events']} of them {kernel} "
+            f"(profiler events; the launch count says {lp['counted_launches']}), busy "
             f"{lp['device_busy_ms']:.3f} ms: {lp['device_busy_share']:.3f} of the "
             f"{row['ms_per_request_input_on_card']:.3f} ms request (idle "
             f"{1 - lp['device_busy_share']:.3f}) [{card}]")
@@ -2931,8 +3158,84 @@ def compare_launches(torch, arch, fused, eager, request, out, card) -> None:
         f"{eag['ms_per_request_input_on_card']:.3f} ms/request with the input on the card; "
         f"{cap['launches_per_request']['host_total']} against "
         f"{eag['launches_per_request']['host_total']} host launch calls per request; "
-        f"{cap['k1_in_graph'][0]} K1 launches inside one graph; scores bit-equal: "
+        f"{cap['in_graph'][0]} launches inside one graph; scores bit-equal: "
         f"{out['captured_vs_eager']['bit_equal']} [{card}]")
+
+
+
+def stack_after_lm(torch, cases, results, card) -> None:
+    """After the LM phase, a second witness that each captured fused score
+    graph holding ``lstm_stack`` still runs it (``cases``: step 4's
+    (result row, fused service) pairs).  One request no graph has scored,
+    through the graph (a replay, no capture), against the sequential
+    schedule's scores of it at the schedule bar: a replay whose kernel did
+    not run would hand back the last request's scores.  The synchronize
+    after it raises on any error the device raised.  Then one profiled
+    replay of it behind PROFILE_LEAD sleep kernels, its device events in
+    order: after the LM phase the profiler's trace of a pass drops its
+    first three device events, whatever they are (for this graph the
+    copy-in, the stack kernel and, at B=1024, the kernel between them;
+    for an eager request the stack kernel and the two after it), so behind
+    the lead the stack kernel must be seen once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import TimeseriesConfig, make_batch
+    from repro_torch.engine import AnomalyService
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    rows = results["stack_after_lm"] = []
+    for out, fused in cases:
+        arch, b, t_len = out["arch"], out["batch"], out["seq_len"]
+        if out["schedules"]["fused"]["in_graph"] != [{"lstm_stack": 1}]:
+            raise AssertionError(f"[stack after lm] {arch} B={b}: the score graph holds "
+                                 f"{out['schedules']['fused']['in_graph']}, not one lstm_stack")
+        data_cfg = TimeseriesConfig(features=fused.features, seq_len=t_len, batch=b,
+                                    anomaly_rate=0.05)
+        series = make_batch(data_cfg, 10_000 + b)[0]   # an index no earlier request drew
+        graphs = fused.engine._graphs
+        captures, replays = graphs.captures, graphs.replays
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = fused.score(series).cpu()
+        torch.cuda.synchronize()
+        counted = launched(launch_counts())
+        if counted != {"lstm_stack": 1} or graphs.captures != captures or \
+                graphs.replays != replays + 1:
+            raise AssertionError(f"[stack after lm] {arch} B={b}: launches {counted}, "
+                                 f"{graphs.captures - captures} captures and "
+                                 f"{graphs.replays - replays} replays for one request")
+        seq = AnomalyService(arch, schedule="sequential", device="cuda", seed=0)
+        seq.recalibrate(params=fused.params, threshold=out["threshold"])
+        want = seq.score(series).cpu()
+        torch.testing.assert_close(got, want, rtol=SCHEDULE_RTOL, atol=SCHEDULE_ATOL)
+        on_card = series.to("cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(1_000)
+            again = fused.score(on_card).cpu()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        row = {"arch": arch, "batch": b, "seq_len": t_len,
+               "max_abs_diff_vs_sequential": float((got - want).abs().max()),
+               "bit_equal_again": bool(torch.equal(again, got)),
+               "lead_seen": sum("spin_kernel" in n for n in names),
+               "stack_seen": sum(STACK_KERNEL in n for n in names),
+               "device_events": [n[:48] for n in names]}
+        rows.append(row)
+        log(f"[stack after lm] {arch} B={b} T={t_len}: a request no graph had scored, replayed "
+            f"(0 captures, 1 lstm_stack launch counted), within {row['max_abs_diff_vs_sequential']:.3g} "
+            f"of the sequential schedule's scores (rtol {SCHEDULE_RTOL}, atol {SCHEDULE_ATOL}); "
+            f"profiled behind {PROFILE_LEAD} sleep kernels: {len(names)} device events, "
+            f"{row['lead_seen']} of the sleeps and {row['stack_seen']} {STACK_KERNEL}, in order "
+            f"{row['device_events']} [{card}]")
+        if row["stack_seen"] != 1 or not row["bit_equal_again"]:
+            raise AssertionError(f"[stack after lm] {arch} B={b}: the profiled replay showed "
+                                 f"{row['stack_seen']} {STACK_KERNEL} kernels (bit-equal scores: "
+                                 f"{row['bit_equal_again']})")
 
 
 def drive_fit(torch, results, card) -> None:
@@ -6353,8 +6656,8 @@ def drive_dryrun(torch, results, card) -> None:
         sum(k1_bound(serve.global_batch, i, h)[0] * serve.seq_len
             for i, h in zip(cfg.lstm_ae.layer_input_sizes(), cfg.lstm_ae.layer_sizes())),
         results["serve"][0]["schedules"]["fused"]["ms_per_request_input_on_card"],
-        {"repro_torch.lstm_cell.default": results["serve"][0]["schedules"]["fused"]
-         ["k1_launches"] // results["serve"][0]["requests"]},
+        {f"repro_torch.{k}.default": n // results["serve"][0]["requests"]
+         for k, n in results["serve"][0]["schedules"]["fused"]["kernel_launches"].items()},
         f"B={serve.global_batch}, T={serve.seq_len}")
     lm = build_model(get_config(LM_ARCH))
     lm_params = param_struct(lm)
@@ -6452,11 +6755,14 @@ def main(argv=None) -> int:
     check_k1(torch, results)
     k1 = time_k1(torch, serve.global_batch, results, card)
     time_k1(torch, GATEWAY_MAX_BATCH, results, card, tag=f"_b{GATEWAY_MAX_BATCH}")
+    check_stack(torch, results)
+    stack = time_stack(torch, results, card)
 
     svc, eager, first = drive_service(torch, "lstm-ae-f64-d6", serve.global_batch,
                                       serve.seq_len, 3, results, card)
-    main_launches = results["serve"][0]["k1_launches"]
+    main_launches = results["serve"][0]["kernel_launches"]
     small = drive_service(torch, "lstm-ae-f32-d2", 1024, 64, 3, results, card)
+    latency = drive_service(torch, "lstm-ae-f64-d6", 1, STACK_T, 3, results, card)
     check_streaming(torch, svc, first, results)
     drive_with_forms(torch, svc, first, results, card)
     drive_fit(torch, results, card)
@@ -6476,18 +6782,25 @@ def main(argv=None) -> int:
     check_k4(torch, results)
     k4 = time_k4(torch, results, card)
     k4_launches = drive_k4_path(torch, results, card)
-    drive_lm(torch, results, card)
-    for out, (fused, eag, request) in zip(results["serve"], ((svc, eager, first), small)):
+    # before the LM phase: after it, the profiler's trace of a pass drops its
+    # first three device events, which for a request on lstm_stack hold the
+    # kernel (stack_after_lm below shows it, and that the kernel still runs)
+    for out, (fused, eag, request) in zip(results["serve"],
+                                          ((svc, eager, first), small, latency)):
         compare_launches(torch, out["arch"], fused, eag, request.to("cuda"), out, card)
+    profile_transport_flush(torch, transport_gw, transport_windows, results, card)
+    drive_lm(torch, results, card)
+    stack_after_lm(torch, [(results["serve"][1], small[0]), (results["serve"][2], latency[0])],
+                   results, card)
+    split_fit_step(torch, results, card)
     # the main path's count (captured launches x replays) against the K1
     # kernels the profiler saw the device run for one replayed request
-    split_fit_step(torch, results, card)
-    profile_transport_flush(torch, transport_gw, transport_windows, results, card)
     main = results["serve"][0]
-    measured = main["schedules"]["fused"]["launches_per_request"]["k1_device_events"]
-    if main_launches != main["requests"] * measured:
-        raise AssertionError(f"the main path counted {main_launches} K1 launches over "
-                             f"{main['requests']} requests; the device ran {measured} per request")
+    main_lp = main["schedules"]["fused"]["launches_per_request"]
+    if main_launches != {main_lp["wrapper"]: main["requests"] * main_lp["kernel_device_events"]}:
+        raise AssertionError(f"the main path counted {main_launches} launches over "
+                             f"{main['requests']} requests; the device ran "
+                             f"{main_lp['kernel_device_events']} {main_lp['kernel']} per request")
     # after the profiled passes above: a profiled train step records over
     # 10,000 device kernels, and the K1 counts above must not follow it
     drive_lm_train(torch, results, card)
@@ -6504,13 +6817,25 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": main_launches,
+        "launches": main_launches.get("lstm_cell", 0),
         "max_abs_err": results["k1_max_abs_err_f32"],
         "ms": k1["kernel_ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+    }, {
+        "name": "lstm_stack",
+        "route": "cuda",
+        "source": STACK_SOURCE,
+        "replaces": STACK_REPLACES,
+        "launches": sum(out["kernel_launches"].get("lstm_stack", 0) for out in results["serve"]),
+        "max_abs_err": results["stack_max_abs_err_f32"],
+        "ms": stack["kernel_ms"],
+        "plain_ms": stack["plain_ms"],
+        "bound_ms": stack["bound_ms"],
+        "bound_by": stack["bound_by"],
+        "library_ms": stack["library_ms"],
     }, {
         "name": "lstm_seq",
         "route": "cuda",
@@ -6553,8 +6878,11 @@ def main(argv=None) -> int:
     results["total_s"] = time.perf_counter() - t_start
     log(f"[done] {results['total_s']:.1f} s; lstm_cell: times per timestep of lstm-ae-f64-d6 at "
         f"B={serve.global_batch} (6 launches), launches from the fused serving path's 3 requests "
-        f"(3 replays of one captured graph; {measured} K1 kernels per replay on the device, from "
-        f"the profiler); "
+        f"(3 replays of one captured graph; {main_lp['kernel_device_events']} "
+        f"{main_lp['kernel']} kernels per replay on the device, from the profiler); "
+        f"lstm_stack: times per window of lstm-ae-f64-d6 at B=1, T={STACK_T} (one launch, "
+        f"f64d6.latency's shape), launches from the fused serving path's lstm-ae-f32-d2 B=1024 "
+        f"and lstm-ae-f64-d6 B=1 requests (3 replays each); "
         f"lstm_seq: times per forward of lstm-ae-f64-d6 at B={serve.global_batch}, T={K2_T} "
         f"(6 launches), launches from its lstm_seq_op path; wkv6: f32 at B={RWKV_B}, T={RWKV_T}, "
         f"H={RWKV_H}, hd={RWKV_HD}, launches from its wkv6_op path (whole + chained pair: "

@@ -5,6 +5,7 @@
     python3 scripts/kernel_variants.py flash_attention 'kMmaWarps = 4;=>kMmaWarps = 8;'
     python3 scripts/kernel_variants.py lstm_seq 'kTargetThreads = 256;=>kTargetThreads = 512;'
     python3 scripts/kernel_variants.py wkv6 'kChunk = 8;=>kChunk = 4;'
+    python3 scripts/kernel_variants.py lstm_stack 'kSlots = 4;=>kSlots = 8;'
 
 Each variant is ``src/repro_torch/kernels/csrc/<kernel>.cu`` with one piece
 of text replaced (``OLD=>NEW``; OLD must occur exactly once).  The script
@@ -23,7 +24,10 @@ reverse, so that the order favours none.  What is timed:
 - ``lstm_seq``: one forward of lstm-ae-f64-d6 (6 launches, f32) at B=8192,
   T=64, the shape of ``chip_smoke.time_k2``;
 - ``wkv6``: one f32 and one bf16 launch at rwkv6-7b's heads (B=32,
-  T=4096, H=64, hd=64), the shape of ``chip_smoke.time_k3``, and f32 at B=8.
+  T=4096, H=64, hd=64), the shape of ``chip_smoke.time_k3``, and f32 at B=8;
+- ``lstm_stack``: one window (B=1, T=64) of lstm-ae-f64-d6 and of
+  lstm-ae-f32-d2, the latency cells' forward, each held to the plain version
+  at B in (1, 5) first.
 
 Device times come from CUDA events (``chip_smoke.device_ms``).  For each
 build and kernel it also prints the largest loops of the machine code
@@ -45,7 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-KERNELS = ("lstm_cell", "lstm_seq", "wkv6", "flash_attention")
+KERNELS = ("lstm_cell", "lstm_seq", "wkv6", "flash_attention", "lstm_stack")
 
 
 def apply_variant(source: str, spec: str) -> str:
@@ -118,6 +122,29 @@ def measure(torch, cs, kernel: str, card: str) -> dict:
             layers.append(cs.device_ms(torch, lambda: lstm_seq_cuda(*args), iters=10, reps=5))
         return {"forward_ms": sum(layers), "layers_ms": layers,
                 "max_abs_err_f32": res["k2_max_abs_err_f32"]}
+    if kernel == "lstm_stack":
+        from repro_torch.config import get_config
+        from repro_torch.core.lstm import init_lstm_ae
+        from repro_torch.kernels.lstm_stack import lstm_stack_cuda, lstm_stack_plain
+
+        out = {}
+        for arch, name in (("lstm-ae-f64-d6", "f64d6"), ("lstm-ae-f32-d2", "f32d2")):
+            cfg = get_config(arch)
+            params = init_lstm_ae(torch.Generator().manual_seed(5), cfg, device="cuda")
+            layers = [dict(layer) for layer in params["layers"]]
+            err = 0.0
+            for bsz in (1, 5):
+                xs = torch.randn(64, bsz, cfg.lstm_ae.input_features, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(bsz))
+                got = lstm_stack_cuda(xs, layers)
+                torch.cuda.synchronize()
+                err = max(err, float((got - lstm_stack_plain(xs, layers)).abs().max()))
+            if not err <= 1e-5:
+                raise AssertionError(f"lstm_stack at {arch}: max abs err {err:.3g} against the plain version")
+            xs = torch.randn(64, 1, cfg.lstm_ae.input_features, device="cuda")
+            out[f"{name}_b1_ms"] = cs.device_ms(torch, lambda: lstm_stack_cuda(xs, layers), iters=50, reps=5)
+            out[f"{name}_max_abs_err"] = err
+        return out
     if kernel == "wkv6":
         from repro_torch.kernels.wkv6 import wkv6_cuda
 
@@ -163,6 +190,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as tf
     from repro_torch.kernels import lstm_cell as tk
     from repro_torch.kernels import lstm_seq as ts
+    from repro_torch.kernels import lstm_stack as tst
     from repro_torch.kernels import wkv6 as tw
 
     source = (_build.CSRC / f"{args.kernel}.cu").read_text()
@@ -188,7 +216,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
-    wrapper = {"lstm_cell": tk, "lstm_seq": ts, "wkv6": tw, "flash_attention": tf}[args.kernel]
+    wrapper = {"lstm_cell": tk, "lstm_seq": ts, "wkv6": tw, "flash_attention": tf,
+               "lstm_stack": tst}[args.kernel]
     real_load = _build.load
     results = {"card": card, "kernel": args.kernel,
                "variants": dict(zip(sources, args.variants)),

@@ -4,8 +4,9 @@ The port's counterpart of the reference's ``jax.jit`` (it has no JAX
 counterpart of its own).  Where the reference compiles an engine program
 once per input shape, the port captures it once into a
 ``torch.cuda.CUDAGraph`` and replays it: the host then issues one graph
-launch per call instead of one launch per kernel (384 K1 launches per
-lstm-ae-f64-d6 request under the ``fused`` schedule).
+launch per call instead of one launch per kernel (at a bulk batch, 384
+K1 launches per lstm-ae-f64-d6 request under the ``fused`` schedule; at a
+small one a single ``lstm_stack`` launch beside the score's kernels).
 
 A :class:`CapturedProgram` is made on the first call at a signature:
 

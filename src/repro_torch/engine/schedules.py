@@ -11,8 +11,11 @@ selected by name:
 * ``"pipelined"``  — the stage pipeline over a (data, stage) device mesh
   (``core/temporal.py::pipelined_forward``); with fewer than two stages it
   degenerates to the wavefront schedule.
-* ``"fused"``      — the hand-written CUDA LSTM cell (``kernels/lstm_cell.py``,
-  K1) once per (layer, timestep), walked layer by layer.
+* ``"fused"``      — the hand-written CUDA kernels: at a small batch (one
+  window a request, the gateway's flushes) the whole stack in one launch on
+  the wavefront schedule (``kernels/lstm_stack.py``); at a large one (bulk
+  scoring) the LSTM cell (``kernels/lstm_cell.py``, K1) once per (layer,
+  timestep), walked layer by layer.
 
 Third-party backends register with :func:`register_schedule`.
 """
@@ -33,8 +36,9 @@ from repro_torch.core.temporal import (
     wavefront_forward,
 )
 from repro_torch.engine.placement import make_mesh
+from repro_torch.kernels import lstm_stack
 from repro_torch.kernels.lstm_cell import pack_weights
-from repro_torch.kernels.ops import lstm_cell_op
+from repro_torch.kernels.ops import lstm_cell_op, lstm_stack_op
 from repro_torch.utils import Params
 
 if TYPE_CHECKING:
@@ -197,15 +201,64 @@ def _wavefront(cfg: ModelConfig, ecfg: "EngineConfig") -> Schedule:
     return Schedule("wavefront", "wavefront", "dataflow", forward)
 
 
+# The ``fused`` forward runs one ``lstm_stack`` launch while
+#   B · (T + D − 1) · w  <=  STACK_CROSSOVER · D · T,
+# w the weights a thread of the stack's widest layer holds: the stack's time
+# grows with its rows, its T + D − 1 wavefront steps and the step's dot (w),
+# the K1 chain's with its D · T launches, nearly flat in B up to 2,048 rows.
+# Fitted to the crossover sweep on an H100 at T = 8 … 64 (PERF.md): the
+# stack up to 769–1,159 rows at lstm-ae-f64-d6 (w = 96) and 1,481–1,641 at
+# lstm-ae-f32-d2 (w = 24), each just under where K1's chain takes the lead.
+STACK_CROSSOVER = 20_000
+
+
+def stack_max_batch(dims, t_len: int) -> int:
+    """The largest batch the ``fused`` forward runs as one ``lstm_stack``
+    launch for a stack of layers (In, H) that fits (``lstm_stack.fits``)
+    over windows of ``t_len`` (:data:`STACK_CROSSOVER`)."""
+    depth = len(dims)
+    return (STACK_CROSSOVER * depth * t_len
+            // ((t_len + depth - 1) * lstm_stack.slice_width(dims)))
+
+
+def fused_takes_stack(layers, xs: torch.Tensor) -> bool:
+    """Whether the ``fused`` forward runs ``layers`` over xs (T, B, F) as one
+    ``lstm_stack`` launch: f32 xs and weights on one CUDA device (or meta,
+    the dry run's), a stack the kernel fits (``lstm_stack.fits``) and
+    B <= :func:`stack_max_batch` at this T.  Decided from what the call can
+    see, at capture time under a CUDA graph.  On the CPU the forward keeps
+    K1's chain of plain cells, which is the stack's plain version step for
+    step (the same numbers, bit for bit)."""
+    tensors = [xs] + [layer[k] for layer in layers for k in ("wx", "wh", "b")]
+    dims = lstm_stack.layer_dims(layers)
+    return (xs.device.type in ("cuda", "meta") and xs.dim() == 3
+            and all(t.dtype == torch.float32 and t.device == xs.device for t in tensors)
+            and lstm_stack.fits(dims) and dims[0][0] == xs.shape[2]
+            and xs.shape[1] <= stack_max_batch(dims, xs.shape[0]))
+
+
+def fused_launches(layers, xs: torch.Tensor) -> dict[str, int]:
+    """The kernel launches of one ``fused`` forward of ``layers`` over xs."""
+    if fused_takes_stack(layers, xs):
+        return {"lstm_stack": 1}
+    return {"lstm_cell": len(layers) * xs.shape[0]}
+
+
 @register_schedule("fused", config_fields=("pwl",))
 def _fused(cfg: ModelConfig, ecfg: "EngineConfig") -> Schedule:
-    """K1 once per (layer, timestep), layer by layer: the paper's
-    single-module datapath as one kernel launch per cell step.
+    """The hand-written kernels, by batch.  Up to :func:`stack_max_batch`
+    rows (:func:`fused_takes_stack`), the whole stack in one ``lstm_stack``
+    launch: every layer fires at each wavefront step, T + D − 1 dependent
+    steps inside one kernel.  Above it, K1 once per (layer, timestep), layer
+    by layer: the paper's single-module datapath as one kernel launch per
+    cell step, which keeps the card's SMs busy at a large batch.
 
-    Weights are packed once per forward.  Each step writes h' in place into
-    the layer's output buffer (``ys[t]``, which is the next step's h) and
-    updates c in place, so a layer allocates only ys and c."""
+    K1's path packs the weights once per forward.  Each step writes h' in
+    place into the layer's output buffer (``ys[t]``, which is the next step's
+    h) and updates c in place, so a layer allocates only ys and c."""
     def forward(params, xs):
+        if fused_takes_stack(params["layers"], xs):
+            return lstm_stack_op(params["layers"], xs, pwl=ecfg.pwl)
         ys = xs.contiguous()
         t_len, bsz, _ = xs.shape
         for layer in params["layers"]:

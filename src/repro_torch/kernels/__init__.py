@@ -2,6 +2,8 @@
 
 - lstm_cell.py  K1, the fused LSTM cell (``csrc/lstm_cell.cu``)
 - lstm_seq.py   K2, the sequence-streaming LSTM layer (``csrc/lstm_seq.cu``)
+- lstm_stack.py the LSTM-AE's whole stack over a window in one launch, on the
+  wavefront schedule (``csrc/lstm_stack.cu``)
 - wkv6.py       K3, the RWKV-6 WKV recurrence (``csrc/wkv6.cu``)
 - flash_attention.py  K4, the flash-attention forward (``csrc/flash_attention.cu``)
 - ops.py        device-dispatching wrappers and the launch counts

@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("lstm_cell", "lstm_seq", "wkv6", "flash_attention")
+KERNELS = ("lstm_cell", "lstm_seq", "wkv6", "flash_attention", "lstm_stack")
 
 
 def nvcc_path() -> str:

@@ -14,8 +14,10 @@ aligned f32), and each thread keeps a register micro-tile of up to 4 rows x
 FMAs and one of an activation eight.  The first design fed every
 FMA with its own load of a weight from L1/L2 and was bound by those loads.
 The tile is chosen by shape (:func:`lstm_cell_tile`): large batches take
-64-row tiles, small ones (the gateway's flushes, B = 1) spread over
-hidden-unit blocks.  Its bound on an H100 is the larger of 8·B·H·(In+H)
+64-row tiles, small ones spread over hidden-unit blocks.  The ``fused``
+schedule launches K1 only above its crossover batch (bulk scoring); one
+window a request and the gateway's flushes run the whole stack in one
+``lstm_stack`` launch instead (``kernels/lstm_stack.py``).  Its bound on an H100 is the larger of 8·B·H·(In+H)
 FLOP at 67 TFLOP/s and its bytes at 3.35 TB/s; at the paper's widths the
 operations bound it.  The engine captures the serving path's
 per-(layer, timestep) launches into one CUDA graph per shape

@@ -13,6 +13,7 @@ and the bytes of its inputs and outputs, counted once:
 
 - ``lstm_cell`` (K1): 8·B·H·(In+H), the two gate products
 - ``lstm_seq``  (K2): T times K1's
+- ``lstm_stack``: K1's summed over the layers and T, 8·B·T·Σ H·(In+H)
 - ``wkv6``      (K3): 2·B·T·H·hd², the einsum ``bhk,bhkv->bhv`` a step
   (the reference's ``lax.scan`` has the same single dot)
 - ``flash_attention`` (K4): 4·B·H·S·Sk·d, QK^T and PV over every pair
@@ -29,6 +30,7 @@ _LIB.define("lstm_cell(Tensor x, Tensor h, Tensor c, Tensor wx, Tensor wh, Tenso
             "bool pwl) -> (Tensor, Tensor)")
 _LIB.define("lstm_seq(Tensor xs, Tensor h0, Tensor c0, Tensor wx, Tensor wh, Tensor b, "
             "bool pwl) -> (Tensor, Tensor, Tensor)")
+_LIB.define("lstm_stack(Tensor xs, Tensor[] wx, Tensor[] wh, Tensor[] b, bool pwl) -> Tensor")
 _LIB.define("wkv6(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor s0) "
             "-> (Tensor, Tensor)")
 _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor")
@@ -45,6 +47,11 @@ def _lstm_seq_meta(xs, h0, c0, wx, wh, b, pwl):
             torch.empty((bsz, hidden), dtype=torch.float32, device=xs.device))
 
 
+def _lstm_stack_meta(xs, wx, wh, b, pwl):
+    t_len, bsz = xs.shape[:2]
+    return torch.empty((t_len, bsz, wh[-1].shape[0]), dtype=torch.float32, device=xs.device)
+
+
 def _wkv6_meta(r, k, v, w, u, s0):
     b, _, h, hd = r.shape
     return (torch.empty(r.shape, dtype=torch.float32, device=r.device),
@@ -56,7 +63,8 @@ def _flash_attention_meta(q, k, v, causal):
 
 
 for _name, _fn in (("lstm_cell", _lstm_cell_meta), ("lstm_seq", _lstm_seq_meta),
-                   ("wkv6", _wkv6_meta), ("flash_attention", _flash_attention_meta)):
+                   ("lstm_stack", _lstm_stack_meta), ("wkv6", _wkv6_meta),
+                   ("flash_attention", _flash_attention_meta)):
     _LIB.impl(_name, _fn, "Meta")
 
 
@@ -80,6 +88,13 @@ def _lstm_seq_flops(xs, h0, c0, wx, wh, b, *args, out_shape=None, **kwargs) -> i
     return 8 * t_len * bsz * h0[1] * (in_dim + h0[1])
 
 
+@_register(torch.ops.repro_torch.lstm_stack)
+def _lstm_stack_flops(xs, wx, wh, b, *args, out_shape=None, **kwargs) -> int:
+    t_len, bsz, _ = xs
+    return sum(8 * t_len * bsz * h_shape[0] * (x_shape[0] + h_shape[0])
+               for x_shape, h_shape in zip(wx, wh))
+
+
 @_register(torch.ops.repro_torch.wkv6)
 def _wkv6_flops(r, k, v, w, u, s0, *args, out_shape=None, **kwargs) -> int:
     b, t_len, h, hd = r
@@ -99,6 +114,12 @@ def lstm_cell(x, h, c, wx, wh, b, pwl: bool = False):
 def lstm_seq(xs, h0, c0, wx, wh, b, pwl: bool = False):
     ys, h_t, c_t = torch.ops.repro_torch.lstm_seq(xs, h0, c0, wx, wh, b, pwl)
     return ys, (h_t, c_t)
+
+
+def lstm_stack(xs, layers, pwl: bool = False):
+    return torch.ops.repro_torch.lstm_stack(xs, [layer["wx"] for layer in layers],
+                                            [layer["wh"] for layer in layers],
+                                            [layer["b"] for layer in layers], pwl)
 
 
 def wkv6(r, k, v, w, u, s0):

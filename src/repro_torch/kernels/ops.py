@@ -7,7 +7,11 @@ launches or raises, and a meta tensor (the dry run) to the kernel's meta
 op (``meta.py``: the kernel's output shapes and its FLOPs, nothing run).  Nothing falls back from the kernel to the plain version.
 
 - :func:`lstm_cell_op` — K1, one LSTM timestep; the body of the ``fused``
-  schedule, and so of the gateway's bucketed one-shot scoring under it.
+  schedule at batches above its crossover (bulk scoring), once per (layer,
+  timestep).
+- :func:`lstm_stack_op` — the LSTM-AE's whole recurrent stack over a window
+  in one launch on the wavefront schedule; the ``fused`` schedule's forward
+  at small batches (one window a request, the gateway's flushes).
 - :func:`lstm_seq_op` — K2, one LSTM layer over a whole window in one
   launch.  As in the reference, this wrapper is K2's only entry point and
   no schedule uses it.  Its bound on an H100 is the larger of
@@ -46,6 +50,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain,
 )
 from repro_torch.kernels.lstm_seq import check_seq_args, lstm_seq_cuda, lstm_seq_plain
+from repro_torch.kernels.lstm_stack import check_stack_args, lstm_stack_cuda, lstm_stack_plain
 from repro_torch.kernels.wkv6 import check_wkv6_args, wkv6_cuda, wkv6_plain
 
 
@@ -95,6 +100,23 @@ def lstm_seq_op(params, xs, h0=None, c0=None, *, pwl: bool = False):
     return lstm_seq_plain(xs, h0, c0, wx, wh, b, pwl=pwl)
 
 
+def lstm_stack_op(layers, xs, *, pwl: bool = False):
+    """The recurrent stack of an LSTM-AE over a window from zero state:
+    ``layers`` the core layout {wx, wh, b} of each layer, xs (T, B, In_0)
+    f32 -> the last layer's h, (T, B, H_last).  The weights are read as they
+    are (made contiguous where they are not); no pack, no zero-fill."""
+    layers = [{k: layer[k].contiguous() for k in ("wx", "wh", "b")} for layer in layers]
+    xs = xs.contiguous()
+    if xs.device.type == "cuda":
+        return lstm_stack_cuda(xs, layers, pwl=pwl)
+    if xs.device.type == "meta":
+        return meta.lstm_stack(xs, layers, pwl)
+    if xs.device.type != "cpu":
+        raise ValueError(f"lstm_stack_op runs on cuda or cpu tensors, got {xs.device}")
+    check_stack_args(xs, layers)
+    return lstm_stack_plain(xs, layers, pwl=pwl)
+
+
 def wkv6_op(r, k, v, w, u, s0):
     """RWKV-6 WKV recurrence: r, k, v (B, T, H, hd) in one dtype (f32 or
     bf16), w (B, T, H, hd), u (H, hd) and s0 (B, H, hd, hd) in f32 ->
@@ -134,7 +156,7 @@ def flash_attention_op(q, k, v, *, causal: bool = True):
 
 
 _WRAPPERS = {"lstm_cell": lstm_cell_cuda, "lstm_seq": lstm_seq_cuda, "wkv6": wkv6_cuda,
-             "flash_attention": flash_attention_cuda}
+             "flash_attention": flash_attention_cuda, "lstm_stack": lstm_stack_cuda}
 
 
 def launch_counts() -> dict[str, int]:

@@ -22,6 +22,7 @@ import chip_smoke  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.core.lstm import init_lstm_ae  # noqa: E402
 from repro_torch.engine import build_engine  # noqa: E402
+from repro_torch.engine.schedules import stack_max_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as tf  # noqa: E402
 from repro_torch.kernels import lstm_cell as tk  # noqa: E402
 from repro_torch.kernels import lstm_seq as ts  # noqa: E402
@@ -36,6 +37,13 @@ from repro_torch.kernels.ops import (  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
 
 SHAPES = [(16, 16), (32, 64), (64, 128), (128, 256), (64, 32), (8, 4)]
+
+
+def _crossover(arch, t_len):
+    """The largest batch the ``fused`` forward of ``arch`` runs as one
+    ``lstm_stack`` launch at this T (``schedules.stack_max_batch``)."""
+    ae = get_config(arch).lstm_ae
+    return stack_max_batch(list(zip(ae.layer_input_sizes(), ae.layer_sizes())), t_len)
 
 
 @pytest.fixture
@@ -55,6 +63,23 @@ def _inputs(b, in_dim, hidden, dtype, seed):
     return (randn(b, in_dim).to(dtype), randn(b, hidden).to(dtype), randn(b, hidden),
             randn(4, in_dim, hidden, scale=in_dim ** -0.5),
             randn(4, hidden, hidden, scale=hidden ** -0.5), randn(4, hidden, scale=0.1))
+
+
+def _fused_launches(layers, t_len, bsz):
+    """The kernel launches of one ``fused`` forward at (T, B), by its
+    dispatch (``schedules.fused_launches``): one ``lstm_stack`` at a small
+    batch, D x T ``lstm_cell`` above the crossover."""
+    from repro_torch.engine.schedules import fused_launches
+
+    meta = [{k: v.to("meta") for k, v in layer.items()} for layer in layers]
+    return fused_launches(meta, torch.empty(t_len, bsz, meta[0]["wx"].shape[0], device="meta"))
+
+
+def _launched(before):
+    """Launches by kernel since ``before`` (a ``launch_counts()``), kernels
+    that did not launch left out."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
 
 
 @pytest.mark.cuda
@@ -163,18 +188,114 @@ def test_lstm_cell_kernel_wide_and_offset_rows(cuda, dtype):
 @pytest.mark.parametrize("arch", ["lstm-ae-f32-d6", "lstm-ae-f64-d6"])
 def test_fused_schedule_on_the_card(cuda, arch):
     """The kernel path serves the same scores as the plain schedules, with
-    one launch per (layer, timestep)."""
+    the launches its dispatch picks at B = 64 (one ``lstm_stack`` under the
+    crossover, one K1 per (layer, timestep) above it)."""
     cfg = get_config(arch)
     series = torch.randn(64, 16, cfg.lstm_ae.input_features,
                          generator=torch.Generator().manual_seed(0))
     params = init_lstm_ae(torch.Generator().manual_seed(0), cfg, device=cuda)
     fused = build_engine(cfg, "fused", params=params, device=cuda)
-    before = launch_counts()["lstm_cell"]
+    before = launch_counts()
     got = fused.score({"series": series})
-    assert launch_counts()["lstm_cell"] == before + cfg.num_layers * 16
+    assert _launched(before) == _fused_launches(fused.params["layers"], 16, 64)
     for name in ("sequential", "wavefront"):
         want = build_engine(cfg, name, params=fused.params, device=cuda).score({"series": series})
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+def _stack_case(arch, seed):
+    cfg = get_config(arch)
+    params = init_lstm_ae(torch.Generator().manual_seed(seed), cfg, device="cuda")
+    return [dict(layer) for layer in params["layers"]], cfg.lstm_ae.input_features
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz", [1, 2, 5, 32])
+@pytest.mark.parametrize("pwl", [False, True])
+@pytest.mark.parametrize("arch", ["lstm-ae-f64-d6", "lstm-ae-f32-d2"])
+def test_lstm_stack_kernel_matches_plain(cuda, arch, pwl, bsz):
+    """The whole-stack kernel against its plain version (the K1 chain's
+    function) at T in (1, 7, 64), within K1's f32 bar; one launch each."""
+    from repro_torch.kernels import lstm_stack as tst
+
+    layers, feats = _stack_case(arch, seed=bsz)
+    for t_len in (1, 7, 64):
+        xs = torch.randn(t_len, bsz, feats, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(t_len))
+        before = launch_counts()
+        got = tst.lstm_stack_cuda(xs, layers, pwl=pwl)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"lstm_stack": 1}
+        want = tst.lstm_stack_plain(xs, layers, pwl=pwl)
+        assert got.shape == want.shape == (t_len, bsz, layers[-1]["wh"].shape[0])
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lstm_stack_rows_do_not_depend_on_the_batch(cuda):
+    """A row's result is the same bit for bit whatever batch it comes in
+    (the rows per cluster grow with B; a row's order of arithmetic does
+    not), so data shards equal the whole."""
+    from repro_torch.kernels import lstm_stack as tst
+
+    layers, feats = _stack_case("lstm-ae-f64-d6", seed=3)
+    xs = torch.randn(16, 300, feats, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(4))
+    dims = tst.layer_dims(layers)
+    assert tst.lstm_stack_rows(dims, 16, 300) > tst.lstm_stack_rows(dims, 16, 1) == 1
+    whole = tst.lstm_stack_cuda(xs, layers)
+    for lo, hi in ((0, 1), (7, 8), (0, 37), (150, 300)):
+        part = tst.lstm_stack_cuda(xs[:, lo:hi].contiguous(), layers)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:, lo:hi]), (lo, hi)
+
+
+@pytest.mark.cuda
+def test_lstm_stack_fit_rule_is_the_librarys(cuda):
+    """The wrapper's fit rule equals the library's, and a stack that does
+    not fit is refused before any launch."""
+    from repro_torch.kernels import lstm_stack as tst
+
+    cases = [[(64, 32), (32, 16), (16, 8), (8, 16), (16, 32), (32, 64)], [(32, 16), (16, 32)],
+             [(8, 64)], [(8, 65)], [(32, 64)], [(36, 64)], [(160, 32)], [(164, 32)],
+             [(348, 16)], [(352, 16)], [(8, 8)] * 8, [(8, 16), (8, 8)], [(3, 5), (5, 7)]]
+    for dims in cases:
+        assert tst.fits(dims) == tst.library_fits(dims), dims
+    wide = [{"wx": torch.zeros(64, 512, device="cuda"), "wh": torch.zeros(128, 512, device="cuda"),
+             "b": torch.zeros(512, device="cuda")}]
+    before = launch_counts()
+    with pytest.raises(ValueError, match="does not fit"):
+        tst.lstm_stack_cuda(torch.zeros(4, 1, 64, device="cuda"), wide)
+    assert _launched(before) == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz", [1, _crossover("lstm-ae-f64-d6", 16) + 1])
+def test_fused_dispatch_on_the_card(cuda, bsz):
+    """A captured ``fused`` score launches what its dispatch picks, at every
+    replay: one ``lstm_stack`` and no K1 at B = 1, depth x T K1 and no
+    ``lstm_stack`` above the crossover; the scores equal the eager engine's
+    within the schedule bar."""
+    from repro_torch.engine import EngineConfig
+
+    cfg = get_config("lstm-ae-f64-d6")
+    params = init_lstm_ae(torch.Generator().manual_seed(8), cfg, device=cuda)
+    captured = build_engine(cfg, "fused", params=params, device=cuda)
+    eager = build_engine(cfg, EngineConfig(schedule="wavefront", jit=False), params=params,
+                         device=cuda)
+    t_len = 16
+    series = torch.randn(bsz, t_len, 64, generator=torch.Generator().manual_seed(9))
+    want = ({"lstm_stack": 1} if bsz <= _crossover("lstm-ae-f64-d6", t_len)
+            else {"lstm_cell": len(params["layers"]) * t_len})
+    assert _fused_launches(captured.params["layers"], t_len, bsz) == want
+    for call in range(3):
+        before = launch_counts()
+        got = captured.score({"series": series})
+        torch.cuda.synchronize()
+        assert _launched(before) == want
+    (prog,) = captured._graphs.programs.values()
+    assert prog.launches == want and prog.replays == 2
+    torch.testing.assert_close(got, eager.score({"series": series}), rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.cuda
@@ -282,10 +403,14 @@ def test_gateway_on_the_card(cuda):
         errs, sess = svc.stream_step(windows[0:1, t], sess)
     torch.testing.assert_close(torch.tensor(finals[0]), errs[0].cpu(), rtol=1e-4, atol=1e-6)
     lens = [3, 8, 9, 16, 5]
-    before = launch_counts()["lstm_cell"]
+    before = launch_counts()
     scores = gw.score([windows[i, :n] for i, n in enumerate(lens)])
-    # buckets 8: lens 3, 8, 5 (one flush); 16: lens 9, 16 (one flush)
-    assert launch_counts()["lstm_cell"] == before + 6 * (8 + 16)
+    # buckets 8: lens 3, 8, 5 (one flush of 3 rows); 16: lens 9, 16 (one of 2)
+    want = {}
+    for t_len, rows in ((8, 3), (16, 2)):
+        for k, n in _fused_launches(svc.engine.params["layers"], t_len, rows).items():
+            want[k] = want.get(k, 0) + n
+    assert _launched(before) == want
     for i, n in enumerate(lens):
         direct = svc.score(windows[i:i + 1, :n])
         torch.testing.assert_close(torch.tensor(scores[i]), direct[0].cpu(), rtol=1e-4, atol=1e-6)
@@ -625,7 +750,8 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     with pytest.raises(ValueError):
         tf.flash_attention_cuda(q[..., :32], k[..., :32], v[..., :32])
     torch.cuda.synchronize()
-    assert launch_counts() == {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 1, "flash_attention": 2}
+    assert launch_counts() == {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 1, "flash_attention": 2,
+                               "lstm_stack": 0}
 
 
 # -- captured programs (engine/capture.py) -----------------------------------
@@ -682,17 +808,19 @@ def test_captured_programs_equal_eager(cuda, schedule):
 
 @pytest.mark.cuda
 def test_captured_fused_schedule_counts_every_launch(cuda):
-    """The fused schedule is captured whole: the graph holds depth x T K1
-    launches, and every call (the warm-up, then each replay) counts them."""
+    """The fused schedule is captured whole: the graph holds the launches its
+    dispatch picks (one ``lstm_stack`` at B = 5), and every call (the
+    warm-up, then each replay) counts them."""
     captured, _ = _capture_pair("fused", cuda)
-    depth, t_len = len(captured.params["layers"]), 9
+    t_len = 9
+    want = _fused_launches(captured.params["layers"], t_len, 5)
     series = torch.randn(5, t_len, 32, generator=torch.Generator().manual_seed(5))
     for call in range(3):
-        before = launch_counts()["lstm_cell"]
+        before = launch_counts()
         captured.score({"series": series})
-        assert launch_counts()["lstm_cell"] == before + depth * t_len
+        assert _launched(before) == want
     (prog,) = captured._graphs.programs.values()
-    assert prog.launches == {"lstm_cell": depth * t_len} and prog.replays == 2
+    assert prog.launches == want and prog.replays == 2
 
 
 @pytest.mark.cuda
@@ -801,29 +929,39 @@ def test_capture_refusing_a_launch_raises(cuda):
 
 
 @pytest.mark.cuda
-def test_capture_refusing_a_launch_inside_the_graph_raises(cuda, monkeypatch):
-    """A K1 launch that the warm-up makes but the capture refuses raises out
-    of the capture and leaves no program behind; nothing runs eagerly
-    instead."""
+@pytest.mark.parametrize("bsz", [4, _crossover(CAPTURE_ARCH, 3) + 1])
+def test_capture_refusing_a_launch_inside_the_graph_raises(cuda, monkeypatch, bsz):
+    """A launch that the warm-up makes but the capture refuses raises out of
+    the capture and leaves no program behind; nothing runs eagerly instead.
+    The refused kernel is the one the dispatch picks at this batch:
+    ``lstm_stack`` at B = 4, K1 above the crossover."""
+    from repro_torch.kernels import lstm_stack as tst
+
     captured, _ = _capture_pair("fused", cuda)
-    real = tk._lib()
+    want = _fused_launches(captured.params["layers"], 3, bsz)
+    (kernel,) = want
+    module = tst if kernel == "lstm_stack" else tk
+    real = module._lib()
+    entry = f"{kernel}_forward"
 
     class RefusedWhileCapturing:
         def __getattr__(self, name):
-            return getattr(real, name)
+            attr = getattr(real, name)
+            if name != entry:
+                return attr
 
-        def lstm_cell_forward(self, *args):
-            if torch.cuda.is_current_stream_capturing():
-                return 9      # cudaErrorInvalidConfiguration
-            return real.lstm_cell_forward(*args)
+            def refuse(*args):
+                if torch.cuda.is_current_stream_capturing():
+                    return 9      # cudaErrorInvalidConfiguration
+                return attr(*args)
+            return refuse
 
-    monkeypatch.setattr(tk, "_lib", RefusedWhileCapturing)
-    before = launch_counts()["lstm_cell"]
-    series = torch.randn(4, 3, 32, generator=torch.Generator().manual_seed(11))
-    with pytest.raises(RuntimeError, match="lstm_cell kernel launch failed"):
+    monkeypatch.setattr(module, "_lib", RefusedWhileCapturing)
+    before = launch_counts()
+    series = torch.randn(bsz, 3, 32, generator=torch.Generator().manual_seed(11))
+    with pytest.raises(RuntimeError, match=f"{kernel} kernel launch failed"):
         captured.score({"series": series})
-    depth = len(captured.params["layers"])
-    assert launch_counts()["lstm_cell"] == before + depth * 3     # the warm-up's alone
+    assert _launched(before) == want     # the warm-up's alone
     assert not captured._graphs.programs and captured.profile_info()["compiles"] == 0
 
 
@@ -1315,8 +1453,9 @@ def _multi_engine(placement, arch="lstm-ae-f32-d6", schedule="fused", seed=0):
 @pytest.mark.cuda
 def test_data2_engine_on_one_card_runs_k1_per_shard_bit_equal(cuda):
     """``Placement.data(2)`` over cuda:0 twice: every row program equals the
-    single placement's bit for bit, one captured graph per shard, and K1
-    runs 2 x depth x T times per request (once per shard's rows)."""
+    single placement's bit for bit, one captured graph per shard, and each
+    shard's rows launch what the dispatch picks for them (one ``lstm_stack``
+    for 32 rows under the crossover, depth x T K1 above it) per request."""
     from repro_torch.engine import Placement
     from repro_torch.kernels.ops import reset_launch_counts
 
@@ -1331,7 +1470,8 @@ def test_data2_engine_on_one_card_runs_k1_per_shard_bit_equal(cuda):
         reset_launch_counts()
         got = getattr(two, name)(batch)
         torch.cuda.synchronize()
-        assert launch_counts()["lstm_cell"] == 2 * 6 * 16
+        shard = _fused_launches(one.params["layers"], 16, 32)
+        assert _launched(dict.fromkeys(launch_counts(), 0)) == {k: 2 * n for k, n in shard.items()}
         assert torch.equal(got, want), name
     per = two.profile_info()["per_program"]
     assert per["score@shard0"]["compiles"] == per["score@shard1"]["compiles"] == 1

@@ -134,7 +134,7 @@ def test_plain_calls_are_not_counted():
     reset_launch_counts()
     lstm_cell_op(params_from_numpy(p, "cpu"), *targs)
     assert launch_counts() == {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "lstm_stack": 0}
 
 
 def test_build_is_keyed_by_source_and_raises_without_nvcc(monkeypatch, tmp_path):

@@ -146,7 +146,7 @@ def test_plain_calls_are_not_counted():
     reset_launch_counts()
     lstm_seq_op(params_from_numpy(p, "cpu"), torch.from_numpy(xs))
     assert launch_counts() == {"lstm_cell": 0, "lstm_seq": 0, "wkv6": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "lstm_stack": 0}
 
 
 def test_layer_stack_through_lstm_seq_op_equals_sequential():

@@ -163,6 +163,7 @@ def _kernel_cases():
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.lstm_cell import lstm_cell_plain
     from repro_torch.kernels.lstm_seq import lstm_seq_plain
+    from repro_torch.kernels.lstm_stack import lstm_stack_plain
     from repro_torch.kernels.wkv6 import wkv6_plain
 
     def r(*shape, dtype=torch.float32):
@@ -174,11 +175,21 @@ def _kernel_cases():
     wkv = (r(b, t, heads, hd, dtype=torch.bfloat16),) * 3 + (r(b, t, heads, hd), r(heads, hd),
                                                              r(b, heads, hd, hd))
     attn = (r(b, heads, s, hd),) * 3
+    h2 = 3      # a stack of two layers, i -> h -> h2
+    stack = (r(t, b, i), r(i, 4 * h), r(h, 4 * h), r(4 * h), r(h, 4 * h2), r(h2, 4 * h2),
+             r(4 * h2))
+
+    def layers(w):
+        return [dict(zip(("wx", "wh", "b"), w[k:k + 3])) for k in range(0, len(w), 3)]
+
     return {
         "lstm_cell": (cell, lstm_cell_plain, lambda *a: ops.lstm_cell_op(a[3:], *a[:3]),
                       8 * b * h * (i + h)),
         "lstm_seq": (seq, lstm_seq_plain, lambda *a: ops.lstm_seq_op(a[3:], *a[:1], *a[1:3]),
                      8 * t * b * h * (i + h)),
+        "lstm_stack": (stack, lambda xs, *w: lstm_stack_plain(xs, layers(w)),
+                       lambda xs, *w: ops.lstm_stack_op(layers(w), xs),
+                       8 * t * b * (h * (i + h) + h2 * (h + h2))),
         "wkv6": (wkv, wkv6_plain, ops.wkv6_op, 2 * b * t * heads * hd * hd),
         "flash_attention": (attn, flash_attention_plain,
                             lambda q, k, v: ops.flash_attention_op(
@@ -187,7 +198,8 @@ def _kernel_cases():
     }
 
 
-@pytest.mark.parametrize("name", ["lstm_cell", "lstm_seq", "wkv6", "flash_attention"])
+@pytest.mark.parametrize("name", ["lstm_cell", "lstm_seq", "lstm_stack", "wkv6",
+                                  "flash_attention"])
 def test_kernel_meta_op_counts_the_plain_versions_flops(name):
     """On meta tensors a kernel's wrapper runs one op (no loop) whose
     FLOPs equal FlopCounterMode over the plain version on the CPU, read

@@ -23,6 +23,7 @@ from repro_torch.kernels import _build  # noqa: E402
     ("wkv6", "kStages = 3;=>kStages = 4;"),
     ("wkv6", "kBlockThreads = 128;=>kBlockThreads = 64;"),
     ("wkv6", "kStepUnroll = 8;=>kStepUnroll = 2;"),
+    ("lstm_stack", "kSlots = 4;=>kSlots = 8;"),
 ])
 def test_variant_replaces_one_constant_of_the_committed_source(kernel, spec):
     source = (_build.CSRC / f"{kernel}.cu").read_text()
