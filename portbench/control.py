@@ -7,9 +7,9 @@ For each seed, one run of the cell (``harness.run_cell``) with the control in
 the program's place: the cell's weights, traffic, warm-up and window, its
 answers judged as a run's are.  The control is captured into a CUDA graph for
 each request's shape, as the program is, and its window has to be long enough to
-answer every input of the cell's pool, as a run of the program does: two
-seconds for the bulk cells, 40 for the single-window cells' 4,096 windows
-(6 ms a window at f64-d6 on an H100).  The benchmark's own runs never run this:
+answer every input of the cell's pool, as a run of the program does: the cell's
+traffic kind gives that length as ``CONTROL_SECONDS``.  The benchmark's own runs
+never run this:
 
     python3 portbench/control.py --workload <cell> --seeds 1,2,3 --seconds 40
 

@@ -1,5 +1,6 @@
 """The LSTM-AE family: the system under test, built from the seed, its control,
-and the judgement of answers against the plain reference.
+the judgement of answers against the plain reference, the checks of its
+configuration files and the faults its cells can have.
 
 The system is ``repro_torch.engine.AnomalyService(<config>, schedule="fused")``
 with its programs captured as the engine does by default.  Its weights are drawn
@@ -150,3 +151,101 @@ def judge(system: System, traffic, answers: dict, limits: dict) -> dict:
     for i, got in answers.items():
         worst = max(worst, score_rel_err(got, want[traffic.pool_index(i)]))
     return {"score_rel_err": {"value": worst, "limit": float(limits["score_rel_err"])}}
+
+
+def check_config(cfg: dict) -> None:
+    """Refuses a configuration file that describes no LSTM-AE: one hidden width
+    a layer, ``depth`` of them, the last as wide as the input it reconstructs."""
+    sizes = cfg["layer_sizes"]
+    if len(sizes) != cfg["depth"]:
+        raise ValueError(f"{cfg['name']}: {len(sizes)} layer sizes for depth {cfg['depth']}")
+    if sizes[-1] != cfg["input_features"]:
+        raise ValueError(f"{cfg['name']}: the last layer has {sizes[-1]} units for "
+                         f"{cfg['input_features']} input features")
+
+
+# -- faults planted underneath the timed path ---------------------------------
+# Each takes (monkeypatch, the configuration file, the cell's limits).
+
+
+def _state_unchanged(monkeypatch, cfg: dict, limits: dict) -> None:
+    """Each K1 cell step returns its state unchanged."""
+    from repro_torch.engine import schedules
+
+    def unchanged(params, x, h, c, *, pwl=False, h_out=None, c_out=None):
+        h_out.copy_(h)
+        if c_out is not c:
+            c_out.copy_(c)
+        return h_out, c_out
+
+    monkeypatch.setattr(schedules, "lstm_cell_op", unchanged)
+
+
+def _state_unchanged_stack(monkeypatch, cfg: dict, limits: dict) -> None:
+    """The whole-stack kernel run one timestep a launch, each from zero state:
+    the kernel still runs, but no h or c is carried from a step to the next."""
+    from repro_torch.engine import schedules
+
+    real = schedules.lstm_stack_op
+
+    def stepwise(layers, xs, *, pwl=False):
+        return torch.cat([real(layers, xs[t:t + 1], pwl=pwl) for t in range(xs.shape[0])])
+
+    monkeypatch.setattr(schedules, "lstm_stack_op", stepwise)
+
+
+def _half_batch(monkeypatch, cfg: dict, limits: dict) -> None:
+    """Half of a request's windows left out, the rest's mean given for them."""
+    from repro_torch.engine.base import Engine
+
+    score = Engine._score
+
+    def half(self, params, series):
+        keep = series.shape[0] // 2
+        got = score(self, params, series[:keep])
+        return torch.cat([got, got.mean().expand(series.shape[0] - keep)])
+
+    monkeypatch.setattr(Engine, "_score", half)
+
+
+def _answer_altered(monkeypatch, cfg: dict, limits: dict) -> None:
+    """One score of the window's first request altered where the engine
+    produces it, by ten times the cell's limit."""
+    from repro_torch.engine.base import Engine
+
+    score = Engine._score
+    calls = []
+    factor = 1 + 10 * float(limits["score_rel_err"])
+
+    def altered(self, params, series):
+        got = score(self, params, series)
+        calls.append(1)
+        if len(calls) == 2:        # the warm-up request is the first
+            got = torch.cat([got[:1] * factor, got[1:]])
+        return got
+
+    monkeypatch.setattr(Engine, "_score", altered)
+
+
+def faults(traffic_kind: str, on_card: bool = False) -> dict:
+    """name -> planter of each fault a cell of ``traffic_kind`` can have, as
+    it reaches the timed path at the kind's small size (``SMALL``) on the CPU,
+    or with ``on_card`` on the card.
+
+    On the CPU the ``fused`` forward runs K1's chain of plain cells (the
+    stack's plain version step for step), so the state fault is planted in
+    ``schedules.lstm_cell_op``; a one-window request has no half to leave out;
+    no LSTM-AE cell spans chips, so no exchange can be left out.  On the card
+    a one-window request runs the whole stack in one ``lstm_stack`` launch,
+    which no CPU fault reaches: ``state_unchanged_stack`` plants the state
+    fault there.  The other faults are the CPU's to plant: they break the
+    engine's code, which both devices run, and ``answer_altered`` counts the
+    engine's calls, which the replays of the card's captured graph do not
+    make."""
+    if on_card:
+        return {"state_unchanged_stack": _state_unchanged_stack} if traffic_kind == "window" else {}
+    found = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
+             "answer_altered": _answer_altered}
+    if traffic_kind == "window":
+        del found["half_batch"]
+    return found

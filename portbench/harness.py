@@ -236,7 +236,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: torch.de
     result = {"correct": is_correct(samples.attempted, checks), "attempted": samples.attempted,
               "failed": samples.failed, "metrics": metrics,
               "device": {"platform": "gpu" if on_card else "cpu", "kind": kind_name,
-                         "count": 1, "memory_peak_bytes": peak}}
+                         "count": wl["chips"], "memory_peak_bytes": peak}}
     if tr is not None:
         result["device"].update(busy_s=tr.busy_s, window_s=tr.window_s)
         result["breakdown"] = {"device_ops": [[short(n), v] for n, v in tr.device_ops()],

@@ -5,12 +5,16 @@ NVIDIA H100 data sheet, SXM part, at the full power limit of 700 W: 67
 TFLOP/s in float32 outside the tensor cores, and 3.35 TB/s of HBM3.  A card set
 below 700 W runs slower under load; the run prints its power limit beside its
 numbers.
+
+The same data sheet: 989.4 TFLOP/s in bf16 on the tensor cores, dense (the
+sheet's 1,979 is with 2:4 sparsity), the peak of a bf16 model's ``mfu``.
 """
 from __future__ import annotations
 
 PEAKS = {
     "NVIDIA H100 80GB HBM3": {
         "fp32_flops": 67e12,
+        "bf16_flops": 989.4e12,
         "hbm_bytes": 3.35e12,
     },
 }

@@ -1,11 +1,13 @@
-"""A whole run of each cell past the look for a card, on the CPU at a small
-size: sound, it comes out correct; with the timed path broken underneath, it
-comes out not correct, once for each fault the cell can have.
+"""A whole run of each cell past the look for a card, on the CPU at its traffic
+kind's small size (``traffic/<kind>.py``'s ``SMALL``): sound, it comes out
+correct; with the timed path broken underneath, it comes out not correct, once
+for each fault its family says the cell can have there (``families/<family>.py``'s
+``faults(kind)``: name -> planter(monkeypatch, cfg, limits)).
 
-The faults: a cell step that returns its state unchanged; half of a request's
-windows left out, the rest's mean given for them; one answer altered where the
-engine produces it, by ten times the cell's limit.  A one-window request has no
-half to leave out, and no cell spans chips, so no exchange can be left out."""
+The compared numbers are those the cell's workload file gives limits for, so a
+cell of a new family, traffic kind or check needs no edit here.  A broken run
+has to put one of them over its limit: a fault, like the control, has to fail
+one of a cell's numbers, not each."""
 import json
 import time
 
@@ -14,82 +16,45 @@ import torch
 
 from portbench import harness
 
-SMALL = {"bulk": {"batch": 8, "pool": 2, "warmup_requests": 1},
-         "window": {"pool": 6, "reference_block": 6, "warmup_requests": 1}}
 BENCH = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-CELLS = {w["name"]: w["traffic"] for w in BENCH["workloads"]}
+CELLS = [w["name"] for w in BENCH["workloads"]]
 SEED = 2**32 + 2**31 + 7
+
+
+def cell_files(cell):
+    """(workload file, configuration file, family, traffic kind) of ``cell``."""
+    wl, cfg = harness.load_cell(BENCH, cell)
+    return wl, cfg, harness.load("families", cfg["family"]), harness.load("traffic", wl["traffic"])
 
 
 def _run(cell):
     return harness.run_cell(cell, SEED, 0.2, False, torch.device("cpu"), time.perf_counter(),
-                            params=SMALL[CELLS[cell]])
+                            params=cell_files(cell)[3].SMALL)
 
 
-def _limit(cell):
-    wl = json.loads((harness.HERE / "workloads" / f"{cell}.json").read_text())
-    return float(wl["limits"]["score_rel_err"])
+def over_limits(wl, checks):
+    """The names of the cell's limits whose check reads over its limit."""
+    return [n for n in wl["limits"] if not checks[n]["value"] <= checks[n]["limit"]]
 
 
-def _state_unchanged(monkeypatch, cell):
-    from repro_torch.engine import schedules
-
-    def unchanged(params, x, h, c, *, pwl=False, h_out=None, c_out=None):
-        h_out.copy_(h)
-        if c_out is not c:
-            c_out.copy_(c)
-        return h_out, c_out
-
-    monkeypatch.setattr(schedules, "lstm_cell_op", unchanged)
-
-
-def _half_batch(monkeypatch, cell):
-    from repro_torch.engine.base import Engine
-
-    score = Engine._score
-
-    def half(self, params, series):
-        keep = series.shape[0] // 2
-        got = score(self, params, series[:keep])
-        return torch.cat([got, got.mean().expand(series.shape[0] - keep)])
-
-    monkeypatch.setattr(Engine, "_score", half)
-
-
-def _answer_altered(monkeypatch, cell):
-    from repro_torch.engine.base import Engine
-
-    score = Engine._score
-    calls = []
-
-    def altered(self, params, series):
-        got = score(self, params, series)
-        calls.append(1)
-        if len(calls) == 2:        # one answer of the window's first request
-            got = torch.cat([got[:1] * (1 + 10 * _limit(cell)), got[1:]])
-        return got
-
-    monkeypatch.setattr(Engine, "_score", altered)
-
-
-FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
-          "answer_altered": _answer_altered}
-CASES = [(c, f) for c in CELLS for f in FAULTS if not (f == "half_batch" and CELLS[c] == "window")]
+CASES = [(c, f) for c in CELLS for f in cell_files(c)[2].faults(cell_files(c)[0]["traffic"])]
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_sound_run_is_correct(cell):
+    wl = cell_files(cell)[0]
     result = _run(cell)
     assert result["correct"] is True, result["checks"]
     assert result["failed"] == 0 and result["attempted"] >= 1
     assert list(result)[-1] == "checks"
-    assert set(result["checks"]) == {"score_rel_err", "failed_requests"}
+    assert set(wl["limits"]) | {"failed_requests"} <= set(result["checks"])
+    assert result["device"]["count"] == wl["chips"]
 
 
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_a_broken_timed_path_is_not_correct(monkeypatch, cell, fault):
-    FAULTS[fault](monkeypatch, cell)
+    wl, cfg, family, _ = cell_files(cell)
+    family.faults(wl["traffic"])[fault](monkeypatch, cfg, wl["limits"])
     result = _run(cell)
     assert result["correct"] is False
-    err = result["checks"]["score_rel_err"]
-    assert err["value"] > err["limit"]
+    assert over_limits(wl, result["checks"]), result["checks"]

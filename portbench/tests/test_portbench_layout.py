@@ -1,7 +1,9 @@
 """BENCHMARK.json and the files it names: every cell, configuration, traffic
 kind and metric is found by its name, and a new one is added by new files and
-new entries alone."""
+new entries alone.  What only one family's files can pass is that family's to
+check (``families/<family>.py``'s ``check_config``)."""
 import json
+import math
 import os
 import re
 import shutil
@@ -48,13 +50,22 @@ def test_cell_files_exist_and_agree(cell):
     entry = next(w for w in BENCH["workloads"] if w["name"] == cell)
     wl, cfg = harness.load_cell(BENCH, cell)
     assert wl["why"] == entry["why"]
-    assert entry["chips"] == 1
+    family = harness.load("families", cfg["family"])
+    for hook in ("build", "control", "check_config", "faults"):
+        assert callable(getattr(family, hook)), (cfg["family"], hook)
+    assert entry["chips"] in (1, 4)
+    if entry["chips"] == 4:       # only what exists across chips takes four
+        assert getattr(family, "SPANS_CHIPS", False) is True, cfg["family"]
     kind = harness.load("traffic", wl["traffic"])
     for hook in ("build", "warm", "drive", "request"):
         assert callable(getattr(kind, hook)), (wl["traffic"], hook)
-    assert (harness.HERE / "families" / f"{cfg['family']}.py").is_file()
+    assert callable(getattr(kind, "judge", None) or family.judge)
+    assert isinstance(kind.SMALL, dict) and kind.CONTROL_SECONDS > 0
     assert (harness.HERE / "work" / f"{cfg['family']}.py").is_file()
-    assert "score_rel_err" in wl["limits"]
+    assert wl["limits"], "a cell compares at least one number with its limit"
+    for name, limit in wl["limits"].items():
+        assert NAME.match(name) and name != "failed_requests", name
+        assert math.isfinite(float(limit)) and float(limit) >= 0, (name, limit)
     e2e = [m["name"] for m in harness.cell_metrics(BENCH, cell, trace=False)]
     assert "setup_s" in e2e and len(e2e) >= 2
     per = harness.cell_metrics(BENCH, cell, trace=True)
@@ -65,14 +76,23 @@ def test_cell_files_exist_and_agree(cell):
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_files(config):
+    """The family-independent checks, then the family's own.  ``reduced``
+    agrees with BENCHMARK.json's, and each key it lists is recorded with its
+    value at the source under ``published``, which the file's value differs
+    from."""
     path = ROOT / config["file"]
     assert path.parent == harness.HERE / "configs"
     cfg = json.loads(path.read_text())
     assert cfg["name"] == config["name"]
-    assert cfg["reduced"] == config["reduced"] == []
     assert config["name"] in {w["config"] for w in BENCH["workloads"]}
-    assert len(cfg["layer_sizes"]) == cfg["depth"]
-    assert cfg["layer_sizes"][-1] == cfg["input_features"]
+    assert cfg["reduced"] == config["reduced"]
+    assert len(config["reduced"]) <= 16 and len(set(config["reduced"])) == len(config["reduced"])
+    published = cfg.get("published", {})
+    for key in config["reduced"]:
+        assert NAME.match(key), key
+        assert key in cfg and key in published, key
+        assert cfg[key] != published[key], key
+    harness.load("families", cfg["family"]).check_config(cfg)
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])

@@ -148,3 +148,38 @@ def test_a_request_that_lost_its_trace_is_left_out():
     assert tr.kernels() == 20
     assert tr.kernel_s() == pytest.approx((7 * 20 + 19) / 8 * 2e-6)
     assert tr.window_s == pytest.approx(8 * 200e-6 - 100e-6)   # the last ends at its span
+
+
+def test_the_bf16_peak_is_the_data_sheets_dense_rate():
+    """989.4 TFLOP/s, the H100 SXM's dense bf16 rate; the bound still reads the
+    float32 peak, which the LSTM-AE configurations run at."""
+    peak = peaks.peaks_of("NVIDIA H100 80GB HBM3")
+    assert peak["bf16_flops"] == 989.4e12
+    assert peak["fp32_flops"] == 67e12 and peak["hbm_bytes"] == 3.35e12
+    assert peaks.bound_s(67e12, 0.0, "NVIDIA H100 80GB HBM3") == pytest.approx(1.0)
+
+
+def test_idle_share_bulk_reads_the_traced_stretch_on_one_footing():
+    """Busy time and request time are both the profiled requests' own: the share
+    is one minus the line's busy_s over its window_s, whatever the untraced
+    window's requests took, and lies in [0, 100]."""
+    reader = harness.load("metrics", "idle_share.bulk")
+    # back to back, the device busy 98 of each 100 us: the bulk cells' case
+    events = []
+    for t in range(0, 1000, 100):
+        events.append(_ev(devtrace.REQUEST, t, t + 100))
+        events.append(_ev("Memcpy HtoD (Pinned -> Device)", t + 1, t + 50, cuda=True))
+        events.append(_ev("lstm_cell_kernel", t + 51, t + 100, cuda=True))
+    tr = devtrace.read_events(events)
+    assert tr.problem() is None
+    # an untraced window whose requests ran faster than the profiled ones'
+    # busy time: the two footings' share would read below zero
+    samples = harness.Samples(start=0.0, window_s=1.0, latencies_s=[1 / 10500] * 10500)
+    run = harness.Run(config={}, work=None, device_kind="cpu", setup_s=0.0, traffic=None,
+                      samples=samples, trace=tr)
+    assert 1.0 - tr.busy_per_request_s * run.completed / run.window_s < 0
+    got = reader.read(run)
+    assert got == pytest.approx(100.0 * (1 - tr.busy_s / tr.window_s)) == pytest.approx(2.0)
+    assert 0.0 <= got <= 100.0
+    run.trace = None
+    assert reader.read(run) is None

@@ -5,6 +5,11 @@ The inputs are a pool of ``pool`` distinct batches of (``batch``, ``seq_len``,
 features) float32 windows, drawn on the device from the seed and held in pinned
 host memory where ``pinned`` (as a loader with ``pin_memory=True`` hands them
 over), pageable otherwise; request i scores batch i mod ``pool``.
+
+``SMALL`` holds the parameters at which a test runs a cell, a size a test run
+holds, and
+``CONTROL_SECONDS`` the control's window (``control.py``): long enough to
+answer every batch of the pool.
 """
 from __future__ import annotations
 
@@ -12,6 +17,9 @@ import torch
 
 from portbench.closed_loop import Pool, drive, request, warm  # noqa: F401
 from portbench.series import make_windows
+
+SMALL = {"batch": 8, "pool": 2, "warmup_requests": 1}
+CONTROL_SECONDS = 2.0
 
 
 def build(cfg: dict, params: dict, gen: torch.Generator, device: torch.device) -> Pool:

@@ -5,6 +5,12 @@ The inputs are a pool of ``pool`` distinct (1, ``seq_len``, features) float32
 windows, drawn on the device from the seed in one batch and held in pageable
 host memory (as a sensor's window arrives); request i scores window i mod
 ``pool``.  The reference scores the pool ``block`` windows at a time.
+
+``SMALL`` holds the parameters at which a test runs a cell, a size a test run
+holds, and
+``CONTROL_SECONDS`` the control's window (``control.py``): long enough for the
+control to answer all 4,096 windows of the pool, 6 ms a window at f64-d6 on an
+H100.
 """
 from __future__ import annotations
 
@@ -12,6 +18,9 @@ import torch
 
 from portbench.closed_loop import Pool, drive, request, warm  # noqa: F401
 from portbench.series import make_windows
+
+SMALL = {"pool": 6, "reference_block": 6, "warmup_requests": 1}
+CONTROL_SECONDS = 40.0
 
 
 def build(cfg: dict, params: dict, gen: torch.Generator, device: torch.device) -> Pool:
