@@ -4,7 +4,10 @@ Each ``repro_torch/configs/<id>.py`` module defines ``CONFIG`` (the paper's
 configuration) and ``reduced()`` (a smoke-test-sized config of the same
 family).  The port serves every architecture of the reference's registry:
 the paper's four LSTM-AE models, the transformer LMs, dense and MoE, the
-RWKV-6 LM, the Jamba hybrid and the Whisper encoder-decoder.
+RWKV-6 LM, the Jamba hybrid and the Whisper encoder-decoder; and the archs
+of ``PORT_ONLY``, which the reference has no family for (the DeepSeek-V3
+``moonlight-16b-a3b``).  The dry run's cells are the reference's archs'
+(``launch/dryrun.py``): its analytic roofline has no latent attention.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import importlib
 from repro_torch.config.core import ModelConfig
 
 _ARCH_MODULES: dict[str, str] = {
+    # DeepSeek-V3: latent attention, sigmoid-routed experts with shared ones
+    "moonlight-16b-a3b": "repro_torch.configs.moonlight_16b_a3b",
     # MoE decoder-only transformers
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
@@ -36,6 +41,8 @@ _ARCH_MODULES: dict[str, str] = {
 }
 
 REGISTRY = dict(_ARCH_MODULES)  # public view of known ids
+# archs of the port alone: the reference's registry has no family for them
+PORT_ONLY = ("moonlight-16b-a3b",)
 
 
 def _module(arch: str):
@@ -56,3 +63,9 @@ def reduced_config(arch: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return sorted(_ARCH_MODULES)
+
+
+def reference_archs() -> list[str]:
+    """The archs the reference's registry also has: ``list_archs()`` less
+    ``PORT_ONLY``."""
+    return [a for a in list_archs() if a not in PORT_ONLY]

@@ -2,6 +2,15 @@
 
 [hf:moonshotai/Moonlight-16B-A3B; hf]
 48L d_model=2048 16H (GQA kv=16) d_ff=1408 vocab=163840, MoE 64e top-6.
+
+Not Moonlight's architecture, though it cites Moonlight's page: 48
+multi-head attention layers, every one MoE, softmax routing with a capacity
+factor of 1.25 (which drops tokens over capacity), no shared experts and no
+leading dense layer.  Moonlight-16B-A3B as published (27 layers of latent
+attention, a dense first layer, sigmoid routing with a correction bias, 2
+shared experts, dropless) is ``moonlight-16b-a3b``
+(``configs/moonlight_16b_a3b.py``).  These values stay: they are held field
+for field to the reference's registry.
 """
 from repro_torch.config.core import ModelConfig, MoEConfig
 

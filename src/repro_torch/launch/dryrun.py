@@ -39,7 +39,7 @@ import time
 import traceback
 from pathlib import Path
 
-from repro_torch.config import TrainConfig, get_config, list_archs, reduced_config, shapes_for
+from repro_torch.config import TrainConfig, get_config, reduced_config, reference_archs, shapes_for
 from repro_torch.config.core import ShapeConfig
 from repro_torch.core.latency import PAPER_RH_M, serving_floor_ms
 from repro_torch.engine import Placement
@@ -285,7 +285,7 @@ def main(argv=None) -> None:
         placement_report(args)
         return
 
-    archs = [args.arch] if args.arch else list_archs()
+    archs = [args.arch] if args.arch else reference_archs()
     out_dir = Path(args.out)
     cells = []
     for arch in archs:

@@ -405,7 +405,9 @@ def serve_lm(cfg, args) -> None:
     first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
     sync()
     t0 = time.perf_counter()
-    out_tokens, _ = GreedyDecoder(api)(params, cache, first, covered, args.decode_tokens)
+    # in place: the step is captured over this cache, which nothing else reads
+    decoder = GreedyDecoder(api, in_place=True)
+    out_tokens, _ = decoder(params, cache, first, covered, args.decode_tokens)
     sync()
     t_decode = time.perf_counter() - t0
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU"

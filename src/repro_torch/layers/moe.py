@@ -454,3 +454,161 @@ def _scatter_combine(params, xf, weights, indices, cfg: ModelConfig) -> torch.Te
     # combine: gather each (token, choice) result, weight, sum over k
     y = _combine(constrain(out, ("expert", None, None)), slot, dropped, weights, n)
     return y.to(xf.dtype)
+
+
+# -- DeepSeek-MoE: sigmoid scores with a correction bias, shared experts, dropless --
+#
+# The DeepSeek-V3 family's layer (``config/deepseek.py``), beside the softmax
+# router with a capacity above, which it shares nothing with.  Each token is
+# routed to exactly ``num_experts_per_tok`` of ``n_routed_experts`` and
+# reaches every one of them: no capacity, no drop.  The router (f32): scores
+# s = sigmoid(x W_r); the experts chosen are the top k of s + b, b the
+# correction bias, which chooses and never weighs; their weights are the
+# chosen s, divided by their sum (``norm_topk_prob``) and multiplied by
+# ``routed_scaling_factor``.  The shared experts, one SwiGLU
+# ``n_shared_experts`` times an expert's width, take every token.
+#
+EXPERTS_TOUCHED = "repro_torch.moe.experts_touched"   # device counter: [distinct, routings]
+BIAS_STD = 0.03   # the correction bias as ``init_deepseek_moe`` draws it
+
+
+def init_deepseek_moe(generator: torch.Generator, cfg, draw, device=None,
+                      lead: tuple[int, ...] = ()) -> Params:
+    """``draw(shape, fan_in)`` gives each weight (the model's dtype); the
+    correction bias is f32, N(0, BIAS_STD^2): a trained checkpoint's is
+    learned to balance the experts' load, and a zero one would leave the
+    selection untested; at 0.03 a decode step of 32 tokens still touches
+    ~59 of 64 experts a layer (61.3 for balanced choices, ~46 at 0.1)."""
+    e, d, f = cfg.n_routed_experts, cfg.d_model, cfg.moe_intermediate_size
+    fs = f * cfg.n_shared_experts
+    bias = torch.empty(lead + (e,), dtype=torch.float32, device=device)
+    if bias.device.type != "meta":
+        bias.normal_(0.0, BIAS_STD, generator=generator)
+    return {
+        "router": draw(lead + (d, e), d),
+        "bias": bias,
+        "gate": draw(lead + (e, d, f), d),
+        "up": draw(lead + (e, d, f), d),
+        "down": draw(lead + (e, f, d), f),
+        "shared": {"gate": draw(lead + (d, fs), d), "up": draw(lead + (d, fs), d),
+                   "down": draw(lead + (fs, d), fs)},
+    }
+
+
+def deepseek_moe_specs() -> Params:
+    return {"router": (None, None), "bias": (None,),
+            "gate": ("expert", "fsdp", None), "up": ("expert", "fsdp", None),
+            "down": ("expert", None, "fsdp"),
+            "shared": {"gate": ("fsdp", "tp"), "up": ("fsdp", "tp"), "down": ("tp", "fsdp")}}
+
+
+def swiglu_ffn(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """SwiGLU of x (..., D) with ``p``'s "gate" and "up" (D, F) and "down"
+    (F, D), in x's dtype."""
+    dt = x.dtype
+    return (F.silu(x @ p["gate"].to(dt)) * (x @ p["up"].to(dt))) @ p["down"].to(dt)
+
+
+def route_sigmoid(params: Params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (N, D) -> (weights (N, k) f32, indices (N, k) int64), in f32."""
+    scores = torch.sigmoid(x.float() @ params["router"].float())
+    _, indices = torch.topk(scores + params["bias"].float(), cfg.num_experts_per_tok, dim=-1)
+    weights = scores.gather(1, indices)
+    if cfg.norm_topk_prob:
+        weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+    return weights * cfg.routed_scaling_factor, indices
+
+
+def _one_hot(indices: torch.Tensor, e: int) -> torch.Tensor:
+    """(N, k) -> (N, k, E) bool: which expert each choice is."""
+    return indices[:, :, None] == torch.arange(e, device=indices.device)
+
+
+def _count_touched(chosen: torch.Tensor) -> None:
+    """While the program's tracer records: add this routing's distinct
+    experts (``chosen``: (N, k, E), :func:`_one_hot`) and one routing to
+    :data:`EXPERTS_TOUCHED`, on the device."""
+    from repro_torch.obs.trace import PROGRAM
+
+    counter = PROGRAM.device_counter(EXPERTS_TOUCHED, 2, chosen.device)
+    if counter is None:
+        return
+    touched = chosen.flatten(0, 1).any(dim=0).sum()
+    counter.add_(torch.stack([touched, torch.ones_like(touched)]))
+
+
+def _padded_experts(params: Params, xf: torch.Tensor, weights: torch.Tensor,
+                    chosen: torch.Tensor) -> torch.Tensor:
+    """Every expert padded to all N tokens, so nothing drops: the gate, up
+    and down products of every (expert, token) batched over the experts,
+    each expert's activations scaled by the token's weight for it (zero for
+    the experts it did not choose), and the experts' outputs summed in f32.
+    Every expert's weights are read once, as the touched ones' would be at a
+    decode step's few tokens.  No host sync and no memset (each product's
+    form is one cuBLAS captures without one), so a decode step captures
+    whole.  (N, D) f32."""
+    n, d = xf.shape
+    e = params["gate"].shape[0]
+    dt = xf.dtype
+    x = xf.expand(e, n, d)
+    a = F.silu(torch.bmm(x, params["gate"].to(dt))) * torch.bmm(x, params["up"].to(dt))  # (E, N, F)
+    gates = (chosen * weights[:, :, None]).sum(dim=1)                                   # (N, E) f32
+    a = a * gates.t()[:, :, None].to(dt)
+    return torch.bmm(a, params["down"].to(dt)).sum(dim=0, dtype=torch.float32)
+
+
+def _grouped_experts(params: Params, xf: torch.Tensor, weights: torch.Tensor,
+                     indices: torch.Tensor) -> torch.Tensor:
+    """The (token, choice) rows sorted by expert and each expert's rows
+    through its SwiGLU, a loop over the experts: each computes its own rows
+    and no more.  Its row counts are read on the host (one sync), so it runs
+    outside any capture (prefill).  (N, D) f32."""
+    n, k = indices.shape
+    e = params["gate"].shape[0]
+    flat_e = indices.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    token = order // k
+    counts = torch.bincount(flat_e, minlength=e).tolist()
+    rows = xf[token]
+    out = torch.empty_like(rows)
+    at = 0
+    for j, c in enumerate(counts):
+        if c:
+            expert = {name: params[name][j] for name in ("gate", "up", "down")}
+            out[at:at + c] = swiglu_ffn(rows[at:at + c], expert)
+        at += c
+    w = weights.reshape(-1)[order, None]
+    return torch.zeros((n, xf.shape[1]), dtype=torch.float32, device=xf.device).index_add_(
+        0, token, out.float() * w)
+
+
+def apply_deepseek_moe(params: Params, x: torch.Tensor, cfg, *, grouped: bool) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D) in x's dtype: the routed experts' weighted
+    sum plus the shared experts, dropless; the router reads x, the experts
+    x in ``cfg.compute_dtype``.  ``grouped`` sorts the rows by expert
+    (:func:`_grouped_experts`, prefill); else every expert is padded to the
+    N tokens (:func:`_padded_experts`: at a decode step's few tokens each
+    touched expert's weights are read once either way, and it captures)."""
+    b, s, d = x.shape
+    weights, indices = route_sigmoid(params, x.reshape(b * s, d), cfg)
+    xf = x.reshape(b * s, d).to(getattr(torch, cfg.compute_dtype))
+    if grouped:
+        routed = _grouped_experts(params, xf, weights, indices)
+        chosen = _one_hot(indices, cfg.n_routed_experts) if _counting() else None
+    else:
+        chosen = _one_hot(indices, cfg.n_routed_experts)
+        routed = _padded_experts(params, xf, weights, chosen)
+    if chosen is not None:
+        _count_touched(chosen)
+    return (routed + shared_experts(params, xf).float()).to(x.dtype).reshape(b, s, d)
+
+
+def _counting() -> bool:
+    from repro_torch.obs.trace import PROGRAM
+
+    return PROGRAM.counting()
+
+
+def shared_experts(params: Params, xf: torch.Tensor) -> torch.Tensor:
+    """The shared experts on every token: xf (N, D) -> (N, D)."""
+    return swiglu_ffn(xf, params["shared"])

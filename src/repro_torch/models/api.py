@@ -20,7 +20,10 @@ Counterpart of ``repro/models/api.py``.  ``build_model(cfg)`` returns a
   prefill (None where the family has no prefill-then-decode)
 
 The port builds every family of the reference: "transformer" (dense and
-MoE), "rwkv6", "jamba", "whisper" and "lstm_ae"; the LMs' ``loss`` is
+MoE), "rwkv6", "jamba", "whisper" and "lstm_ae", and a family of its own,
+"deepseek_v3" (``models/deepseek_v3.py``: latent attention, DeepSeek-MoE),
+for serving: its ``loss`` raises, its decode cache is the latent cache,
+stitched to ``max_len`` positions.  The other LMs' ``loss`` is
 their ``train_loss`` (a MoE layer adds ``aux_weight`` times its
 load-balance loss).  RWKV-6's decode cache is its recurrent state
 (``init_cache`` and ``stitch`` ignore ``max_len``: the state is
@@ -41,6 +44,7 @@ import torch
 
 from repro_torch.config.core import ModelConfig, ShapeConfig
 from repro_torch.core.lstm import init_lstm_ae, lstm_ae_specs
+from repro_torch.models import deepseek_v3 as ds_m
 from repro_torch.models import jamba as jamba_m
 from repro_torch.models import lstm_ae as lstm_ae_m
 from repro_torch.models import rwkv6 as rwkv6_m
@@ -50,6 +54,13 @@ from repro_torch.utils import Params, resolve_device_or_meta
 
 # family -> the ROADMAP item that ports it
 UNPORTED_FAMILIES: dict[str, str] = {}
+
+
+def _serving_only(cfg: ModelConfig) -> Callable[..., tuple[torch.Tensor, dict]]:
+    def loss(params, batch, **kw):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is ported for "
+                                  f"serving (prefill and decode) only; it has no loss")
+    return loss
 
 
 @dataclass(frozen=True)
@@ -121,6 +132,20 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             stitch=lambda cache, max_len: whisper_m.stitch_decode_cache(cfg, cache, max_len),
             param_specs=lambda: whisper_m.whisper_specs(cfg),
             cache_specs=lambda: whisper_m.decode_cache_specs(cfg),
+        )
+    if cfg.family == "deepseek_v3":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen, device=None: ds_m.init_deepseek_v3(
+                gen, cfg, resolve_device_or_meta(device)),
+            loss=_serving_only(cfg),
+            prefill=lambda p, b, **kw: ds_m.prefill(p, b, cfg, **kw),
+            decode=lambda p, t, c, n: ds_m.decode_step(p, t, c, n, cfg),
+            init_cache=lambda batch, max_len, device=None: ds_m.init_latent_cache(
+                cfg, batch, max_len, device=resolve_device_or_meta(device)),
+            stitch=lambda cache, max_len: ds_m.stitch_latent_cache(cfg, cache, max_len),
+            param_specs=lambda: ds_m.deepseek_v3_specs(cfg),
+            cache_specs=ds_m.latent_cache_specs,
         )
     if cfg.family == "lstm_ae":
         # prefill runs a named engine schedule: pass schedule=... through kw

@@ -157,6 +157,13 @@ class Tracer:
 #   repro_torch.capture.replay      the graph's launch
 #   repro_torch.capture.clone_out   the graph's outputs cloned for the caller
 #
+# and the LM's greedy decoding (``serving.GreedyDecoder``) one of its own:
+#
+#   repro_torch.lm.decode           a decoder call, the root of a request
+#   repro_torch.lm.copy_in          the cache, tokens and position into the capture's buffers
+#   repro_torch.lm.replays          a graph replay a token (each a capture.* triple)
+#   repro_torch.lm.copy_out         the cache back to the caller's
+#
 # A site costs one flag test and one profiler test while neither a recording
 # nor a profiler session is on (``PROGRAM.live()``), and then runs bare.  The
 # program a span ran (``score``, ``mstep``, ``score@shard0``, ...) is an
@@ -353,18 +360,55 @@ class Recording:
 class ProgramTracer:
     """The process's tracer of the port's program (:data:`PROGRAM`): sites
     open spans through :meth:`span` where :meth:`live` says so; a stretch of
-    calls is recorded inside ``with PROGRAM.recording() as rec:``."""
+    calls is recorded inside ``with PROGRAM.recording() as rec:``.
+
+    Device-side counters (:meth:`device_counter`) count what only the device
+    knows (the experts a MoE step routes to) without a sync: a site adds to
+    one while a recording is on (:meth:`counting`), also inside a CUDA graph
+    captured then, whose every replay adds again; :meth:`read_counter` syncs
+    once."""
 
     def __init__(self):
         self.active: Optional[Recording] = None
         self._ids = Tracer()
+        self._counters: dict = {}
 
     def live(self) -> bool:
         """Whether a span opened now is recorded or shown to a profiler."""
         return self.active is not None or _profiling()
 
+    def counting(self) -> bool:
+        """Whether device counters count now: inside a recording only.  A
+        profiler session alone counts nothing, so that a program captured
+        under it is the one captured with the tracer off."""
+        return self.active is not None
+
     def span(self, name: str, program: Optional[str] = None) -> ProgramSpan:
         return ProgramSpan(self, name, program)
+
+    def device_counter(self, name: str, size: int, device):
+        """The int64 tensor of ``size`` slots that counter ``name`` keeps on
+        ``device``, made zeroed at its first call; None while no recording
+        is on (:meth:`counting`), where a site counts nothing.  A site adds to it in place.
+        The first call must not be inside a capture (a captured graph's
+        warm-up run makes it), or each replay would zero it again."""
+        if not self.counting():
+            return None
+        key = (name, str(device))
+        counter = self._counters.get(key)
+        if counter is None:
+            import torch
+
+            counter = self._counters[key] = torch.zeros(size, dtype=torch.int64, device=device)
+        return counter
+
+    def read_counter(self, name: str) -> Optional[list]:
+        """Counter ``name`` summed over its devices, as Python ints (one sync
+        a device); None where no site has made it."""
+        found = [c for (n, _), c in self._counters.items() if n == name]
+        if not found:
+            return None
+        return [sum(v) for v in zip(*(c.tolist() for c in found))]
 
     @contextlib.contextmanager
     def recording(self) -> Iterator[Recording]:

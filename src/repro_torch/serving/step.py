@@ -15,13 +15,29 @@ signature and replays it once per token.  The step closes over static
 buffers (the token, the position and the cache, which the decode step
 writes in place: the transformer's KV cache, RWKV-6's recurrent state,
 Jamba's KV cache and Mamba states, or Whisper's self-KV beside its
-cross-KV, which the step only reads), so the graph clones only the next
-token and its logits, never the cache; the argmax token and
-``cache_len + 1`` stay on the device, so decoding syncs with the host
-once per loop, not per token.
+cross-KV, which the step only reads), so a replay clones only the next
+token, never the cache, and the loop clones the last step's logits once,
+from where the graph writes them; the argmax token and ``cache_len + 1``
+stay on the device, so decoding syncs with the host once per loop, not per
+token.  The step writes the next token into its static input by a
+conversion (int64 into int32), which captures as a kernel, not as a copy
+node.
+
+While the port's tracer is live (``obs.trace.PROGRAM``: a recording or a
+profiler session) a decoder call is a request of its own: the root span
+``repro_torch.lm.decode`` around it, with the stages ``.lm.copy_in`` (the
+caller's cache, token and position into the capture's buffers),
+``.lm.replays`` (a replay a token) and ``.lm.copy_out`` (the cache back).
+A step captured while a recording is on (``PROGRAM.counting()``) is
+another graph from one captured while none is (the two share the static
+buffers): sites that count on the device only then
+(``moe.EXPERTS_TOUCHED``) are in the first and not in the second, so a call
+outside a recording, under a profiler alone too, runs no counter and
+captures nothing anew.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -29,6 +45,7 @@ import torch
 from repro_torch.distributed.sharding import mesh_context, rules_for_mesh
 from repro_torch.engine.capture import GraphCache, signature
 from repro_torch.models.api import ModelAPI
+from repro_torch.obs import trace
 from repro_torch.utils import Params, tree_leaves, tree_map
 
 def _context(mesh, rules):
@@ -87,14 +104,22 @@ class GreedyDecoder:
     copied back after the last.  Params are read by address, like the
     Engine's captured programs: other param tensors capture anew.
     ``jit=False`` (the counterpart of ``EngineConfig(jit=False)``) and the
-    CPU run the same step eagerly on the caller's tensors."""
+    CPU run the same step eagerly on the caller's tensors.
 
-    def __init__(self, api: ModelAPI, *, jit: bool = True):
+    ``in_place=True`` is for a caller that decodes over one cache, as
+    ``launch/serve.py`` does: the step is captured over the caller's cache
+    tensors themselves (keyed by their addresses), so nothing of the cache
+    is copied in or back; a cache at other addresses is captured anew, so a
+    caller with a fresh cache a call keeps the default."""
+
+    def __init__(self, api: ModelAPI, *, jit: bool = True, in_place: bool = False):
         self.api = api
         self.jit = jit
+        self.in_place = in_place
         self.logits: Optional[torch.Tensor] = None
         self._graphs: dict[torch.device, GraphCache] = {}
         self._buffers: dict = {}
+        self._last: dict = {}      # graph key -> the step's last logits, eager and captured
 
     @property
     def captures(self) -> int:
@@ -111,6 +136,15 @@ class GreedyDecoder:
 
     def __call__(self, params: Params, cache: Params, first_token: torch.Tensor,
                  cache_len0, num_steps: int) -> tuple[torch.Tensor, Params]:
+        if not trace.PROGRAM.live():
+            return self._decode(params, cache, first_token, cache_len0, num_steps, False)
+        with trace.PROGRAM.span("repro_torch.lm.decode", self.api.cfg.name):
+            return self._decode(params, cache, first_token, cache_len0, num_steps, True)
+
+    def _stage(self, name: str, live: bool):
+        return trace.PROGRAM.span(name, self.api.cfg.name) if live else contextlib.nullcontext()
+
+    def _decode(self, params, cache, first_token, cache_len0, num_steps: int, live: bool):
         device = first_token.device
         if device.type != "cuda" or not self.jit:
             token = first_token
@@ -124,6 +158,8 @@ class GreedyDecoder:
 
         key = (signature((first_token, cache, params)),
                tuple(t.data_ptr() for t in tree_leaves(params)))
+        if self.in_place:
+            key += (tuple(t.data_ptr() for t in tree_leaves(cache)),)
         graphs = self._graphs.get(device)
         if graphs is None:
             graphs = self._graphs[device] = GraphCache(device)
@@ -132,24 +168,42 @@ class GreedyDecoder:
             bufs = self._buffers[key] = (
                 torch.empty_like(first_token, dtype=torch.int32),
                 torch.empty((), dtype=torch.int32, device=device),
-                tree_map(torch.empty_like, cache))
+                cache if self.in_place else tree_map(torch.empty_like, cache))
         token, n, static_cache = bufs
 
-        def step():
-            nxt, last = self._step(params, token, static_cache, n)
-            token.copy_(nxt[:, None])
-            n.add_(1)
-            return nxt, last
+        gkey = key + (trace.PROGRAM.counting(),)
+        last = self._last.setdefault(gkey, {})
 
-        token.copy_(first_token)
-        n.copy_(torch.as_tensor(cache_len0, dtype=torch.int32))
-        tree_map(lambda dst, src: dst.copy_(src), static_cache, cache)
+        def step():
+            logits, _ = self.api.decode(params, token, static_cache, n)
+            last["graph" if torch.cuda.is_current_stream_capturing() else "eager"] = logits[:, -1, :]
+            nxt = torch.argmax(logits[:, -1, :], dim=-1)
+            token.copy_(nxt[:, None])       # int64 into int32: a kernel, not a graph copy node
+            n.add_(1)
+            return nxt
+
+        with self._stage("repro_torch.lm.copy_in", live):
+            # kernels, not copies: a conversion and a fill (with the
+            # position as the fill's argument, not copied from the host)
+            token.copy_(first_token.to(torch.int64))
+            if isinstance(cache_len0, torch.Tensor):
+                n.copy_(cache_len0)
+            else:
+                n.fill_(int(cache_len0))
+            if static_cache is not cache:
+                tree_map(lambda dst, src: dst.copy_(src), static_cache, cache)
         out = []
-        for _ in range(num_steps):
-            nxt, self.logits = graphs.run(key, step, ())
-            out.append(nxt)
-        tree_map(lambda dst, src: dst.copy_(src), cache, static_cache)
-        return torch.stack(out, dim=1), cache
+        replays = graphs.replays
+        with self._stage("repro_torch.lm.replays", live):
+            for _ in range(num_steps):
+                out.append(graphs.run(gkey, step, ()))
+        # the last step's logits, read where the graph writes them (its first
+        # call's first step ran eagerly, so a capture and no replay reads those)
+        self.logits = last["graph" if graphs.replays > replays else "eager"].clone()
+        with self._stage("repro_torch.lm.copy_out", live):
+            if static_cache is not cache:
+                tree_map(lambda dst, src: dst.copy_(src), cache, static_cache)
+        return torch.stack(out, dim=1).to(torch.int32), cache
 
 
 def greedy_decode_loop(api: ModelAPI, params, cache, first_token, cache_len0,

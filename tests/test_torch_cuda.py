@@ -1855,6 +1855,91 @@ def test_moe_captured_greedy_decode_equals_eager(cuda, arch):
     assert captured.captures == 1 and captured.replays == 2 * 6 - 1
 
 
+# -- moonlight-16b-a3b (DeepSeek-V3: latent attention, DeepSeek-MoE) on the card --
+
+@pytest.mark.cuda
+def test_moonlight_captured_greedy_decode_equals_eager(cuda):
+    """The reduced moonlight-16b-a3b in its bf16: the decode step (the
+    absorbed attention writing the latent cache, the sigmoid router, the
+    padded dropless experts) captured once and replayed per token gives the
+    eager loop's tokens, last logits and cache bit for bit, so nothing in it
+    syncs with the host.  With the program's tracer recording the step is
+    captured again, into a graph of its own, whose replays give the same
+    numbers and add a routing a MoE layer a token to the expert counter."""
+    from repro_torch.config import reduced_config
+    from repro_torch.layers.moe import EXPERTS_TOUCHED
+    from repro_torch.models import build_model
+    from repro_torch.obs.trace import PROGRAM
+    from repro_torch.serving import GreedyDecoder, stitch_prefill_cache
+
+    cfg = reduced_config("moonlight-16b-a3b")
+    api = build_model(cfg)
+    params = api.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (5, 11), generator=torch.Generator(cuda).manual_seed(1),
+                         device=cuda, dtype=torch.int32)
+    logits, pre = api.prefill(params, {"tokens": toks})
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    eager = GreedyDecoder(api, jit=False)
+    captured = GreedyDecoder(api)
+    want, want_cache = eager(params, stitch_prefill_cache(api, pre, 11 + 6), first, 11, 6)
+    for call in range(2):
+        got, got_cache = captured(params, stitch_prefill_cache(api, pre, 11 + 6), first, 11, 6)
+        assert torch.equal(got, want) and torch.equal(captured.logits, eager.logits)
+        assert torch.equal(got_cache["latent"], want_cache["latent"])
+    assert captured.captures == 1 and captured.replays == 2 * 6 - 1
+    # in place, as a serving loop over one cache runs it: the same numbers
+    # from a graph captured over the caller's own cache, copied nowhere
+    in_place = GreedyDecoder(api, in_place=True)
+    cache = stitch_prefill_cache(api, pre, 11 + 6)
+    for call in range(2):
+        got, got_cache = in_place(params, cache, first, 11, 6)
+        assert got_cache is cache and torch.equal(got_cache["latent"], want_cache["latent"])
+        assert torch.equal(got, want) and torch.equal(in_place.logits, eager.logits)
+    assert in_place.captures == 1
+    moe_layers = cfg.num_layers - cfg.first_k_dense_replace
+    with PROGRAM.recording() as rec:
+        got, _ = captured(params, stitch_prefill_cache(api, pre, 11 + 6), first, 11, 6)
+        before = PROGRAM.read_counter(EXPERTS_TOUCHED)
+        got, _ = captured(params, stitch_prefill_cache(api, pre, 11 + 6), first, 11, 6)
+        after = PROGRAM.read_counter(EXPERTS_TOUCHED)
+    assert torch.equal(got, want) and torch.equal(captured.logits, eager.logits)
+    assert captured.captures == 2
+    assert after[1] - before[1] == 6 * moe_layers
+    per_step = (after[0] - before[0]) / (after[1] - before[1])
+    assert cfg.num_experts_per_tok <= per_step <= cfg.n_routed_experts
+    assert rec.describe()["spans"]["repro_torch.lm.decode"]["calls"] == 2
+
+
+@pytest.mark.cuda
+def test_moonlight_card_matches_the_reference(cuda):
+    """The reduced moonlight-16b-a3b in f32 (TF32 off) on the card: its
+    prefill, and two captured decode steps through the latent cache, against
+    the benchmark's plain reference (``portbench/reference/deepseek_v3_plain.py``)
+    at the CPU tests' bar (tests/test_torch_moonlight.py)."""
+    from portbench.families.deepseek_v3 import spec_of
+    from portbench.reference import deepseek_v3_plain as plain
+    from repro_torch.config import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import GreedyDecoder, stitch_prefill_cache
+
+    cfg = reduced_config("moonlight-16b-a3b").with_overrides(param_dtype="float32",
+                                                            compute_dtype="float32")
+    api = build_model(cfg)
+    params = api.init(torch.Generator(cuda).manual_seed(2), device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (4, 13), generator=torch.Generator(cuda).manual_seed(3),
+                         device=cuda)
+    logits, pre = api.prefill(params, {"tokens": toks})
+    cache = stitch_prefill_cache(api, pre, 13 + 2)
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    decoder = GreedyDecoder(api)
+    out, _ = decoder(params, cache, first, 13, 2)
+    for got, ids in ((logits[:, -1], toks),
+                     (decoder.logits, torch.cat([toks, first, out[:, :1]], dim=1))):
+        want, _ = plain.forward(params, ids.long(), spec_of(cfg))
+        err = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+        assert float(err.max()) < 1e-4, err
+
+
 # -- RWKV-6 on the card: its WKV runs through K3 -------------------------------
 
 def _k3_launches() -> int:

@@ -30,14 +30,16 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
 def test_config_copy_matches_reference():
     """Every arch of the reference's registry is the port's, field for field
     (``dataclasses.asdict``), full and reduced: the paper configs'
-    ``subquadratic=True`` included."""
+    ``subquadratic=True`` included.  The port has one arch more, of a family
+    the reference lacks (``tests/test_torch_moonlight.py``)."""
     import dataclasses
 
     from repro.config import list_archs as jax_list_archs
     from repro.config import reduced_config as jax_reduced_config
     from repro_torch.config import list_archs, reduced_config
 
-    assert list_archs() == jax_list_archs()
+    # the port's registry is the reference's and its own DeepSeek-V3 arch
+    assert list_archs() == sorted(jax_list_archs() + ["moonlight-16b-a3b"])
     for arch in jax_list_archs():
         for mine, ref in ((get_config(arch), jax_get_config(arch)),
                           (reduced_config(arch), jax_reduced_config(arch))):

@@ -232,9 +232,19 @@ def test_wkv6_meta_returns_the_kernels_shapes():
 # ------------------------------------------------------------ the reference's parts
 
 def _all_cells():
-    from repro_torch.config import get_config, list_archs, shapes_for
+    """The dry run's cells: the reference's archs (the port's list is theirs
+    and moonlight-16b-a3b, which the analytic roofline does not count)."""
+    from repro.config import list_archs as jax_list_archs
+    from repro_torch.config import get_config, shapes_for
 
-    return [(a, s.name) for a in list_archs() for s in shapes_for(get_config(a))]
+    return [(a, s.name) for a in jax_list_archs() for s in shapes_for(get_config(a))]
+
+
+def test_port_archs_are_the_references_plus_moonlight():
+    from repro.config import list_archs as jax_list_archs
+    from repro_torch.config import list_archs
+
+    assert list_archs() == sorted(jax_list_archs() + ["moonlight-16b-a3b"])
 
 
 @pytest.mark.parametrize("arch", sorted({a for a, _ in _all_cells()}))

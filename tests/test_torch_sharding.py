@@ -33,7 +33,9 @@ import repro_torch.training.step as tstep  # noqa: E402
 from repro_torch.engine.placement import make_mesh  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
 
-ARCHS = tconfig.list_archs()
+# parity with the reference: its archs (the port's own moonlight-16b-a3b has
+# no counterpart; tests/test_torch_moonlight.py holds its structs)
+ARCHS = jconfig.list_archs()
 SIZES = ("full", "reduced")
 LOGICAL = (None, "batch", "sp", "tp", "expert", "fsdp", "tokens")
 TRAIN_CONFIGS = (tconfig.TrainConfig(), tconfig.TrainConfig(grad_compression="int8_ef"))
@@ -75,6 +77,10 @@ def _shapes(tree) -> dict:
     """path -> (shape, dtype name) of a struct or tensor tree."""
     return {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
             for k, v in _flat(tree).items() if v is not None}
+
+
+def test_port_archs_are_the_references_plus_moonlight():
+    assert tconfig.list_archs() == sorted(ARCHS + ["moonlight-16b-a3b"])
 
 
 # -- ShardingRules and the helpers --------------------------------------------
